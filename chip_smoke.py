@@ -9,25 +9,37 @@ prints no result line):
      and power limit as nvidia-smi reports them;
   2. build: compiles the CUDA kernels from fhe_si_tpu_torch/csrc;
   3. each kernel against its plain PyTorch version on the card, at the
-     tables of m = 8192, 256 and 32 (full chain and keyswitch basis),
-     with a ragged row count, the forward/inverse round trip and both
-     inverse tables, bit for bit; plus the int32 semantics the port
-     relies on (wraparound, round half to even, arithmetic >>);
+     narrow tables of m = 8192, 256 and 32 and the wide (23-bit prime)
+     tables of the regression context (m = 8192, logQ 213) and of
+     m = 256 and 32, on the full chain and both subset bases, with a
+     ragged row count, a [2, 3] lead shape, the forward/inverse round
+     trip and both inverse tables, bit for bit; plus the int32 semantics
+     the port relies on (wraparound, round half to even, arithmetic >>);
   4. the main path at FheContext(m=8192, log_q=80, p=40961, g=3):
      keygen, relinearization key, batched encrypt of 64 pairs, batched
      multiply + relinearize, batched decrypt; every decrypt must equal
      the plaintext product, and every kernel must have launched.  At
      m = 256 the ciphertext parts must also equal hostmath/oracle.py;
   5. timing with CUDA events: mul+relin at batch 64 and each kernel
-     against its plain version at the main path's shapes.
+     against its plain version at the main path's shapes and at the
+     regression app's wide shapes;
+  6. the applications: the port's Test_Regression and Test_Statistics
+     CLIs at m = 8192, p = 40961, g = 3 on a d = 4, n = 256 dataset made
+     from the seed (both on the wide lane); each must print MATCH and
+     launch every kernel.  Prints each app's phase times, L, lane and
+     peak device memory.
 The line before the last is the card's name and power limit; the last
 is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -38,6 +50,7 @@ BATCH = 64                 # ciphertext pairs per mul+relin step
 MAIN = dict(m=8192, log_q=80, p=40961, generator=3)
 SMALL = [dict(m=256, log_q=80, p=257, generator=3),
          dict(m=32, log_q=80, p=97, generator=3)]
+APP = dict(p=40961, generator=3, m=8192, dim=4, n=256)
 PALLAS = "fhe_si_tpu/ops/ntt_ct_pallas.py"
 KERNELS = {   # wrapper -> Pallas kernel body it replaces
     "ct_fwd": f"{PALLAS}:148",
@@ -94,8 +107,21 @@ def probe_semantics(dev):
         raise AssertionError("barrett on CUDA disagrees with exact t mod q")
 
 
+def app_contexts():
+    """FheContext arguments of the two apps at APP, logQ and xi derived as
+    the reference's Test_Regression / Test_Statistics derive them."""
+    from fhe_si_tpu_torch.apps import regression, statistics
+    out = {}
+    for name, mod in (("regression", regression), ("statistics", statistics)):
+        log_q, xi = mod.derive_log_q(APP["n"], APP["dim"], APP["p"])
+        out[name] = dict(m=APP["m"], log_q=log_q, p=APP["p"],
+                         generator=APP["generator"], xi=xi)
+    return out
+
+
 def phase_kernels(dev):
-    """Each kernel against its plain version on the card, bit for bit."""
+    """Each kernel against its plain version on the card, bit for bit, on
+    the narrow and the wide tables."""
     import torch
     from fhe_si_tpu_torch import DeviceContext, FheContext
     from fhe_si_tpu_torch.ops import ntt_ct, ntt_ct_cuda
@@ -108,10 +134,16 @@ def phase_kernels(dev):
         if d:
             raise AssertionError(f"{name}: kernel differs from plain by {d}")
 
-    for cfg in [MAIN] + SMALL:
-        dc = DeviceContext(FheContext(**cfg), dev)
+    wide = [app_contexts()["regression"]] + [
+        dict(cfg, prime_bits=23) for cfg in SMALL]
+    for cfg, want_wide in ([(c, False) for c in [MAIN] + SMALL]
+                           + [(c, True) for c in wide]):
+        ctx = FheContext(**cfg)
+        if ctx.wide != want_wide:
+            raise AssertionError(f"{cfg}: wide lane is {ctx.wide}")
+        dc = DeviceContext(ctx, dev)
         meta = dc.ct_meta
-        for basis, T in (("full", dc.full), ("ksw", dc.ksw)):
+        for basis, T in (("full", dc.full), ("ksw", dc.ksw), ("lin", dc.lin)):
             tab = T['ct']
             q_np = T['primes_np']
             L, N = len(q_np), meta.N
@@ -133,7 +165,8 @@ def phase_kernels(dev):
                 check("ct_fwd_digits",
                       ntt_ct_cuda.ct_fwd_digits(tab, digs, meta, 24),
                       ntt_ct.ct_fwd_digits(tab, digs, meta, 24))
-            print(f"kernels == plain: m={cfg['m']} basis={basis} "
+            print(f"kernels == plain: m={cfg['m']} logQ={cfg['log_q']} "
+                  f"{'wide' if ctx.wide else 'narrow'} basis={basis} "
                   f"N1xN2={meta.N1}x{meta.N2} L={L}")
     torch.cuda.synchronize()
     return err
@@ -181,6 +214,90 @@ def oracle_check_small(dev):
           "decrypt)")
 
 
+def time_kernels(card, dev, dc, cases):
+    """Each (kernel, basis, rows) case against its plain version on random
+    operands: held equal, then timed plain, kernel, kernel, plain.
+    Returns {kernel: (kernel ms, plain ms)} of each kernel's first case."""
+    import torch
+    from fhe_si_tpu_torch.ops import ntt_ct, ntt_ct_cuda
+    rng = np.random.default_rng(SEED)
+    meta = dc.ct_meta
+    lane = "wide" if dc.wide else "narrow"
+    out = {}
+    for name, basis, rows in cases:
+        T = getattr(dc, basis)
+        tab, q_np = T['ct'], T['primes_np']
+        if name == "ct_fwd_digits":
+            x = rng.integers(0, 1 << dc.digit_bits, size=(rows, meta.N))
+            run = lambda m, x: m.ct_fwd_digits(  # noqa: E731
+                tab, x, meta, dc.digit_bits)
+        else:
+            x = rng.integers(0, q_np[:, None], size=(rows, len(q_np), meta.N))
+            run = (lambda m, x: m.ct_fwd(tab, x, meta)) if name == "ct_fwd" \
+                else (lambda m, x: m.ct_inv(tab, x, meta, 't2i_crt'))
+        x = torch.as_tensor(x.astype(np.int32), device=dev)
+        if not torch.equal(run(ntt_ct_cuda, x), run(ntt_ct, x)):
+            raise AssertionError(f"{name}: kernel != plain at {tuple(x.shape)}")
+        for _ in range(2):
+            run(ntt_ct_cuda, x)
+            run(ntt_ct, x)
+        p1 = cuda_ms(lambda: run(ntt_ct, x), 5)
+        k1 = cuda_ms(lambda: run(ntt_ct_cuda, x), 5)
+        k2 = cuda_ms(lambda: run(ntt_ct_cuda, x), 5)
+        p2 = cuda_ms(lambda: run(ntt_ct, x), 5)
+        k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        print(f"[{card}] {name} {lane} m={dc.ctx.m} {basis} "
+              f"{tuple(x.shape)}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+        out.setdefault(name, (k_ms, p_ms))
+    return out
+
+
+def phase_apps(dev, card):
+    """The port's app CLIs at APP on the card.  Returns each app's kernel
+    launch counts, read after its run with the counts set to 0 before."""
+    import torch
+    from fhe_si_tpu.cli.gen_data import generate
+    from fhe_si_tpu_torch.cli import test_regression, test_statistics
+    from fhe_si_tpu_torch.ops import ntt_ct_cuda
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "data.txt")
+        generate(path, APP["dim"], APP["n"], seed=SEED)
+        for name, cli in (("regression", test_regression),
+                          ("statistics", test_statistics)):
+            argv = ["chip_smoke", path, str(APP["p"]), str(APP["generator"]),
+                    str(SEED), f"--m={APP['m']}", f"--device={dev}"]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            out, err = io.StringIO(), io.StringIO()
+            ntt_ct_cuda.reset_launches()
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                rc = cli.main(argv)
+            torch.cuda.synchronize()
+            launches[name] = dict(ntt_ct_cuda.LAUNCHES)
+            text = out.getvalue()
+            print(text, end="")
+            if rc != 0 or text.rstrip().splitlines()[-1] != "MATCH":
+                raise AssertionError(f"{name}: no MATCH (rc {rc})\n"
+                                     f"{err.getvalue()}")
+            if "(wide lane)" not in text:
+                raise AssertionError(f"{name}: expected the wide lane")
+            for k, n in launches[name].items():
+                if n <= 0:
+                    raise AssertionError(f"{name} did not launch {k}")
+            phases = json.loads(err.getvalue().split("[phases] ", 1)[1]
+                                .splitlines()[0])
+            lane = next(ln.strip() for ln in text.splitlines()
+                        if ln.strip().startswith("primes:"))
+            print(f"[{card}] app {name} m={APP['m']} {lane}: "
+                  + ", ".join(f"{k} {v:.3f} s" for k, v in phases.items())
+                  + f"; peak device memory "
+                  f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f} GiB;"
+                  f" launches {launches[name]}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -190,7 +307,7 @@ def main() -> int:
     from fhe_si_tpu import sampling
     from fhe_si_tpu.hostmath import oracle
     from fhe_si_tpu_torch import DeviceContext, FheContext, scheme
-    from fhe_si_tpu_torch.ops import ntt_ct, ntt_ct_cuda
+    from fhe_si_tpu_torch.ops import ntt_ct_cuda
 
     # 1. device
     dev = torch.device("cuda:0")
@@ -269,52 +386,38 @@ def main() -> int:
     for name, fn in stages.items():
         print(f"[{card}] stage {name}: {cuda_ms(fn, 5):.3f} ms")
 
-    rng = np.random.default_rng(SEED)
-    meta, F, K = dc.ct_meta, dc.full, dc.ksw
-
-    def residues(T, rows):
-        q_np = T['primes_np']
-        return torch.as_tensor(rng.integers(
-            0, q_np[:, None], size=(rows, len(q_np), meta.N)).astype(np.int32),
-            device=dev)
-
-    x_f = residues(F, BATCH * 4)
-    e_f = residues(F, BATCH * 3)
-    e_k = residues(K, BATCH * 2)
-    d_k = torch.as_tensor(rng.integers(0, 1 << 24, size=(
-        BATCH * 3 * ctx.ndigits, meta.N)).astype(np.int32), device=dev)
-    cases = [
-        ("ct_fwd", x_f, lambda m, x: m.ct_fwd(F['ct'], x, meta)),
-        ("ct_inv", e_f, lambda m, x: m.ct_inv(F['ct'], x, meta, 't2i_crt')),
-        ("ct_inv", e_k, lambda m, x: m.ct_inv(K['ct'], x, meta, 't2i_crt')),
-        ("ct_fwd_digits", d_k,
-         lambda m, x: m.ct_fwd_digits(K['ct'], x, meta, ctx.digit_bits)),
-    ]
-    kernels = {}
-    for name, x, run in cases:
-        got, want = run(ntt_ct_cuda, x), run(ntt_ct, x)
-        if not torch.equal(got, want):
-            raise AssertionError(f"{name}: kernel != plain at {tuple(x.shape)}")
-        for _ in range(2):
-            run(ntt_ct_cuda, x)
-            run(ntt_ct, x)
-        # plain, kernel, kernel, plain
-        p1 = cuda_ms(lambda: run(ntt_ct, x), 5)
-        k1 = cuda_ms(lambda: run(ntt_ct_cuda, x), 5)
-        k2 = cuda_ms(lambda: run(ntt_ct_cuda, x), 5)
-        p2 = cuda_ms(lambda: run(ntt_ct, x), 5)
-        k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
-        print(f"[{card}] {name} {tuple(x.shape)}: kernel {k_ms:.4f} ms, "
-              f"plain {p_ms:.4f} ms")
-        if name not in kernels:   # the first shape of each kernel is reported
-            kernels[name] = dict(
-                name=name, route="cuda", source="fhe_si_tpu_torch/csrc/ct_ntt.cu",
-                replaces=KERNELS[name], launches=launches[name],
-                max_abs_err=max_err[name], ms=k_ms, plain_ms=p_ms)
-    print(f"peak device memory: "
+    narrow_ms = time_kernels(card, dev, dc, [
+        ("ct_fwd", "full", BATCH * 4), ("ct_inv", "full", BATCH * 3),
+        ("ct_inv", "ksw", BATCH * 2),
+        ("ct_fwd_digits", "ksw", BATCH * 3 * ctx.ndigits)])
+    # the regression app's shapes at d = 4, one block: 14 products of
+    # 2 x 2 parts lifted, 14 x 3 tensored parts back, 20 entries x 2 parts
+    # keyswitched (digits on the ksw basis, the dot's result back on it)
+    rdc = DeviceContext(FheContext(**app_contexts()["regression"]), dev)
+    wide_ms = time_kernels(card, dev, rdc, [
+        ("ct_fwd", "full", 14 * 4), ("ct_inv", "full", 14 * 3),
+        ("ct_inv", "ksw", 20 * 2),
+        ("ct_fwd_digits", "ksw", 20 * 2 * rdc.ndigits)])
+    del rdc
+    print(f"peak device memory (phases 3-5): "
           f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
 
-    print(json.dumps({"kernels": list(kernels.values())}))
+    # 6. the applications
+    app_launches = phase_apps(dev, card)
+    kernels = []
+    for name in KERNELS:
+        kernels.append(dict(
+            name=name, route="cuda", source="fhe_si_tpu_torch/csrc/ct_ntt.cu",
+            replaces=KERNELS[name],
+            launches=sum(n[name] for n in app_launches.values()),
+            launches_by_path=dict(
+                mul_relin=launches[name],
+                **{app: n[name] for app, n in app_launches.items()}),
+            max_abs_err=max_err[name],
+            ms=narrow_ms[name][0], plain_ms=narrow_ms[name][1],
+            wide_ms=wide_ms[name][0], wide_plain_ms=wide_ms[name][1]))
+
+    print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

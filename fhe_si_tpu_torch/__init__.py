@@ -1,12 +1,15 @@
 """fhe_si_tpu_torch — the FHE-SI scheme of fhe_si_tpu in PyTorch, with
 hand-written CUDA kernels for the NVIDIA H100.
 
-Covers homomorphic multiply + relinearize end to end (keygen,
-relinearization key, encrypt, tensor product, ScaleDown, keyswitch,
-decrypt) on power-of-two rings over the narrow residue lane.  Every
-tensor equals the one fhe_si_tpu computes from the same randomness.  The
-package imports torch and numpy, and from fhe_si_tpu only its JAX-free
-host modules (sampling, hostmath, the context helpers).
+Covers power-of-two rings on both residue lanes (chain primes below 2^20,
+or below 2^23 where the narrow chain runs out): keygen, encrypt, decrypt,
+the adds, scalar and constant multiplies, multiply + relinearize,
+automorph and rotation with their key-switch keys, and the reference's
+two applications, encrypted regression and statistics, with their CLIs.
+Every tensor equals the one fhe_si_tpu computes from the same
+randomness.  The package imports torch and numpy, and from fhe_si_tpu
+only its JAX-free host modules (sampling, hostmath, profiling, the
+context helpers, and apps/matrix.py by path).
 """
 from . import scheme, state  # noqa: F401
 from .context import FheContext  # noqa: F401

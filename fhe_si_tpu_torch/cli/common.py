@@ -1,0 +1,74 @@
+"""What the two app CLIs share: their arguments, the device choice and
+phase timing that waits for the card."""
+from __future__ import annotations
+
+import contextlib
+import sys
+import time
+from typing import NamedTuple
+
+import torch
+
+from fhe_si_tpu.profiling import PhaseProfiler
+
+
+class Args(NamedTuple):
+    datafile: str
+    p: int
+    g: int
+    seed: int
+    m: int | None
+    device: torch.device
+
+
+def parse(argv, name: str) -> Args | None:
+    """datafile p generator [seed] [--m=M] [--device=D] [--trace DIR].
+    Prints the reason and returns None when the run cannot start."""
+    argv = list(argv)
+    if "--trace" in argv:
+        print(f"{name}: --trace is not ported yet (ROADMAP item 10)",
+              file=sys.stderr)
+        return None
+    m, device = None, "cuda:0"
+    for a in list(argv):
+        if a.startswith("--m="):
+            m = int(a.split("=", 1)[1])
+            argv.remove(a)
+        elif a.startswith("--device="):
+            device = a.split("=", 1)[1]
+            argv.remove(a)
+    if len(argv) < 4:
+        print(f"usage: {name} datafile p generator [seed] [--m=M] "
+              "[--device=cuda:0|cpu]")
+        return None
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print(f"{name}: CUDA is not available; pass --device=cpu to run on "
+              "the CPU", file=sys.stderr)
+        return None
+    if device.type not in ("cuda", "cpu"):
+        print(f"{name}: no kernels for device {device}", file=sys.stderr)
+        return None
+    seed = int(argv[4]) if len(argv) > 4 else int(time.time())
+    return Args(argv[1], int(argv[2]), int(argv[3]), seed, m, device)
+
+
+class Profiler(PhaseProfiler):
+    """PhaseProfiler whose phases end only when the card's queued work
+    has finished, so a phase time on CUDA is not a launch time."""
+
+    def __init__(self, device: torch.device):
+        super().__init__()
+        self.device = device
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        with super().phase(name):
+            yield
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+
+def describe(ctx, device: torch.device) -> str:
+    return (f"  m: {ctx.m}\n  primes: {ctx.num_primes} "
+            f"({'wide' if ctx.wide else 'narrow'} lane)\n  device: {device}")

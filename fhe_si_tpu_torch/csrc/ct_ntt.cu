@@ -1,5 +1,6 @@
-// Two-level Cooley-Tukey NTT kernels for the narrow residue lane
-// (primes q < 2^20, power-of-two m), written for Hopper (sm_90a).
+// Two-level Cooley-Tukey NTT kernels for both residue lanes (primes
+// q < 2^20 narrow, q < 2^23 wide; power-of-two m), written for Hopper
+// (sm_90a).
 //
 // Replaces the three Pallas TPU kernels of fhe_si_tpu/ops/ntt_ct_pallas.py:
 //   fsi_ct_fwd        <- _fwd_res_kernel     (forward NTT of residues)
@@ -15,12 +16,18 @@
 // Every stage output is the canonical residue, so the kernels are
 // bit-identical to the TPU kernels' int8-plane Karatsuba + Barrett-Horner.
 //
-// Exactness: each stage accumulates in unsigned 64-bit and reduces once.
-// Residue stages sum at most N1 <= 2^13 products below 2^20 * 2^20, so
-// the sum stays below 2^53; the digit stage multiplies digits below 2^31
-// (any nonnegative int32; the keyswitch passes 24-bit digits) by table
-// entries below 2^20, below 2^64 for K <= 2^13.  The twiddle product is
-// below 2^40.
+// Exactness: each stage accumulates in unsigned 64-bit and reduces once,
+// so it is exact while K products of a table entry (below q) and an
+// operand stay below 2^64.  The wrappers in ops/ntt_ct_cuda.py hold
+// q < 2^23 and digits below 2^24 (digit_bits <= 24); under those:
+//   residue stages: K * 2^23 * 2^23 = K * 2^46 < 2^64 for K < 2^18
+//     (narrow lane: K * 2^40, below 2^53 at K <= 2^13);
+//   digit stage:    K * 2^24 * 2^23 = K * 2^47 < 2^64 for K < 2^17
+//     (2^60 at K = N2 = 2^13; m = 8192 has K = 64);
+//   twiddle:        one product below 2^46.
+// A digit below 2^31 (any nonnegative int32) is exact only while
+// K * 2^31 * q < 2^64, so the wrapper's 24-bit cap is what keeps the
+// digit stage exact on the wide lane.
 //
 // What bounds it on this card, and the design: one block per (row, prime);
 // the row (N int32) and the stage-1 intermediate (N int32) live in shared
@@ -67,12 +74,12 @@ ct_fwd_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ t2,
   for (int i = threadIdx.x; i < N; i += blockDim.x) {
     const int c1 = i % N1, j2 = i / N1;
     const int32_t* trow = T2 + j2 * N2;
-    // each term < 2^40 for residues, < 2^51 for digits below 2^31;
-    // N2 <= 2^13 terms stay below 2^64
+    // each term < 2^46 for residues, < 2^47 for 24-bit digits (q < 2^23);
+    // N2 <= 2^13 terms stay below 2^60
     uint64_t acc = 0;
     for (int c2 = 0; c2 < N2; ++c2)
       acc += static_cast<uint64_t>(static_cast<uint32_t>(trow[c2])) * xs[c2 * N1 + c1];
-    const uint64_t y = acc % ql;   // y * tw < 2^40
+    const uint64_t y = acc % ql;   // y * tw < 2^46
     ys[c1 * N2 + j2] = static_cast<uint32_t>(
         y * static_cast<uint32_t>(TW[c1 * N2 + j2]) % ql);
   }
@@ -83,7 +90,7 @@ ct_fwd_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ t2,
   for (int i = threadIdx.x; i < N; i += blockDim.x) {
     const int j2 = i % N2, j1 = i / N2;
     const int32_t* trow = T1 + j1 * N1;
-    uint64_t acc = 0;                // < 2^40 * N1 <= 2^53
+    uint64_t acc = 0;                // < 2^46 * N1 <= 2^59
     for (int c1 = 0; c1 < N1; ++c1)
       acc += static_cast<uint64_t>(static_cast<uint32_t>(trow[c1])) * ys[c1 * N2 + j2];
     orow[i] = static_cast<int32_t>(acc % ql);
@@ -115,10 +122,10 @@ ct_inv_kernel(const int32_t* __restrict__ e, const int32_t* __restrict__ t1i,
   for (int i = threadIdx.x; i < N; i += blockDim.x) {
     const int j2 = i % N2, c1 = i / N2;
     const int32_t* trow = T1 + c1 * N1;
-    uint64_t acc = 0;                // < 2^40 * N1 <= 2^53
+    uint64_t acc = 0;                // < 2^46 * N1 <= 2^59
     for (int j1 = 0; j1 < N1; ++j1)
       acc += static_cast<uint64_t>(static_cast<uint32_t>(trow[j1])) * es[j1 * N2 + j2];
-    const uint64_t z = acc % ql;   // z * twi < 2^40
+    const uint64_t z = acc % ql;   // z * twi < 2^46
     zs[j2 * N1 + c1] = static_cast<uint32_t>(
         z * static_cast<uint32_t>(TW[c1 * N2 + j2]) % ql);
   }
@@ -129,7 +136,7 @@ ct_inv_kernel(const int32_t* __restrict__ e, const int32_t* __restrict__ t1i,
   for (int i = threadIdx.x; i < N; i += blockDim.x) {
     const int c1 = i % N1, c2 = i / N1;
     const int32_t* trow = T2 + c2 * N2;
-    uint64_t acc = 0;                // < 2^40 * N2 <= 2^53
+    uint64_t acc = 0;                // < 2^46 * N2 <= 2^59
     for (int j2 = 0; j2 < N2; ++j2)
       acc += static_cast<uint64_t>(static_cast<uint32_t>(trow[j2])) * zs[j2 * N1 + c1];
     orow[i] = static_cast<int32_t>(acc % ql);

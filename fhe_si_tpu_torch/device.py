@@ -1,13 +1,14 @@
 """DeviceContext: the scheme's device pipelines for one FheContext on one
 torch.device.
 
-Counterpart of fhe_si_tpu/device.py for the slice this package covers:
-power-of-two m on the narrow residue lane (the Cooley-Tukey family),
-with p < 2^20 and decompSize <= 3.  The tables of the JAX DeviceContext
-live here as torch tensors on `device`; every function is a plain eager
-function of tensors (no jit, no vmap), rank-generic with a native batch
-axis in front.  The three transforms go through ops/ntt_ct_cuda.py: the
-Hopper kernels for CUDA tensors, the plain versions for CPU tensors.
+Counterpart of fhe_si_tpu/device.py for power-of-two m (the Cooley-Tukey
+family) on both residue lanes (narrow: primes < 2^20; wide: primes
+< 2^23, wherever the narrow chain runs out), with p < 2^20 and
+decompSize <= 3.  The tables of the JAX DeviceContext live here as torch
+tensors on `device`; every function is a plain eager function of tensors
+(no jit, no vmap), rank-generic with a native batch axis in front.  The
+three transforms go through ops/ntt_ct_cuda.py: the Hopper kernels for
+CUDA tensors, the plain versions for CPU tensors.
 
 Pipeline map to the reference (file:line into the dwu4/fhe-si sources):
   from_poly   = Cmodulus::FFT per prime        CModulus.cpp:89-107
@@ -18,6 +19,7 @@ Pipeline map to the reference (file:line into the dwu4/fhe-si sources):
   tensor_mul  = Ciphertext::operator*=         Ciphertext.cpp:167-192
   scale_down  = Ciphertext::ScaleDown          Ciphertext.cpp:194-218
   keyswitch   = KeySwitchSI::ApplyKeySwitch    FHE-SI.cpp:241-260
+  automorph   = DoubleCRT::automorph           DoubleCRT.cpp:439-465
 """
 from __future__ import annotations
 
@@ -34,9 +36,6 @@ class DeviceContext:
             raise NotImplementedError(
                 f"m={ctx.m}: only power-of-two rings (the Cooley-Tukey "
                 "family) are ported")
-        if ctx.wide:
-            raise NotImplementedError("the wide 23-bit residue lane is not "
-                                      "ported")
         self.ctx = ctx
         self.device = torch.device(device)
         self.phim = ctx.phim
@@ -47,6 +46,7 @@ class DeviceContext:
         self.digit_bits = ctx.digit_bits
         self.ndigits = ctx.ndigits
         self.p = ctx.p
+        self.wide = ctx.wide            # residue lane of every mod_mul/dot
 
         rt = ctx.residue_tables
         self.ct_meta, ct_full = ntt_ct.ct_tables(ctx.m, ctx.primes, ctx.roots)
@@ -94,6 +94,7 @@ class DeviceContext:
         self.p_chunk_tbl = self._i32(rt['p_chunk_tbl'])
         self.pinv_f = torch.tensor(np.float32(1.0 / ctx.p), device=self.device)
         self._wraps: dict = {}
+        self._perms: dict = {}
 
     # ------------------------------------------------------------- tables
     def _i32(self, a):
@@ -137,14 +138,15 @@ class DeviceContext:
 
     def _from_poly_sub(self, T, poly_limbs):
         wrap = self._wrap_const(T['primes_np'], poly_limbs.shape[-1])
-        res = crt.limbs_to_residues(poly_limbs, T['chunk_tbl'], wrap,
-                                    T['q'], T['qinv_f'])
+        res = crt.limbs_to_residues(poly_limbs, T['chunk_tbl'], wrap, T['q'],
+                                    T['qinv_f'], self.wide)
         return self._fwd_t(T, res)
 
     def _to_poly_sub(self, T, evals):
         res = self._inv_crt_t(T, evals)
         return crt.residues_to_limbs_fast(res, T['fast_crt'], T['q'],
-                                          T['qinv_f'], prescaled=True)
+                                          T['qinv_f'], prescaled=True,
+                                          wide=self.wide)
 
     @staticmethod
     def _gather_rows(T, evals_full, dim=-2):
@@ -155,40 +157,65 @@ class DeviceContext:
         return torch.index_select(evals_full, dim % evals_full.dim(),
                                   T['rows'])
 
+    def _lin_tables_for_width(self, width: int):
+        """Basis of a linear op (automorph, const multiply) on parts of
+        the given limb width: n_ct-width parts are reduce_signed
+        representatives and ride the lin basis (exact_bounds 'auto' /
+        'mulc'); wider parts are unreduced automorph outputs and ride the
+        full chain, whose coverage of 'auto_wide' / 'mulc_wide' the
+        context checks at build."""
+        return self.lin if width <= self.n_ct else self.full
+
     def _from_poly(self, poly_limbs):
         return self._from_poly_sub(self.full, poly_limbs)
 
     def _to_poly(self, evals):
         return self._to_poly_sub(self.full, evals)
 
-    def _small_to_evals(self, coeffs):
+    def _mul(self, a, b, T=None):
+        """mod_mul over the residue rows of basis T (the full chain by
+        default) on this context's lane."""
+        T = self.full if T is None else T
+        return modular.mod_mul(a, b, T['q'], T['qinv_f'], self.wide)
+
+    def small_to_evals(self, coeffs):
+        """Small nonnegative coefficients [..., phim] -> evaluations
+        [..., L, phim] on the full chain."""
         return self._fwd_t(self.full, coeffs[..., None, :] % self.q)
 
-    def _reduce_signed(self, limbs_arr):
+    def reduce_signed(self, limbs_arr):
         """Signed Reduce mod 2^logQ at the ciphertext width n_ct."""
         return lb.reduce_mod_q(limbs_arr, self.log_q, False, self.q_limbs,
                                out_width=self.n_ct)
+
+    def automorph_perm(self, k: int):
+        """ctx.automorph_perm(k) as a long tensor on the device."""
+        perm = self._perms.get(k)
+        if perm is None:
+            perm = self._perms[k] = torch.as_tensor(
+                self.ctx.automorph_perm(k), dtype=torch.long,
+                device=self.device)
+        return perm
 
     # --------------------------------------------------------- key setup
     def _keygen(self, s, c0, c1_limbs):
         """FHESISecKey/FHESIPubKey::Init (FHE-SI.cpp:42-91): returns
         (sk_evals [2, L, phim], pk_evals [2, L, phim], pk_limbs
         [2, phim, n_ct])."""
-        q, qi = self.q, self.qinv_f
-        s_evals = self._small_to_evals(s)
+        s_evals = self.small_to_evals(s)
         ones = torch.ones((self.L, self.phim), dtype=torch.int32,
                           device=self.device)
         c1_evals = self._from_poly(c1_limbs)
-        pk0_pre = modular.mod_add(modular.mod_mul(s_evals, c1_evals, q, qi),
-                                  self._small_to_evals(c0), q)
-        pk0_limbs = self._reduce_signed(self._to_poly(pk0_pre))
-        pk1_limbs = self._reduce_signed(lb.neg(c1_limbs))
+        pk0_pre = modular.mod_add(self._mul(s_evals, c1_evals),
+                                  self.small_to_evals(c0), self.q)
+        pk0_limbs = self.reduce_signed(self._to_poly(pk0_pre))
+        pk1_limbs = self.reduce_signed(lb.neg(c1_limbs))
         pk_limbs = torch.stack([pk0_limbs, pk1_limbs])
         return (torch.stack([ones, s_evals]), self._from_poly(pk_limbs),
                 pk_limbs)
 
     def square_evals(self, evals):
-        return modular.mod_mul(evals, evals, self.q, self.qinv_f)
+        return self._mul(evals, evals)
 
     def _keyswitch_init(self, src_sk_evals, dst_t_evals, A_limbs, e):
         """KeySwitchSI::Init (FHE-SI.cpp:153-209): the matrix as
@@ -198,13 +225,12 @@ class DeviceContext:
             lb.shift_left(s_limbs[i], self.digit_bits * j)
             for i in range(src_sk_evals.shape[0])
             for j in range(self.ndigits)])
-        b_ev = modular.mod_mul(self._from_poly(A_limbs), dst_t_evals[None],
-                               self.q, self.qinv_f)
+        b_ev = self._mul(self._from_poly(A_limbs), dst_t_evals[None])
         b_limbs = self._to_poly(b_ev)
         b_limbs = lb.add(lb.add(b_limbs, lb.from_small_signed(e, self.n)),
                          s_shift)
-        row_b = self._reduce_signed(b_limbs)
-        row_a = self._reduce_signed(lb.neg(A_limbs))
+        row_b = self.reduce_signed(b_limbs)
+        row_a = self.reduce_signed(lb.neg(A_limbs))
         return self._from_poly(torch.stack([row_b, row_a]))
 
     # --------------------------------------------------------- scheme ops
@@ -213,14 +239,13 @@ class DeviceContext:
         msg/r [..., phim], errors [..., 2, phim] -> parts [..., 2, phim,
         n_ct]."""
         T = self.lin
-        q, qi = T['q'], T['qinv_f']
+        q = T['q']
         pk_sub = self._gather_rows(T, pk_evals)
         r_evals = self._fwd_t(T, r[..., None, :] % q)
-        e_evals = modular.mod_mul(self._fwd_t(T, errors[..., None, :] % q),
-                                  self._gather_rows(T, self.p_mod_q), q, qi)
+        e_evals = self._mul(self._fwd_t(T, errors[..., None, :] % q),
+                            self._gather_rows(T, self.p_mod_q), T)
         ct_evals = modular.mod_add(
-            modular.mod_mul(pk_sub, r_evals[..., None, :, :], q, qi),
-            e_evals, q)
+            self._mul(pk_sub, r_evals[..., None, :, :], T), e_evals, q)
         parts = self._to_poly_sub(T, ct_evals)
         nw = parts.shape[-1]     # lin-basis recon width; q/p << 2^(16*nw)
         scaled = lb.scale_coeffs_by_bigint(msg, self.q_over_p[..., :nw],
@@ -228,19 +253,20 @@ class DeviceContext:
                                            self.q_over_p_sh20[..., :nw])
         p0 = lb.add(parts[..., 0, :, :], scaled)
         parts = torch.cat([p0[..., None, :, :], parts[..., 1:, :, :]], dim=-3)
-        return self._reduce_signed(parts)
+        return self.reduce_signed(parts)
 
     def _decrypt(self, parts_limbs, sk_evals):
         """FHESISecKey::Decrypt over the linear subset basis.  parts
-        [..., k, phim, n] -> messages [..., phim] mod p."""
+        [..., k, phim, n] -> messages [..., phim] mod p.  Parts wider
+        than n_ct (unreduced automorph outputs) are reduced first: the
+        rounding quotient shifts by exactly t*p under d -> d + t*q."""
         if self.p >= (1 << 20):
             raise NotImplementedError("the large-p decrypt tail is not ported")
         if parts_limbs.shape[-1] > self.n_ct:
-            parts_limbs = self._reduce_signed(parts_limbs)
+            parts_limbs = self.reduce_signed(parts_limbs)
         T = self.lin
         part_evals = self._from_poly_sub(T, parts_limbs)
-        prod = modular.mod_mul(part_evals, self._gather_rows(T, sk_evals),
-                               T['q'], T['qinv_f'])
+        prod = self._mul(part_evals, self._gather_rows(T, sk_evals), T)
         acc = prod[..., 0, :, :]
         for i in range(1, prod.shape[-3]):
             acc = modular.mod_add(acc, prod[..., i, :, :], T['q'])
@@ -256,25 +282,22 @@ class DeviceContext:
     def _tensor_mul(self, a_parts, b_parts):
         """Ciphertext::operator*= : parts [..., k, phim, n] -> tensored
         evaluations [..., ka+kb-1, L, phim]."""
-        q, qi = self.q, self.qinv_f
         na, nb = a_parts.shape[-3], b_parts.shape[-3]
         if a_parts.shape[-1] == b_parts.shape[-1]:
             # one lift for both operands, then scale the a-side by p
             ev = self._from_poly(torch.cat([a_parts, b_parts], dim=-3))
-            a_ev = modular.mod_mul(ev[..., :na, :, :], self.p_mod_q, q, qi)
+            a_ev = self._mul(ev[..., :na, :, :], self.p_mod_q)
             b_ev = ev[..., na:, :, :]
         else:
-            a_ev = modular.mod_mul(self._from_poly(a_parts), self.p_mod_q,
-                                   q, qi)
+            a_ev = self._mul(self._from_poly(a_parts), self.p_mod_q)
             b_ev = self._from_poly(b_parts)
         out = [None] * (na + nb - 1)
         for i in range(na):
             for j in range(nb):
-                pr = modular.mod_mul(a_ev[..., i, :, :], b_ev[..., j, :, :],
-                                     q, qi)
+                pr = self._mul(a_ev[..., i, :, :], b_ev[..., j, :, :])
                 k = i + j
                 out[k] = pr if out[k] is None else modular.mod_add(
-                    out[k], pr, q)
+                    out[k], pr, self.q)
         return torch.stack(out, dim=-3)
 
     def _scale_down(self, tprod_evals):
@@ -283,7 +306,7 @@ class DeviceContext:
         y = lb.shift_left(x, 1)
         y = lb.add(y, self.q_limbs.expand(y.shape))
         y = lb.arith_shift_right(y, self.log_q + 1)
-        return self._reduce_signed(y)
+        return self.reduce_signed(y)
 
     def _digit_evals(self, parts_limbs):
         """ByteDecomp digits and their forward transform over the
@@ -294,7 +317,7 @@ class DeviceContext:
             raise ValueError(
                 f"keyswitching {k} parts exceeds MAX_KSW_PARTS="
                 f"{MAX_KSW_PARTS} (context.exact_bounds['ksw'])")
-        if self.digit_bits > 24:
+        if self.digit_bits > ntt_ct.MAX_DIGIT_BITS:
             raise NotImplementedError("decompSize >= 4 is not ported")
         lead = parts_limbs.shape[:-3]
         digs = lb.byte_decomp(parts_limbs, self.log_q, self.digit_bits,
@@ -311,17 +334,97 @@ class DeviceContext:
         K = self.ksw
         mat = self._gather_rows(K, matrix_evals)
         acc = modular.mod_dot(mat, digit_evals[..., None, :, :, :],
-                              K['q'], K['qinv_f'], axis=-3)
-        return self._reduce_signed(self._to_poly_sub(K, acc))
+                              K['q'], K['qinv_f'], axis=-3, wide=self.wide)
+        return self.reduce_signed(self._to_poly_sub(K, acc))
 
-    def _keyswitch_parts(self, parts, matrix_evals):
+    def keyswitch_parts(self, parts, matrix_evals):
+        """ApplyKeySwitch of non-tensored parts [..., k, phim, n]."""
         return self._keyswitch_digits(matrix_evals, self._digit_evals(parts))
+
+    def keyswitch_tensored(self, tprod, matrix_evals):
+        """ScaleDown + ApplyKeySwitch of tensored evaluations
+        [..., k, L, phim]."""
+        return self.keyswitch_parts(self._scale_down(tprod), matrix_evals)
+
+    # --------------------------------------------------------- linear ops
+    def add(self, a, b):
+        """Ciphertext + ciphertext on parts, reduced (Ciphertext.cpp:123-145)."""
+        return self.reduce_signed(lb.add(a, b))
+
+    def add_tensored(self, a, b):
+        return modular.mod_add(a, b, self.q)
+
+    # part 0 plus the scaled constant floor(c * q / p) as limbs
+    # (Ciphertext.cpp:147-161): the same reduced limb add
+    add_const = add
+
+    def add_const_tensored(self, tprod0, scaled):
+        return modular.mod_add(tprod0, self._from_poly(scaled), self.q)
+
+    def mul_scalar(self, parts, scalar_abs, negate):
+        """Multiply by a long (Ciphertext.cpp:220-231), reduced signed.
+        parts [..., k, phim, n]; scalar_abs (int32, < 2^30) and negate
+        (bool) have the lead shape [...]: one scalar per ciphertext."""
+        scalar_abs = torch.as_tensor(scalar_abs, dtype=torch.int32,
+                                     device=parts.device)
+        negate = torch.as_tensor(negate, device=parts.device)
+        # [...] -> [..., 1, 1] so each scalar meets its own ciphertext
+        prod = lb.mul_small(parts, scalar_abs[..., None, None])
+        prod = torch.where(negate[..., None, None, None], lb.neg(prod), prod)
+        return self.reduce_signed(prod)
+
+    def mul_scalar_tensored(self, evals, s_mod):
+        """Tensored evaluations times a scalar given mod each prime
+        (s_mod [L, 1])."""
+        return self._mul(evals, s_mod)
+
+    def mul_const(self, parts, const_evals):
+        """Multiply by a plaintext constant (coefficients < p) given as
+        full-chain evaluations; exact_bounds 'mulc' / 'mulc_wide'."""
+        T = self._lin_tables_for_width(parts.shape[-1])
+        ev = self._from_poly_sub(T, parts)
+        ev = self._mul(ev, self._gather_rows(T, const_evals)[None], T)
+        return self.reduce_signed(self._to_poly_sub(T, ev))
+
+    def mul_const_tensored(self, evals, const_evals):
+        return self._mul(evals, const_evals[None])
+
+    def signed_group_sum_tensored(self, tens, s_mod):
+        """sum_t s_t * tens_t within uniform groups of tensored
+        evaluations: tens [G, k, parts, L, phim], s_mod [G, k, 1, L, 1]
+        with s in {1, q-1} encoding +-1 (Matrix.cpp:224-263, batched)."""
+        prod = self._mul(tens, s_mod)
+        acc = prod[:, 0]
+        for t in range(1, prod.shape[1]):
+            acc = modular.mod_add(acc, prod[:, t], self.q)
+        return acc
+
+    # ------------------------------------------------ automorph, rotation
+    def automorph(self, parts, perm):
+        """X -> X^k on parts [..., k, phim, n] (DoubleCRT.cpp:439-465):
+        lift, gather the evaluations by ctx.automorph_perm(k), back.  The
+        result is exact and not reduced (Ciphertext.cpp:54-59): it comes
+        back at the basis' reconstruction width."""
+        T = self._lin_tables_for_width(parts.shape[-1])
+        ev = torch.index_select(self._from_poly_sub(T, parts), -1, perm)
+        return self._to_poly_sub(T, ev)
+
+    @staticmethod
+    def automorph_tensored(evals, perm):
+        """X -> X^k on evaluations [..., L, phim]: a gather in zms order."""
+        return torch.index_select(evals, -1, perm)
+
+    def rotate_reduce_stage(self, parts, perm, matrix_evals):
+        """One rotate-and-reduce step of SumBatchedData over a batch:
+        parts + keyswitch(automorph(parts)), reduced signed."""
+        switched = self.keyswitch_parts(self.automorph(parts, perm),
+                                        matrix_evals)
+        return self.reduce_signed(lb.add(parts, switched))
 
     # ------------------------------------------------------ batched path
     def mul_relin(self, a_parts, b_parts, matrix_evals):
         """Homomorphic multiply + relinearize (Ciphertext.cpp:167-218,
         FHE-SI.cpp:241-260), rank-generic: a/b [..., 2, phim, n_ct] ->
         [..., 2, phim, n_ct]."""
-        tprod = self._tensor_mul(a_parts, b_parts)
-        parts = self._scale_down(tprod)
-        return self._keyswitch_parts(parts, matrix_evals)
+        return self.keyswitch_tensored(self._tensor_mul(a_parts, b_parts),
+                                       matrix_evals)

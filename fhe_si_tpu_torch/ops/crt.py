@@ -1,15 +1,28 @@
 """Conversions between limb coefficients and per-prime residues.
 
-Counterpart of fhe_si_tpu/ops/crt.py (narrow lane).  from_poly reduces
-the big coefficients mod each prime with 4-bit chunk dot products
-against 2^(4c) mod q_l tables (Cmodulus::FFT's input reduction,
-CModulus.cpp:89-107); to_poly is the single-pass redundant-modulus CRT
-reconstruction of DoubleCRT::toPoly (DoubleCRT.cpp:349-398).
+Counterpart of fhe_si_tpu/ops/crt.py, both residue lanes.  from_poly
+reduces the big coefficients mod each prime with 4-bit chunk dot
+products against 2^(4c) mod q_l tables (Cmodulus::FFT's input
+reduction, CModulus.cpp:89-107); to_poly is the single-pass
+redundant-modulus CRT reconstruction of DoubleCRT::toPoly
+(DoubleCRT.cpp:349-398).
 
 PyTorch has no integer matmul on CUDA, so the chunk dot of
-limbs_to_residues runs as a float64 matmul.  It is exact: every partial
-sum is a nonnegative integer below 15 * 2^20 * 4n < 2^31 < 2^53, the same
-bound that keeps the JAX int32 einsum exact.
+limbs_to_residues runs as one float64 matmul on both lanes, where the
+JAX package keeps int32 sums (one dot on the narrow lane, two dots of
+12-bit table planes on the wide one).  It is exact: every partial sum is
+a nonnegative integer below 15 * q * 4n.  Narrow lane (q < 2^20): below
+2^31 for n <= 34, so the sum and its Barrett stay in int32 as in the JAX
+package.  Wide lane (q < 2^23): below 2^53 for any n < 2^24; the sum is
+taken to int64 and reduced with `%`, the canonical residue the JAX
+Barrett-Horner also returns.
+
+The reconstruction keeps the JAX package's int32 arithmetic on both
+lanes; `wide` selects the lane of its mod_mul (binv, Bmodr and P^-1 mod
+m_r products), whose modulus may be a 23-bit prime.  Its limb
+accumulation stays int32-exact there: c >> 10 < 2^13 against 16-bit
+limbs of B << 10 stays below 2^29, and the m_r term sum below
+L * 2^23 < 2^29 for L <= 64.
 """
 from __future__ import annotations
 
@@ -37,18 +50,19 @@ def limbs_to_residues(poly, chunk_tbl, wrap, q, qinv_f, wide: bool = False):
     chunk_tbl: int32 [>=4n, L] with tbl[c, l] = 2^(4c) mod q_l
     wrap:      int32 [L, 1]   2^(16n) mod q_l for THIS n (sign correction)
     """
-    if wide:
-        raise NotImplementedError("the wide 23-bit residue lane is not ported")
     n = poly.shape[-1]
-    if chunk_tbl.shape[0] < 4 * n or 15 * (1 << 20) * 4 * n >= (1 << 31):
+    bound = (15 * 4 * n) << (23 if wide else 20)
+    if chunk_tbl.shape[0] < 4 * n or bound >= 1 << (53 if wide else 31):
         raise ValueError("limb width does not fit the chunk table")
     chunks = _chunks(poly)
     sign = lb.is_negative(poly)[..., None, :]  # [..., 1, phim]
-    # exact float64 dot: partial sums < 15 * 2^20 * 4n < 2^31 (header)
+    # exact float64 dot (header bounds)
     raw = torch.matmul(chunks.to(torch.float64),
                        chunk_tbl[:4 * n].to(torch.float64))
-    raw = raw.to(torch.int32).transpose(-1, -2)     # [..., L, phim]
-    return barrett(raw - sign * wrap, q, qinv_f)
+    raw = raw.transpose(-1, -2)                     # [..., L, phim]
+    if wide:
+        return ((raw.to(torch.int64) - sign * wrap) % q).to(torch.int32)
+    return barrett(raw.to(torch.int32) - sign * wrap, q, qinv_f)
 
 
 def limbs_to_mod_small(poly, p_chunk_tbl, p_wrap, p, pinv_f):
@@ -64,7 +78,8 @@ def limbs_to_mod_small(poly, p_chunk_tbl, p_wrap, p, pinv_f):
     return barrett(raw, p, pinv_f)
 
 
-def crt_partials(res, t, q, qinv_f, prescaled: bool = False):
+def crt_partials(res, t, q, qinv_f, prescaled: bool = False,
+                 wide: bool = False):
     """Per-prime half of the single-pass CRT reconstruction (see
     fhe_si_tpu/ops/crt.py crt_partials for the derivation).
 
@@ -76,7 +91,7 @@ def crt_partials(res, t, q, qinv_f, prescaled: bool = False):
     if prescaled:
         c = res  # acc/sig terms on the redundant row are zeroed by B/Bmodr
     else:
-        c = mod_mul(res, t['binv'][:, None], q, qinv_f)  # 0 on redundant
+        c = mod_mul(res, t['binv'][:, None], q, qinv_f, wide)  # 0 on redundant
 
     # limb accumulation  S = sum_l c_l * B_l   (10-bit digit split)
     cl = (c & 1023)[..., None]
@@ -89,19 +104,19 @@ def crt_partials(res, t, q, qinv_f, prescaled: bool = False):
           + torch.sum(p1 >> lb.LIMB_BITS, dim=-3, dtype=i32))
     acc = acc + lb._shift_up(hi)
 
-    term = mod_mul(c, t['Bmodr'][:, None], mr, mrinv)
-    sig_raw = torch.sum(term, dim=-2, dtype=i32)       # < Lrows * 2^20
+    term = mod_mul(c, t['Bmodr'][:, None], mr, mrinv, wide)
+    sig_raw = torch.sum(term, dim=-2, dtype=i32)       # < Lrows * 2^23
     er = torch.sum(t['er_mask'][:, None] * res, dim=-2, dtype=i32)
     return acc, sig_raw, er
 
 
-def crt_finish(acc, sig_raw, er, t, n_limbs: int):
+def crt_finish(acc, sig_raw, er, t, n_limbs: int, wide: bool = False):
     """Exact wrap count w = ((S mod m_r) - E_r) * P^{-1} mod m_r, subtract
     w*P in the limb domain, normalize."""
     mr, mrinv = t['mr'], t['mrinv_f']
     sig = barrett(sig_raw, mr, mrinv)
     diff = mod_sub(sig, er, mr)
-    w = mod_mul(diff, t['Pinv_r'], mr, mrinv)
+    w = mod_mul(diff, t['Pinv_r'], mr, mrinv, wide)
 
     wl = (w & 1023)[..., None]
     wh = (w >> 10)[..., None]
@@ -119,8 +134,7 @@ def residues_to_limbs_fast(res, t, q, qinv_f, n_limbs: int | None = None,
     """Single-pass CRT reconstruction via the redundant modulus: the
     centered signed value as limbs at the basis width t['B'].shape[-1].
     res: [..., L, phim] with the LAST row tracking E mod m_r."""
-    if wide:
-        raise NotImplementedError("the wide 23-bit residue lane is not ported")
-    acc, sig_raw, er = crt_partials(res, t, q, qinv_f, prescaled)
+    acc, sig_raw, er = crt_partials(res, t, q, qinv_f, prescaled, wide)
     return crt_finish(acc, sig_raw, er, t,
-                      n_limbs if n_limbs is not None else t['B'].shape[-1])
+                      n_limbs if n_limbs is not None else t['B'].shape[-1],
+                      wide)

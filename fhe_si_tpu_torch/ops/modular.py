@@ -1,6 +1,9 @@
-"""Modular arithmetic on int32 residue tensors (narrow lane, q < 2^20).
+"""Modular arithmetic on int32 residue tensors, both residue lanes.
 
-Counterpart of fhe_si_tpu/ops/modular.py with the same bounds: every
+Counterpart of fhe_si_tpu/ops/modular.py.  Every output is the canonical
+residue in [0, q), so any exact method gives the JAX package's tensors.
+
+Narrow lane (q < 2^20): the JAX package's arithmetic as it is.  Every
 product stays below 2^31 and quotients are estimated in float32
 ("f32 Barrett"):
 
@@ -9,11 +12,18 @@ product stays below 2^31 and quotients are estimated in float32
 
 torch.round rounds half to even like jnp.rint, and int32 products wrap
 mod 2^32 on CPU and CUDA alike, so the intermediate `t - quo*q` is exact
-whenever the true value is small.  The wide 23-bit lane is not ported.
+whenever the true value is small.
+
+Wide lane (q < 2^23): where the JAX package runs a 6-bit Horner
+(mod_mul) and 12-bit splits (mod_dot) to stay inside int32, the port
+computes in int64: a product is below 2^46 and a dot of K terms below
+K * 2^46, exact for K < 2^17 (the keyswitch dot has K <= 64 rows,
+context.py caps it).  `%` on int64 with a positive divisor returns the
+canonical residue on CPU and CUDA.
 
 torch.sum of an int32 tensor returns int64 where jnp.sum keeps int32; the
-sums below pass dtype=torch.int32 so later shifts and masks see the same
-type as in the JAX package.
+int32 sums below pass dtype=torch.int32 so later shifts and masks see
+the same type as in the JAX package.
 """
 from __future__ import annotations
 
@@ -21,11 +31,7 @@ import torch
 
 D = 10           # split point for narrow-lane modmul
 DMASK = (1 << D) - 1
-
-
-def _narrow_only(wide: bool):
-    if wide:
-        raise NotImplementedError("the wide 23-bit residue lane is not ported")
+WIDE_DOT_MAX_TERMS = 1 << 17     # K * (2^23 - 1)^2 < 2^63
 
 
 def barrett(t, q, qinv_f):
@@ -40,11 +46,16 @@ def barrett(t, q, qinv_f):
 
 
 def mod_mul(a, b, q, qinv_f, wide: bool = False):
-    """(a*b) mod q for residues a, b in [0, q), q < 2^20: split at 10 bits,
+    """(a*b) mod q for residues a, b in [0, q).
+
+    narrow (q < 2^20): split at 10 bits,
         a*b = (a1*b1)*2^20 + (a1*b0 + a0*b1)*2^10 + a0*b0;
     a1*b1 < 2^20 needs no reduction; two Barrett steps finish the Horner
-    combine with every intermediate < 2^31."""
-    _narrow_only(wide)
+    combine with every intermediate < 2^31.
+
+    wide (q < 2^23): the int64 product (< 2^46) mod q."""
+    if wide:
+        return (a.to(torch.int64) * b % q).to(torch.int32)
     a1, a0 = a >> D, a & DMASK
     b1, b0 = b >> D, b & DMASK
     h = a1 * b1                              # < 2^20
@@ -55,11 +66,18 @@ def mod_mul(a, b, q, qinv_f, wide: bool = False):
 
 
 def mod_dot(a, b, q, qinv_f, axis: int, wide: bool = False):
-    """Exact (sum_k a_k * b_k) mod q, reduced once: 10-bit splits, the
-    partial-product sums accumulate unreduced (terms < 2^20, K <= 512),
-    then a Barrett-Horner."""
-    _narrow_only(wide)
+    """Exact (sum_k a_k * b_k) mod q, reduced once.
+
+    narrow: 10-bit splits, the partial-product sums accumulate unreduced
+    (terms < 2^20, K <= 512), then a Barrett-Horner.
+    wide: int64 products summed unreduced (K * 2^46 < 2^63), one
+    remainder."""
     K = a.shape[axis] if a.shape[axis] != 1 else b.shape[axis]
+    if wide:
+        if K >= WIDE_DOT_MAX_TERMS:
+            raise ValueError("mod_dot: too many terms for an int64 sum")
+        prod = a.to(torch.int64) * b
+        return (torch.sum(prod, dim=axis) % q).to(torch.int32)
     if K > 512:
         raise ValueError("mod_dot: too many terms for unreduced accumulation")
     a_lo, a_hi = a & DMASK, a >> D

@@ -19,11 +19,23 @@ kernels, the CUDA kernels of ntt_ct_cuda.py and the plain versions here
 all give bit-identical outputs.
 
 The tables are kept as int32 integers (the JAX package splits them into
-int8 digit planes for the MXU).  The plain versions run each stage as a
-float64 matmul, which is exact while every partial sum stays below 2^53:
-residue stages sum K <= 128 products below 2^40 (< 2^47); the digit
-stage of ct_fwd_digits sums products below 2^24 * 2^20 (< 2^51).  The
-mixed-radix family (odd part of m > 1) is not ported.
+int8 digit planes for the MXU, 6 of them on the narrow lane, 9 on the
+wide one); ct_tables and with_crt_premultiplier compute every entry in
+Python ints or int64 products below 2^46, exact for primes below 2^23 on
+both lanes.
+
+The plain versions run each stage as a float64 matmul, which is exact
+while every partial sum stays below 2^53.  A stage sums K products of a
+table entry (below q < 2^23 on either lane) and an operand y: a residue
+below q, or a keyswitch digit below 2^digit_bits <= 2^24.  _stage takes
+the widest lane's bound for both: one matmul while K * 2^23 * y_max <
+2^53, which covers residue stages up to K = 128 and the digit stage up to
+K = 64.  m = 8192 (N1 = N2 = 64) and m = 2^14 (128 x 64) stay inside it.
+Past it (the digit stage from m = 2^15, every stage from m = 2^16)
+_stage splits the table at 12 bits into two exact matmuls
+(K * 2^12 * 2^24 < 2^53 for K < 2^17) and joins them mod q, so no
+supported m gives an inexact result.  The mixed-radix family (odd part
+of m > 1) is not ported.
 """
 from __future__ import annotations
 
@@ -34,6 +46,9 @@ import numpy as np
 import torch
 
 from fhe_si_tpu.hostmath import numbth
+
+Q_MAX = (1 << 23) - 1    # every chain prime lies below 2^23 (either lane)
+MAX_DIGIT_BITS = 24      # keyswitch digit radix (decompSize <= 3)
 
 
 class CtMeta(NamedTuple):
@@ -142,11 +157,18 @@ def _check_meta(meta: CtMeta):
         raise NotImplementedError("mixed-radix m is not ported")
 
 
-def _stage(tab, y, q):
-    """(tab @ y) mod q per prime, exact in float64 (module header).
-    tab [L, o, k] int32, y [..., L, k, f] (int32/int64) -> int64."""
-    prod = torch.matmul(tab.to(torch.float64), y.to(torch.float64))
-    return prod.to(torch.int64) % q
+def _dot(tab, y):
+    return torch.matmul(tab.to(torch.float64),
+                        y.to(torch.float64)).to(torch.int64)
+
+
+def _stage(tab, y, q, y_max: int):
+    """(tab @ y) mod q per prime, exact (module header).  tab [L, o, k]
+    int32 residues, y [..., L or 1, k, f] in [0, y_max] -> int64."""
+    if tab.shape[-1] * y_max * Q_MAX < 1 << 53:
+        return _dot(tab, y) % q
+    hi = _dot(tab >> 12, y) % q
+    return (hi * 4096 + _dot(tab & 4095, y)) % q
 
 
 def ct_fwd(T: dict, x, meta: CtMeta):
@@ -156,9 +178,9 @@ def ct_fwd(T: dict, x, meta: CtMeta):
     N1, N2 = meta.N1, meta.N2
     *lead, L, N = x.shape
     q = T['q'].to(torch.int64)[:, None, None]
-    y = _stage(T['t2'], x.reshape(*lead, L, N2, N1), q)      # [.., j2, c1]
+    y = _stage(T['t2'], x.reshape(*lead, L, N2, N1), q, Q_MAX)  # [.., j2, c1]
     y = y * T['tw'].transpose(-1, -2) % q
-    X = _stage(T['t1'], y.transpose(-1, -2), q)               # [.., j1, j2]
+    X = _stage(T['t1'], y.transpose(-1, -2), q, Q_MAX)        # [.., j1, j2]
     return X.to(torch.int32).reshape(*lead, L, N)
 
 
@@ -167,16 +189,16 @@ def ct_fwd_digits(T: dict, digits, meta: CtMeta, digit_bits: int):
     [0, 2^digit_bits), digit_bits <= 24 -> [..., L, N].  The first mod-q
     reduction happens after the stage-1 products."""
     _check_meta(meta)
-    if digit_bits > 24:
-        raise NotImplementedError("digit radix above 2^24")
+    if digit_bits > MAX_DIGIT_BITS:
+        raise NotImplementedError(f"digit radix above 2^{MAX_DIGIT_BITS}")
     N1, N2 = meta.N1, meta.N2
     *lead, N = digits.shape
     L = T['q'].shape[0]
     q = T['q'].to(torch.int64)[:, None, None]
     d = digits.reshape(*lead, 1, N2, N1)                       # [.., 1, c2, c1]
-    y = _stage(T['t2'], d, q)                                  # [.., L, j2, c1]
+    y = _stage(T['t2'], d, q, (1 << digit_bits) - 1)           # [.., L, j2, c1]
     y = y * T['tw'].transpose(-1, -2) % q
-    X = _stage(T['t1'], y.transpose(-1, -2), q)
+    X = _stage(T['t1'], y.transpose(-1, -2), q, Q_MAX)
     return X.to(torch.int32).reshape(*lead, L, N)
 
 
@@ -187,7 +209,7 @@ def ct_inv(T: dict, evals, meta: CtMeta, t2i_key: str = 't2i'):
     N1, N2 = meta.N1, meta.N2
     *lead, L, N = evals.shape
     q = T['q'].to(torch.int64)[:, None, None]
-    z = _stage(T['t1i'], evals.reshape(*lead, L, N1, N2), q)  # [.., c1, j2]
+    z = _stage(T['t1i'], evals.reshape(*lead, L, N1, N2), q, Q_MAX)  # [.., c1, j2]
     z = z * T['twi'] % q
-    x = _stage(T[t2i_key], z.transpose(-1, -2), q)             # [.., c2, c1]
+    x = _stage(T[t2i_key], z.transpose(-1, -2), q, Q_MAX)      # [.., c2, c1]
     return x.to(torch.int32).reshape(*lead, L, N)

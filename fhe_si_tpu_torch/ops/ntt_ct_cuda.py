@@ -12,6 +12,12 @@ Dispatch: a tensor on the CPU takes the plain version of ops/ntt_ct.py;
 a tensor on a CUDA device launches the kernel, or raises.  There is no
 fallback from a failed launch.  LAUNCHES counts the kernel launches of
 each wrapper (the plain path does not count).
+
+The wrappers check what the kernels' exactness rests on (ct_ntt.cu
+header): every prime below 2^23, either residue lane, and keyswitch
+digits of at most 24 bits.  The prime check reads the table's q once
+and marks the tensor, so later launches on the same tables add no
+device-to-host copy.
 """
 from __future__ import annotations
 
@@ -102,12 +108,18 @@ def _launch(name: str, fn, inp, tabs, q, out, rows, L, meta: CtMeta):
     return out
 
 
-def _check_shape(name, x, tail: tuple, meta: CtMeta):
+def _check(name, x, tail: tuple, T: dict, meta: CtMeta):
     if meta.q_odd != 1:
         raise NotImplementedError("mixed-radix m is not ported")
     if tuple(x.shape[-len(tail):]) != tail:
         raise ValueError(f"{name}: expected [..., {', '.join(map(str, tail))}]"
                          f", got {tuple(x.shape)}")
+    q = T['q']
+    if not getattr(q, "_fsi_q_checked", False):
+        if not 2 <= int(q.min()) <= int(q.max()) <= ntt_ct.Q_MAX:
+            raise ValueError(f"{name}: the kernels take primes below "
+                             f"2^{ntt_ct.Q_MAX.bit_length()} only")
+        q._fsi_q_checked = True
 
 
 def ct_fwd(T: dict, x, meta: CtMeta):
@@ -115,7 +127,7 @@ def ct_fwd(T: dict, x, meta: CtMeta):
     if not _on_cuda(x):
         return ntt_ct.ct_fwd(T, x, meta)
     L = T['q'].shape[0]
-    _check_shape("ct_fwd", x, (L, meta.N), meta)
+    _check("ct_fwd", x, (L, meta.N), T, meta)
     x = x.contiguous()
     out = torch.empty_like(x)
     return _launch("ct_fwd", _lib().fsi_ct_fwd, x,
@@ -128,10 +140,11 @@ def ct_fwd_digits(T: dict, digits, meta: CtMeta, digit_bits: int):
     [0, 2^digit_bits) -> [..., L, N]."""
     if not _on_cuda(digits):
         return ntt_ct.ct_fwd_digits(T, digits, meta, digit_bits)
-    if digit_bits > 24:
-        raise NotImplementedError("digit radix above 2^24")
+    if digit_bits > ntt_ct.MAX_DIGIT_BITS:
+        raise NotImplementedError(
+            f"digit radix above 2^{ntt_ct.MAX_DIGIT_BITS}")
     L = T['q'].shape[0]
-    _check_shape("ct_fwd_digits", digits, (meta.N,), meta)
+    _check("ct_fwd_digits", digits, (meta.N,), T, meta)
     digits = digits.contiguous()
     out = torch.empty(digits.shape[:-1] + (L, meta.N), dtype=torch.int32,
                       device=digits.device)
@@ -146,7 +159,7 @@ def ct_inv(T: dict, evals, meta: CtMeta, t2i_key: str = 't2i'):
     if not _on_cuda(evals):
         return ntt_ct.ct_inv(T, evals, meta, t2i_key)
     L = T['q'].shape[0]
-    _check_shape("ct_inv", evals, (L, meta.N), meta)
+    _check("ct_inv", evals, (L, meta.N), T, meta)
     evals = evals.contiguous()
     out = torch.empty_like(evals)
     return _launch("ct_inv", _lib().fsi_ct_inv, evals,

@@ -97,6 +97,12 @@ def test_t2i_crt_equals_jax_device_tables(mp):
 def test_unported_configs_raise():
     with pytest.raises(NotImplementedError, match="power-of-two"):
         DeviceContext(FheContext(m=22, log_q=80, p=23, generator=7), "cpu")
-    with pytest.raises(NotImplementedError, match="wide"):
-        DeviceContext(FheContext(m=32, log_q=80, p=97, generator=3,
-                                 prime_bits=23), "cpu")
+    # the wide lane is ported (tests/test_torch_wide.py); decompSize >= 4
+    # is not
+    assert DeviceContext(FheContext(m=32, log_q=80, p=97, generator=3,
+                                    prime_bits=23), "cpu").wide
+    dev = DeviceContext(FheContext(m=32, log_q=80, p=97, generator=3,
+                                   decomp_size=4), "cpu")
+    with pytest.raises(NotImplementedError, match="decompSize"):
+        dev.keyswitch_parts(torch.zeros((2, dev.phim, dev.n_ct),
+                                        dtype=torch.int32), None)

@@ -1,7 +1,8 @@
 """The port on a CUDA card: the three kernels against their plain PyTorch
-versions, and the multiply + relinearize slice on the card against the
-same slice on the CPU (which test_torch_slice.py holds equal to
-fhe_si_tpu).  Every test skips without a card.
+versions on both residue lanes, the multiply + relinearize slice and the
+two applications on the card against the same runs on the CPU (which
+test_torch_slice.py and test_torch_apps*.py hold equal to fhe_si_tpu).
+Every test skips without a card.
 
 This file imports no JAX, so it also runs where JAX is absent:
 
@@ -19,7 +20,10 @@ from fhe_si_tpu_torch.ops import ntt_ct, ntt_ct_cuda
 torch.set_num_threads(1)
 
 RAGGED = 37
-CONFIGS = [pytest.param((256, 257), id="m256"), pytest.param((32, 97), id="m32")]
+CONFIGS = [pytest.param((256, 257, None), id="m256"),
+           pytest.param((32, 97, None), id="m32"),
+           pytest.param((256, 257, 23), id="m256-wide"),
+           pytest.param((32, 97, 23), id="m32-wide")]
 
 
 @pytest.fixture
@@ -29,8 +33,8 @@ def cuda():
     return torch.device("cuda")
 
 
-def _ctx(m, p):
-    return FheContext(m=m, log_q=80, p=p, generator=3)
+def _ctx(m, p, prime_bits):
+    return FheContext(m=m, log_q=80, p=p, generator=3, prime_bits=prime_bits)
 
 
 @pytest.mark.cuda
@@ -40,7 +44,7 @@ def test_kernels_match_plain(cuda, mp):
     meta = dc.ct_meta
     rng = np.random.default_rng(8)
     ntt_ct_cuda.reset_launches()
-    for T in (dc.full, dc.ksw):
+    for T in (dc.full, dc.ksw, dc.lin):
         q = T["primes_np"]
         x = torch.as_tensor(rng.integers(0, q[:, None], size=(
             RAGGED, len(q), meta.N)).astype(np.int32), device=cuda)
@@ -81,3 +85,20 @@ def test_slice_on_card_equals_cpu(cuda, mp):
     for i in range(2):
         assert np.array_equal(outs[1][1][i].message, oracle.plaintext_mul(
             ctx, msgs[2 * i], msgs[2 * i + 1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("app", ["regression", "statistics"])
+def test_app_cli_on_card_matches(cuda, app, tmp_path, capsys):
+    """The app CLIs on the card at m = 32 reach MATCH, launching all three
+    kernels (the m = 8192 runs are chip_smoke.py's phase 6)."""
+    import importlib
+    from fhe_si_tpu.cli.gen_data import generate
+    cli = importlib.import_module(f"fhe_si_tpu_torch.cli.test_{app}")
+    path = str(tmp_path / "data.txt")
+    generate(path, 2, 16, seed=5)
+    ntt_ct_cuda.reset_launches()
+    assert cli.main(["x", path, "97", "3", "7", "--m=32",
+                     f"--device={cuda}"]) == 0
+    assert capsys.readouterr().out.rstrip().endswith("MATCH")
+    assert all(n > 0 for n in ntt_ct_cuda.LAUNCHES.values())

@@ -50,11 +50,12 @@ def _stages(d, x, stack, square):
     return o, (a, b, mat)
 
 
-def slice_outputs(m, p):
+def slice_outputs(m, p, prime_bits=None):
     """Both packages through the slice on one draw of randomness; returns
-    (jax tensors, port tensors, the draw, JAX context, port context)."""
-    ref = RefContext(m=m, log_q=80, p=p, generator=3)
-    ctx = FheContext(m=m, log_q=80, p=p, generator=3)
+    (jax tensors, port tensors, the draw, JAX context, port context).
+    prime_bits=23 puts both on the wide residue lane."""
+    kw = dict(m=m, log_q=80, p=p, generator=3, prime_bits=prime_bits)
+    ref, ctx = RefContext(**kw), FheContext(**kw)
     jd, td = device_context(ref), DeviceContext(ctx, "cpu")
     src = sampling.RandomSource(m + p)
     kg = sampling.sample_keygen(src, ctx.phim, ctx.stdev, ctx.log_q)
@@ -78,7 +79,7 @@ def slice_outputs(m, p):
         fns = {n: (lambda f: lambda *a: f(C, *a))(getattr(jd, "_" + n))
                for n in names}
         return _stages(fns, x, jnp.stack, lambda e: jmod.mod_mul(
-            e, e, C["q"], C["qinv_f"]))[0]
+            e, e, C["q"], C["qinv_f"], ref.wide))[0]
 
     out_j = jax.jit(jax_slice)(jd.C, {k: jnp.asarray(v) for k, v in i32.items()})
     out_j["mul_relin"] = out_j["keyswitch"]   # JAX's _mul_relin composes these
@@ -182,7 +183,8 @@ def test_scheme_api_and_state_round_trip(run):
 
 def test_runs_without_jax():
     """The port imports no JAX: with `jax` blocked, the m = 256 slice runs
-    on the CPU and decrypts to the plaintext product."""
+    on the CPU and decrypts to the plaintext product, and the regression
+    CLI reaches MATCH at m = 32 on --device=cpu."""
     code = textwrap.dedent("""
         import sys
         sys.modules['jax'] = None
@@ -202,7 +204,16 @@ def test_runs_without_jax():
         out = scheme.relin_batch(scheme.mul_batch([(c1, c2)]), ksw)
         got = sk.decrypt_batch(out)[0].message
         assert np.array_equal(got, oracle.plaintext_mul(ctx, m1, m2))
+        import os, tempfile
+        from fhe_si_tpu.cli.gen_data import generate
+        from fhe_si_tpu_torch.cli import test_regression
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, 'data.txt')
+            generate(path, 2, 16, seed=5)
+            assert test_regression.main(['x', path, '97', '3', '1',
+                                         '--m=32', '--device=cpu']) == 0
         assert not any(k.startswith('fhe_si_tpu.ops') or
+                       k.startswith('fhe_si_tpu.apps') or
                        k in ('fhe_si_tpu.device', 'fhe_si_tpu.scheme')
                        for k in sys.modules)
         print('ok')
@@ -211,4 +222,4 @@ def test_runs_without_jax():
                          env=dict(os.environ, PYTHONPATH=REPO),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip().endswith("ok")
+    assert out.stdout.strip().endswith("MATCH\nok")

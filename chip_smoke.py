@@ -7,7 +7,9 @@ Phases, each of which raises on failure (any failure exits nonzero and
 prints no result line):
   1. device check: refuses to run without CUDA; prints the card's name
      and power limit as nvidia-smi reports them;
-  2. build: compiles the CUDA kernels from fhe_si_tpu_torch/csrc;
+  2. build: compiles the CUDA kernels from fhe_si_tpu_torch/csrc and
+     prints ptxas's report for each kernel (registers, shared memory,
+     spills);
   3. each kernel against its plain PyTorch version on the card, at the
      narrow tables of m = 8192, 256 and 32 and the wide (23-bit prime)
      tables of the regression context (m = 8192, logQ 213) and of
@@ -22,7 +24,10 @@ prints no result line):
      m = 256 the ciphertext parts must also equal hostmath/oracle.py;
   5. timing with CUDA events: mul+relin at batch 64 and each kernel
      against its plain version at the main path's shapes and at the
-     regression app's wide shapes;
+     regression app's wide shapes; at the main path's shapes each kernel
+     also against its bound (the larger of its int32 bytes over the HBM
+     rate and its int8 byte products over the int8 tensor-core rate) and
+     with its launches per mul+relin step;
   6. the applications: the port's Test_Regression and Test_Statistics
      CLIs at m = 8192, p = 40961, g = 3 on a d = 4, n = 256 dataset made
      from the seed (both on the wide lane); each must print MATCH and
@@ -51,6 +56,8 @@ MAIN = dict(m=8192, log_q=80, p=40961, generator=3)
 SMALL = [dict(m=256, log_q=80, p=257, generator=3),
          dict(m=32, log_q=80, p=97, generator=3)]
 APP = dict(p=40961, generator=3, m=8192, dim=4, n=256)
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 peak bandwidth
+INT8_OPS_PER_S = 1979e12        # dense int8 tensor-core rate, H100 SXM
 PALLAS = "fhe_si_tpu/ops/ntt_ct_pallas.py"
 KERNELS = {   # wrapper -> Pallas kernel body it replaces
     "ct_fwd": f"{PALLAS}:148",
@@ -76,6 +83,29 @@ def cuda_ms(fn, iters: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def kernel_bound(name: str, rows: int, L: int, meta) -> tuple[float, str]:
+    """Least time (ms) the card could take for one call and what sets it:
+    the int32 input and output moved once each over the HBM rate, or the
+    multiply-adds of both stages (N * (N1 + N2) per row and prime) as 9
+    int8 byte products of 2 operations each over the int8 rate."""
+    n_in = rows * meta.N if name == "ct_fwd_digits" else rows * L * meta.N
+    t_bytes = 4 * (n_in + rows * L * meta.N) / HBM_BYTES_PER_S * 1e3
+    t_ops = (2 * 9 * rows * L * meta.N * (meta.N1 + meta.N2)
+             / INT8_OPS_PER_S * 1e3)
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ptxas_report(log: str) -> list[str]:
+    """ptxas -v lines per kernel: name, registers, spills, shared memory."""
+    out, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and ("registers" in line or "spill" in line):
+            out.append(f"{name}: {line.split('info    :')[-1].strip()}")
+    return out
 
 
 def probe_semantics(dev):
@@ -180,9 +210,8 @@ def encrypt_pairs(scheme, ctx, pk, src, count):
 
 def oracle_check_small(dev):
     """Ciphertext parts at m = 256 equal the pure-Python reference."""
-    from fhe_si_tpu import sampling
-    from fhe_si_tpu.hostmath import oracle
-    from fhe_si_tpu_torch import DeviceContext, FheContext, scheme
+    from fhe_si_tpu_torch import DeviceContext, FheContext, sampling, scheme
+    from fhe_si_tpu_torch.hostmath import oracle
     ctx = FheContext(**SMALL[0])
     dc = DeviceContext(ctx, dev)
     src_d, src_o = sampling.RandomSource(SEED), sampling.RandomSource(SEED)
@@ -214,10 +243,12 @@ def oracle_check_small(dev):
           "decrypt)")
 
 
-def time_kernels(card, dev, dc, cases):
+def time_kernels(card, dev, dc, cases, per_step=None):
     """Each (kernel, basis, rows) case against its plain version on random
-    operands: held equal, then timed plain, kernel, kernel, plain.
-    Returns {kernel: (kernel ms, plain ms)} of each kernel's first case."""
+    operands: held equal, then timed plain, kernel, kernel, plain.  With
+    per_step (launches per mul+relin step), also the bound and the share
+    of it.  Returns {kernel: [(shape, kernel ms, plain ms, bound ms,
+    bound_by), ...]} in case order."""
     import torch
     from fhe_si_tpu_torch.ops import ntt_ct, ntt_ct_cuda
     rng = np.random.default_rng(SEED)
@@ -246,9 +277,15 @@ def time_kernels(card, dev, dc, cases):
         k2 = cuda_ms(lambda: run(ntt_ct_cuda, x), 5)
         p2 = cuda_ms(lambda: run(ntt_ct, x), 5)
         k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
-        print(f"[{card}] {name} {lane} m={dc.ctx.m} {basis} "
-              f"{tuple(x.shape)}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
-        out.setdefault(name, (k_ms, p_ms))
+        b_ms, b_by = kernel_bound(name, rows, len(q_np), meta)
+        line = (f"[{card}] {name} {lane} m={dc.ctx.m} {basis} "
+                f"{tuple(x.shape)}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+        if per_step is not None:
+            line += (f", bound {b_ms * 1e3:.1f} us ({b_by}), share of bound "
+                     f"{100 * b_ms / k_ms:.1f}%, launches per mul+relin step "
+                     f"{per_step[name]}")
+        print(line)
+        out.setdefault(name, []).append((tuple(x.shape), k_ms, p_ms, b_ms, b_by))
     return out
 
 
@@ -256,7 +293,7 @@ def phase_apps(dev, card):
     """The port's app CLIs at APP on the card.  Returns each app's kernel
     launch counts, read after its run with the counts set to 0 before."""
     import torch
-    from fhe_si_tpu.cli.gen_data import generate
+    from fhe_si_tpu_torch.cli.gen_data import generate
     from fhe_si_tpu_torch.cli import test_regression, test_statistics
     from fhe_si_tpu_torch.ops import ntt_ct_cuda
     launches = {}
@@ -304,9 +341,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
               "kernels run only on a CUDA card", file=sys.stderr)
         return 1
-    from fhe_si_tpu import sampling
-    from fhe_si_tpu.hostmath import oracle
-    from fhe_si_tpu_torch import DeviceContext, FheContext, scheme
+    from fhe_si_tpu_torch import DeviceContext, FheContext, sampling, scheme
+    from fhe_si_tpu_torch.hostmath import oracle
     from fhe_si_tpu_torch.ops import ntt_ct_cuda
 
     # 1. device
@@ -318,8 +354,13 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    ntt_ct_cuda.build()
+    log = ntt_ct_cuda.build()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a)")
+    report = ptxas_report(log)
+    if not report:
+        raise AssertionError(f"no ptxas report in the build log:\n{log}")
+    for line in report:
+        print(f"ptxas {line}")
 
     # 3. kernels against their plain versions
     probe_semantics(dev)
@@ -373,6 +414,9 @@ def main() -> int:
         raise AssertionError("timed mul+relin output changed")
     print(f"[{card}] mul+relin B={BATCH} m={ctx.m}: {ms:.3f} ms/step, "
           f"{BATCH * 1000.0 / ms:.1f} mults/s")
+    ntt_ct_cuda.reset_launches()
+    step()
+    per_step = dict(ntt_ct_cuda.LAUNCHES)
     tprod = dc._tensor_mul(a, b)
     parts = dc._scale_down(tprod)
     digs = dc._digit_evals(parts)
@@ -389,7 +433,7 @@ def main() -> int:
     narrow_ms = time_kernels(card, dev, dc, [
         ("ct_fwd", "full", BATCH * 4), ("ct_inv", "full", BATCH * 3),
         ("ct_inv", "ksw", BATCH * 2),
-        ("ct_fwd_digits", "ksw", BATCH * 3 * ctx.ndigits)])
+        ("ct_fwd_digits", "ksw", BATCH * 3 * ctx.ndigits)], per_step)
     # the regression app's shapes at d = 4, one block: 14 products of
     # 2 x 2 parts lifted, 14 x 3 tensored parts back, 20 entries x 2 parts
     # keyswitched (digits on the ksw basis, the dot's result back on it)
@@ -406,16 +450,17 @@ def main() -> int:
     app_launches = phase_apps(dev, card)
     kernels = []
     for name in KERNELS:
+        by_path = dict(mul_relin=launches[name],
+                       **{app: n[name] for app, n in app_launches.items()})
+        _, k_ms, p_ms, b_ms, b_by = narrow_ms[name][0]
         kernels.append(dict(
             name=name, route="cuda", source="fhe_si_tpu_torch/csrc/ct_ntt.cu",
             replaces=KERNELS[name],
-            launches=sum(n[name] for n in app_launches.values()),
-            launches_by_path=dict(
-                mul_relin=launches[name],
-                **{app: n[name] for app, n in app_launches.items()}),
-            max_abs_err=max_err[name],
-            ms=narrow_ms[name][0], plain_ms=narrow_ms[name][1],
-            wide_ms=wide_ms[name][0], wide_plain_ms=wide_ms[name][1]))
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            max_abs_err=max_err[name], ms=k_ms, plain_ms=p_ms,
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=None,     # no PyTorch call computes a transform mod q
+            wide_ms=wide_ms[name][0][1], wide_plain_ms=wide_ms[name][0][2]))
 
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -7,10 +7,10 @@ the adds, scalar and constant multiplies, multiply + relinearize,
 automorph and rotation with their key-switch keys, and the reference's
 two applications, encrypted regression and statistics, with their CLIs.
 Every tensor equals the one fhe_si_tpu computes from the same
-randomness.  The package imports torch and numpy, and from fhe_si_tpu
-only its JAX-free host modules (sampling, hostmath, profiling, the
-context helpers, and apps/matrix.py by path).
+randomness.  The package imports torch and numpy and nothing of
+fhe_si_tpu: it keeps its own copies of the JAX package's host modules
+(context, sampling, hostmath, apps/matrix.py, cli/gen_data.py).
 """
-from . import scheme, state  # noqa: F401
+from . import sampling, scheme, state  # noqa: F401
 from .context import FheContext  # noqa: F401
 from .device import DeviceContext  # noqa: F401

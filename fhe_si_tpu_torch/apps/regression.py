@@ -3,18 +3,15 @@ the port's scheme layer.
 
 Counterpart of fhe_si_tpu/apps/regression.py without prewarm_async (a
 TPU compile workaround).  The host helpers (load_data, batch_data,
-regress_pt, derive_log_q) are copies of the JAX package's: they import
-no JAX themselves, but fhe_si_tpu.apps.regression imports its scheme,
-which does.  theta_i = adj(X^T X) . (X^T y) and det are returned
-encrypted; the caller divides by det after decryption.
+regress_pt, derive_log_q) are copies of the JAX package's.
+theta_i = adj(X^T X) . (X^T y) and det are returned encrypted; the
+caller divides by det after decryption.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from fhe_si_tpu import sampling
-
-from .. import scheme
+from .. import sampling, scheme
 from ..context import FheContext
 from ..device import DeviceContext
 from .matrix import Matrix

@@ -2,8 +2,7 @@
 Statistics.h:12-208) over the port's scheme layer.
 
 Counterpart of fhe_si_tpu/apps/statistics.py without prewarm_async.  The
-host helpers are copies of the JAX package's (see regression.py for
-why).  Covariance follows the reference formula n * sum(x x^T) - mu mu^T
+host helpers are copies of the JAX package's.  Covariance follows the reference formula n * sum(x x^T) - mu mu^T
 with rotate-and-reduce slot sums and noise masking of non-first slots.
 """
 from __future__ import annotations
@@ -11,9 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fhe_si_tpu import sampling
-
-from .. import scheme
+from .. import sampling, scheme
 from ..context import FheContext
 from ..device import DeviceContext
 from .matrix import Matrix

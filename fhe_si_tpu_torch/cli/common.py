@@ -3,13 +3,12 @@ phase timing that waits for the card."""
 from __future__ import annotations
 
 import contextlib
+import json
 import sys
 import time
 from typing import NamedTuple
 
 import torch
-
-from fhe_si_tpu.profiling import PhaseProfiler
 
 
 class Args(NamedTuple):
@@ -53,20 +52,33 @@ def parse(argv, name: str) -> Args | None:
     return Args(argv[1], int(argv[2]), int(argv[3]), seed, m, device)
 
 
-class Profiler(PhaseProfiler):
-    """PhaseProfiler whose phases end only when the card's queued work
-    has finished, so a phase time on CUDA is not a launch time."""
+class Profiler:
+    """Phase wall times under the reference's phase names (the
+    PhaseProfiler of fhe_si_tpu/profiling.py).  A phase ends only when the
+    card's queued work has finished, so a phase time on CUDA is not a
+    launch time."""
 
     def __init__(self, device: torch.device):
-        super().__init__()
         self.device = device
+        self.times: dict[str, float] = {}
+        self._t0 = time.perf_counter()
 
     @contextlib.contextmanager
     def phase(self, name: str):
-        with super().phase(name):
+        start = time.perf_counter()
+        try:
             yield
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
+        finally:
+            self.times[name] = self.times.get(name, 0.0) + (
+                time.perf_counter() - start)
+
+    def total(self) -> float:
+        return time.perf_counter() - self._t0
+
+    def as_json(self) -> str:
+        return json.dumps(dict(self.times, total=self.total()))
 
 
 def describe(ctx, device: torch.device) -> str:

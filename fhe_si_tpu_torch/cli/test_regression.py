@@ -12,9 +12,7 @@ plaintext oracle mod p, else MISMATCH and 1.
 """
 import sys
 
-from fhe_si_tpu import sampling
-
-from .. import DeviceContext, FheContext
+from .. import DeviceContext, FheContext, sampling
 from ..apps import regression as reg
 from .common import Profiler, describe, parse
 

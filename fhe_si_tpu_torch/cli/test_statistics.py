@@ -10,9 +10,7 @@ else MISMATCH and 1.
 """
 import sys
 
-from fhe_si_tpu import sampling
-
-from .. import DeviceContext, FheContext
+from .. import DeviceContext, FheContext, sampling
 from ..apps import statistics as st
 from .common import Profiler, describe, parse
 

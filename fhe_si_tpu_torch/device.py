@@ -66,8 +66,8 @@ class DeviceContext:
                 chunk_tbl=self._i32(rt['chunk_tbl'] if rows is None
                                     else rt['chunk_tbl'][:, rows]),
                 fast_crt=self._fast_crt(fast_crt_np),
-                ct={k: self._i32(v) for k, v in ntt_ct.with_crt_premultiplier(
-                    ct, fast_crt_np['binv']).items()},
+                ct=self._ct(ntt_ct.with_crt_premultiplier(
+                    ct, fast_crt_np['binv'])),
                 primes_np=q_np)
 
         # Subset bases (context.ksw_value_primes / lin_value_primes): the
@@ -100,6 +100,13 @@ class DeviceContext:
     def _i32(self, a):
         return torch.as_tensor(np.asarray(a, dtype=np.int32),
                                device=self.device)
+
+    def _ct(self, ct_np: dict) -> dict:
+        """Transform tables plus the byte planes and reciprocals that the
+        tensor-core kernels read (ntt_ct_cuda.kernel_tables)."""
+        ct_np = dict(ct_np, **ntt_ct_cuda.kernel_tables(ct_np))
+        return {k: torch.as_tensor(np.ascontiguousarray(v), device=self.device)
+                for k, v in ct_np.items()}
 
     def _f32(self, q_np):
         """1/q rounded to float32 by the same numpy expression as the JAX

@@ -45,7 +45,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from fhe_si_tpu.hostmath import numbth
+from ..hostmath import numbth
 
 Q_MAX = (1 << 23) - 1    # every chain prime lies below 2^23 (either lane)
 MAX_DIGIT_BITS = 24      # keyswitch digit radix (decompSize <= 3)

@@ -6,7 +6,10 @@ fhe_si_tpu_torch/csrc/ct_ntt.cu (CUDA C++ for sm_90a, a plain C
 interface); the first launch compiles them with nvcc into
 fhe_si_tpu_torch/_build/ and loads the library with ctypes.  Nothing is
 compiled or loaded at import, so this module imports on a machine
-without nvcc.
+without nvcc.  ct_fwd runs a kernel on the CUDA cores; ct_fwd_digits and
+ct_inv run one tensor-core kernel (int8 byte planes, mma.sync), which
+reads the byte planes and Shoup reciprocals that kernel_tables prepares
+here on the host and DeviceContext keeps beside the tables (T['ct']).
 
 Dispatch: a tensor on the CPU takes the plain version of ops/ntt_ct.py;
 a tensor on a CUDA device launches the kernel, or raises.  There is no
@@ -29,6 +32,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from . import ntt_ct
@@ -38,9 +42,72 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "ct_ntt.cu"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES = {"ct_fwd": 0, "ct_fwd_digits": 0, "ct_inv": 0}
+
+
+# ---------------------------------------------- tensor-core kernel tables
+KERNEL_CONSTS = 10   # per prime: q, floor(2^32/q), 2^(8d) mod q, reciprocals
+
+
+def _pad(x: int, a: int) -> int:
+    return -(-x // a) * a
+
+
+def _reciprocal(w, q):
+    """Shoup's floor(w 2^32 / q) for 0 <= w < q < 2^23, int64."""
+    return (np.asarray(w, np.int64) << 32) // q
+
+
+def byte_planes(tab) -> np.ndarray:
+    """Square tables [L, M, M] with entries below 2^24 as the kernel's
+    A operand: uint8 [L, 3, pad16(M), pad32(M) + 16], plane p holding
+    byte p of each entry, zero in the padding."""
+    tab = np.asarray(tab, np.int64)
+    L, M, _ = tab.shape
+    out = np.zeros((L, 3, _pad(M, 16), _pad(M, 32) + 16), np.uint8)
+    for p in range(3):
+        out[:, p, :M, :M] = (tab >> (8 * p)) & 255
+    return out
+
+
+def twiddle_pairs(tw, q) -> np.ndarray:
+    """Twiddle [L, S, R] (rows as the kernel's stage-1 output) as int32
+    bit patterns of uint32 [L, S, 2R + 16]: (w, floor(w 2^32 / q))
+    pairs, each row padded by 16 words."""
+    tw = np.asarray(tw, np.int64)
+    L, S, R = tw.shape
+    out = np.zeros((L, S, 2 * R + 16), np.int64)
+    out[..., 0:2 * R:2] = tw
+    out[..., 1:2 * R:2] = _reciprocal(tw, np.asarray(q, np.int64)[:, None, None])
+    return out.astype(np.uint32).view(np.int32)
+
+
+def prime_consts(q) -> np.ndarray:
+    """Per prime: q, floor(2^32/q), c_d = 2^(8d) mod q for d = 1..4 and
+    their reciprocals floor(c_d 2^32 / q); int32 bit patterns of uint32
+    [L, KERNEL_CONSTS]."""
+    q = np.asarray(q, np.int64)[:, None]
+    c = (1 << (8 * np.arange(1, 5, dtype=np.int64))) % q
+    out = np.concatenate([q, (1 << 32) // q, c, _reciprocal(c, q)], axis=1)
+    return out.astype(np.uint32).view(np.int32)
+
+
+def kernel_tables(ct: dict) -> dict:
+    """What the tensor-core kernels read, from the numpy tables of
+    ntt_ct.ct_tables (and t2i_crt where present): k_<table> byte planes
+    of t1, t2, t1i, t2i, t2i_crt; k_tw the forward twiddle transposed to
+    the digits kernel's [N2, N1] stage-1 layout, k_twi the inverse one
+    [N1, N2], both with reciprocals; k_consts per prime."""
+    q = np.asarray(ct['q'], np.int64).reshape(-1)
+    out = {'k_consts': prime_consts(q),
+           'k_tw': twiddle_pairs(np.swapaxes(ct['tw'], 1, 2), q),
+           'k_twi': twiddle_pairs(ct['twi'], q)}
+    for name in ('t1', 't2', 't1i', 't2i', 't2i_crt'):
+        if name in ct:
+            out['k_' + name] = byte_planes(ct[name])
+    return out
 
 
 def reset_launches():
@@ -55,17 +122,27 @@ def _nvcc() -> str:
     return path
 
 
+def _so_path() -> Path:
+    """The library's path, tagged by the source and the flags."""
+    tag = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libct_ntt_{tag.hexdigest()[:12]}.so"
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    """Build (once per source version) and load the kernel library."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    so = BUILD_DIR / f"libct_ntt_{tag}.so"
+    """Build (once per source version) and load the kernel library; nvcc's
+    output (ptxas -v: registers, shared memory, spills per kernel) goes
+    beside it as .log."""
+    so = _so_path()
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                       check=True)
+        run = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                             capture_output=True, text=True)
+        if run.returncode:
+            raise RuntimeError(f"nvcc failed ({run.returncode}):\n"
+                               f"{run.stdout}{run.stderr}")
+        so.with_suffix(".log").write_text(run.stdout + run.stderr)
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -73,12 +150,19 @@ def _lib() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ptr] * 6 + [i64, i32, i32, i32, ptr]
         fn.restype = ctypes.c_int
+    lib.fsi_ct_mma_smem.argtypes = [i32, i32]
+    lib.fsi_ct_mma_smem.restype = i64
+    lib.fsi_smem_optin.argtypes = []
+    lib.fsi_smem_optin.restype = i32
     return lib
 
 
-def build() -> None:
-    """Compile and load the kernels now (otherwise the first launch does)."""
+def build() -> str:
+    """Compile and load the kernels now (otherwise the first launch does);
+    returns nvcc's report of registers, shared memory and spills."""
     _lib()
+    log = _so_path().with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def _on_cuda(x) -> bool:
@@ -89,18 +173,19 @@ def _on_cuda(x) -> bool:
     return True
 
 
-def _launch(name: str, fn, inp, tabs, q, out, rows, L, meta: CtMeta):
+def _launch(name: str, fn, inp, tabs, out, rows, L, meta: CtMeta):
     """Check the operands, launch on the current stream, count."""
-    for t in (inp, *tabs, q, out):
-        if t.device != inp.device or t.dtype != torch.int32 \
-                or not t.is_contiguous():
-            raise ValueError(f"{name}: operands must be contiguous int32 "
-                             f"tensors on {inp.device}")
+    for t in (inp, *tabs, out):
+        if t.device != inp.device or not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous tensors "
+                             f"on {inp.device}")
+    if inp.dtype != torch.int32 or out.dtype != torch.int32:
+        raise ValueError(f"{name}: input and output must be int32")
     if rows == 0:
         return out
     with torch.cuda.device(inp.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(inp.data_ptr(), *(t.data_ptr() for t in tabs), q.data_ptr(),
+        err = fn(inp.data_ptr(), *(t.data_ptr() for t in tabs),
                  out.data_ptr(), rows, L, meta.N1, meta.N2, stream)
     if err:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
@@ -122,6 +207,28 @@ def _check(name, x, tail: tuple, T: dict, meta: CtMeta):
         q._fsi_q_checked = True
 
 
+@functools.cache
+def _smem(S: int, R: int, device: torch.device) -> tuple[int, int]:
+    lib = _lib()
+    with torch.cuda.device(device):
+        return lib.fsi_ct_mma_smem(S, R), lib.fsi_smem_optin()
+
+
+def _mma_tables(name, x, T: dict, keys, S: int, R: int):
+    """The tensor-core kernel's tables, after checking that the shape
+    fits in shared memory."""
+    missing = [k for k in keys if k not in T]
+    if missing:
+        raise ValueError(f"{name}: the tables lack {missing}; build them "
+                         "with ntt_ct_cuda.kernel_tables (DeviceContext does)")
+    need, limit = _smem(S, R, x.device)
+    if need > limit:
+        raise ValueError(f"{name}: input {tuple(x.shape)} (N1 x N2 = "
+                         f"{max(S, R)} x {min(S, R)}) needs {need} bytes of "
+                         f"shared memory per block; the card allows {limit}")
+    return tuple(T[k] for k in keys)
+
+
 def ct_fwd(T: dict, x, meta: CtMeta):
     """Forward transform of residues int32 [..., L, N] in [0, q)."""
     if not _on_cuda(x):
@@ -131,7 +238,7 @@ def ct_fwd(T: dict, x, meta: CtMeta):
     x = x.contiguous()
     out = torch.empty_like(x)
     return _launch("ct_fwd", _lib().fsi_ct_fwd, x,
-                   (T['t2'], T['t1'], T['tw']), T['q'], out,
+                   (T['t2'], T['t1'], T['tw'], T['q']), out,
                    x.numel() // (L * meta.N), L, meta)
 
 
@@ -145,12 +252,13 @@ def ct_fwd_digits(T: dict, digits, meta: CtMeta, digit_bits: int):
             f"digit radix above 2^{ntt_ct.MAX_DIGIT_BITS}")
     L = T['q'].shape[0]
     _check("ct_fwd_digits", digits, (meta.N,), T, meta)
+    tabs = _mma_tables("ct_fwd_digits", digits, T,
+                       ('k_t2', 'k_t1', 'k_tw', 'k_consts'), meta.N2, meta.N1)
     digits = digits.contiguous()
     out = torch.empty(digits.shape[:-1] + (L, meta.N), dtype=torch.int32,
                       device=digits.device)
-    return _launch("ct_fwd_digits", _lib().fsi_ct_fwd_digits, digits,
-                   (T['t2'], T['t1'], T['tw']), T['q'], out,
-                   digits.numel() // meta.N, L, meta)
+    return _launch("ct_fwd_digits", _lib().fsi_ct_fwd_digits, digits, tabs,
+                   out, digits.numel() // meta.N, L, meta)
 
 
 def ct_inv(T: dict, evals, meta: CtMeta, t2i_key: str = 't2i'):
@@ -160,8 +268,10 @@ def ct_inv(T: dict, evals, meta: CtMeta, t2i_key: str = 't2i'):
         return ntt_ct.ct_inv(T, evals, meta, t2i_key)
     L = T['q'].shape[0]
     _check("ct_inv", evals, (L, meta.N), T, meta)
+    tabs = _mma_tables("ct_inv", evals, T,
+                       ('k_t1i', 'k_' + t2i_key, 'k_twi', 'k_consts'),
+                       meta.N1, meta.N2)
     evals = evals.contiguous()
     out = torch.empty_like(evals)
-    return _launch("ct_inv", _lib().fsi_ct_inv, evals,
-                   (T['t1i'], T[t2i_key], T['twi']), T['q'], out,
+    return _launch("ct_inv", _lib().fsi_ct_inv, evals, tabs, out,
                    evals.numel() // (L * meta.N), L, meta)

@@ -4,8 +4,10 @@ Counterpart of fhe_si_tpu/scheme.py.  Every object carries the
 DeviceContext it lives on (and with it the torch.device), so an entry
 point takes the DeviceContext once, at keygen, and reads it from its
 operands afterwards.  Randomness is the host-side
-fhe_si_tpu.sampling.RandomSource, drawn in the same canonical order as
-the JAX package, so both packages consume identical samples.  Results
+sampling.RandomSource (this package's copy of fhe_si_tpu/sampling.py,
+which draws the same integers), drawn in the same canonical order as
+the JAX package, so both packages consume identical samples.  A
+RandomSource of either package is accepted.  Results
 are new tensors: no operation writes into a tensor that another
 Ciphertext may share.
 """
@@ -14,14 +16,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fhe_si_tpu import sampling
-from fhe_si_tpu.hostmath import oracle
-
+from . import sampling
 from .context import MAX_KSW_PARTS, FheContext, ints_to_limbs, limbs_to_int
 from .device import DeviceContext
+from .hostmath import oracle
 from .ops import limbs as lb
 
 HWT = 64  # secret-key Hamming weight (FHE-SI.cpp:90)
+
+
+def _is_source(rnd) -> bool:
+    """A RandomSource (of this package or of fhe_si_tpu: both draw the same
+    integers) rather than a pre-drawn randomness plan."""
+    return callable(getattr(rnd, "uniform_signed_q", None))
 
 
 class Plaintext:
@@ -131,7 +138,7 @@ class FhePublicKey:
                 rnd: sampling.EncryptRandomness | sampling.RandomSource
                 ) -> "Ciphertext":
         ctx = self.ctx
-        if isinstance(rnd, sampling.RandomSource):
+        if _is_source(rnd):
             rnd = sampling.sample_encrypt(rnd, ctx.phim, ctx.stdev,
                                           self.pk_evals.shape[0])
         parts = self.dev._encrypt(self.pk_evals,
@@ -162,7 +169,7 @@ def keygen(dev: DeviceContext,
     """FHESISecKey + FHESIPubKey construction (FHE-SI.cpp:42-91) on the
     DeviceContext's device."""
     ctx = dev.ctx
-    if isinstance(rnd, sampling.RandomSource):
+    if _is_source(rnd):
         rnd = sampling.sample_keygen(rnd, ctx.phim, ctx.stdev, ctx.log_q, HWT)
     sk_evals, pk_evals, pk_limbs = dev._keygen(
         _i32(dev, rnd.s), _i32(dev, rnd.c0),
@@ -190,7 +197,7 @@ class KeySwitch:
                 f"key-switch source key has {n_src} parts; the keyswitch "
                 f"subset basis is provisioned for MAX_KSW_PARTS="
                 f"{MAX_KSW_PARTS} (context.exact_bounds['ksw'])")
-        if isinstance(rnd, sampling.RandomSource):
+        if _is_source(rnd):
             rnd = sampling.sample_keyswitch(rnd, ctx.phim, ctx.stdev,
                                             ctx.log_q, n_src, ctx.ndigits)
         A_limbs = _i32(dev, np.stack(

@@ -4,7 +4,8 @@ two applications on the card against the same runs on the CPU (which
 test_torch_slice.py and test_torch_apps*.py hold equal to fhe_si_tpu).
 Every test skips without a card.
 
-This file imports no JAX, so it also runs where JAX is absent:
+This file imports neither JAX nor fhe_si_tpu, so it also runs where JAX
+is absent:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
@@ -12,18 +13,19 @@ import numpy as np
 import pytest
 import torch
 
-from fhe_si_tpu import sampling
-from fhe_si_tpu.hostmath import oracle
-from fhe_si_tpu_torch import DeviceContext, FheContext, scheme
+from fhe_si_tpu_torch import DeviceContext, FheContext, sampling, scheme
+from fhe_si_tpu_torch.hostmath import oracle
 from fhe_si_tpu_torch.ops import ntt_ct, ntt_ct_cuda
 
 torch.set_num_threads(1)
 
-RAGGED = 37
+RAGGED = 37     # rows: no row tile of the tensor-core kernel divides it
 CONFIGS = [pytest.param((256, 257, None), id="m256"),
            pytest.param((32, 97, None), id="m32"),
            pytest.param((256, 257, 23), id="m256-wide"),
            pytest.param((32, 97, 23), id="m32-wide")]
+KERNEL_CONFIGS = CONFIGS + [pytest.param((8192, 40961, None), id="m8192"),
+                            pytest.param((8192, 40961, 23), id="m8192-wide")]
 
 
 @pytest.fixture
@@ -38,7 +40,7 @@ def _ctx(m, p, prime_bits):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mp", CONFIGS)
+@pytest.mark.parametrize("mp", KERNEL_CONFIGS)
 def test_kernels_match_plain(cuda, mp):
     dc = DeviceContext(_ctx(*mp), cuda)
     meta = dc.ct_meta
@@ -60,6 +62,48 @@ def test_kernels_match_plain(cuda, mp):
                            ntt_ct.ct_fwd_digits(T["ct"], d, meta, 24))
     torch.cuda.synchronize()
     assert all(n > 0 for n in ntt_ct_cuda.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+def test_tensor_core_kernel_m16384(cuda):
+    """The largest ring the tensor-core kernel takes (N1 x N2 = 128 x 64,
+    one block per SM), on tables of three primes of both lanes."""
+    from fhe_si_tpu_torch.hostmath import numbth
+    m, qs = 1 << 14, [786433, 1032193, 8257537]
+    meta, ct = ntt_ct.ct_tables(
+        m, qs, [numbth.find_element_of_order(q, m) for q in qs])
+    T = {k: torch.as_tensor(v, device=cuda)
+         for k, v in dict(ct, **ntt_ct_cuda.kernel_tables(ct)).items()}
+    rng = np.random.default_rng(14)
+    d = torch.as_tensor(rng.integers(0, 1 << 24, size=(RAGGED, meta.N)).astype(
+        np.int32), device=cuda)
+    ev = ntt_ct_cuda.ct_fwd_digits(T, d, meta, 24)
+    assert torch.equal(ev, ntt_ct.ct_fwd_digits(T, d, meta, 24))
+    assert torch.equal(ntt_ct_cuda.ct_inv(T, ev, meta),
+                       ntt_ct.ct_inv(T, ev, meta))
+
+
+@pytest.mark.cuda
+def test_tensor_core_kernel_refusals(cuda):
+    """At m = 2^15 (N1 x N2 = 128 x 128) the tensor-core kernel's tables
+    exceed shared memory: the wrappers raise with the shape.  Tables
+    without the kernel's byte planes raise too."""
+    from fhe_si_tpu_torch.hostmath import numbth
+    m, q = 1 << 15, 786433                        # q = 3 * 2^18 + 1
+    meta, ct = ntt_ct.ct_tables(m, [q], [numbth.find_element_of_order(q, m)])
+    T = {k: torch.as_tensor(v, device=cuda)
+         for k, v in dict(ct, **ntt_ct_cuda.kernel_tables(ct)).items()}
+    d = torch.zeros((2, meta.N), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match=r"\(2, 16384\).*shared memory"):
+        ntt_ct_cuda.ct_fwd_digits(T, d, meta, 24)
+    with pytest.raises(ValueError, match=r"\(2, 1, 16384\).*shared memory"):
+        ntt_ct_cuda.ct_inv(T, d[:, None], meta)
+    dc = DeviceContext(_ctx(32, 97, None), cuda)
+    bare = {k: v for k, v in dc.full["ct"].items() if not k.startswith("k_")}
+    x = torch.zeros((1, len(dc.full["primes_np"]), 16), dtype=torch.int32,
+                    device=cuda)
+    with pytest.raises(ValueError, match="kernel_tables"):
+        ntt_ct_cuda.ct_inv(bare, x, dc.ct_meta)
 
 
 @pytest.mark.cuda
@@ -93,7 +137,7 @@ def test_app_cli_on_card_matches(cuda, app, tmp_path, capsys):
     """The app CLIs on the card at m = 32 reach MATCH, launching all three
     kernels (the m = 8192 runs are chip_smoke.py's phase 6)."""
     import importlib
-    from fhe_si_tpu.cli.gen_data import generate
+    from fhe_si_tpu_torch.cli.gen_data import generate
     cli = importlib.import_module(f"fhe_si_tpu_torch.cli.test_{app}")
     path = str(tmp_path / "data.txt")
     generate(path, 2, 16, seed=5)

@@ -182,16 +182,17 @@ def test_scheme_api_and_state_round_trip(run):
 
 
 def test_runs_without_jax():
-    """The port imports no JAX: with `jax` blocked, the m = 256 slice runs
-    on the CPU and decrypts to the plaintext product, and the regression
-    CLI reaches MATCH at m = 32 on --device=cpu."""
+    """The port imports neither JAX nor the JAX package: with `jax` and
+    `fhe_si_tpu` blocked, the m = 256 slice runs on the CPU and decrypts
+    to the plaintext product, and the regression CLI reaches MATCH at
+    m = 32 on --device=cpu."""
     code = textwrap.dedent("""
         import sys
         sys.modules['jax'] = None
+        sys.modules['fhe_si_tpu'] = None
         import numpy as np
-        from fhe_si_tpu import sampling
-        from fhe_si_tpu.hostmath import oracle
-        from fhe_si_tpu_torch import DeviceContext, FheContext, scheme
+        from fhe_si_tpu_torch import DeviceContext, FheContext, sampling, scheme
+        from fhe_si_tpu_torch.hostmath import oracle
         ctx = FheContext(m=256, log_q=80, p=257, generator=3)
         dev = DeviceContext(ctx, 'cpu')
         src = sampling.RandomSource(3)
@@ -205,16 +206,15 @@ def test_runs_without_jax():
         got = sk.decrypt_batch(out)[0].message
         assert np.array_equal(got, oracle.plaintext_mul(ctx, m1, m2))
         import os, tempfile
-        from fhe_si_tpu.cli.gen_data import generate
+        from fhe_si_tpu_torch.cli.gen_data import generate
         from fhe_si_tpu_torch.cli import test_regression
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, 'data.txt')
             generate(path, 2, 16, seed=5)
             assert test_regression.main(['x', path, '97', '3', '1',
                                          '--m=32', '--device=cpu']) == 0
-        assert not any(k.startswith('fhe_si_tpu.ops') or
-                       k.startswith('fhe_si_tpu.apps') or
-                       k in ('fhe_si_tpu.device', 'fhe_si_tpu.scheme')
+        assert sys.modules['fhe_si_tpu'] is None and sys.modules['jax'] is None
+        assert not any(k.startswith(('fhe_si_tpu.', 'jax.'))
                        for k in sys.modules)
         print('ok')
     """)

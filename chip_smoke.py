@@ -13,7 +13,8 @@ prints no result line):
   3. each kernel against its plain PyTorch version on the card, at the
      narrow tables of m = 8192, 256 and 32 and the wide (23-bit prime)
      tables of the regression context (m = 8192, logQ 213) and of
-     m = 256 and 32, on the full chain and both subset bases, with a
+     m = 256 and 32, on the full chain and both subset bases, and on
+     tables of a narrow and a wide prime at m = 2^14 and 2^15, with a
      ragged row count, a [2, 3] lead shape, the forward/inverse round
      trip and both inverse tables, bit for bit; plus the int32 semantics
      the port relies on (wraparound, round half to even, arithmetic >>);
@@ -22,12 +23,16 @@ prints no result line):
      multiply + relinearize, batched decrypt; every decrypt must equal
      the plaintext product, and every kernel must have launched.  At
      m = 256 the ciphertext parts must also equal hostmath/oracle.py;
+  4b. the same path at the JAX package's m = 2^15 config,
+     FheContext(m=32768, log_q=170, p=65537, g=3) (wide lane), on 4
+     pairs; prints its wall time;
   5. timing with CUDA events: mul+relin at batch 64 and each kernel
-     against its plain version at the main path's shapes and at the
-     regression app's wide shapes; at the main path's shapes each kernel
-     also against its bound (the larger of its int32 bytes over the HBM
-     rate and its int8 byte products over the int8 tensor-core rate) and
-     with its launches per mul+relin step;
+     against its plain version and its bound (the larger of its int32
+     bytes over the HBM rate and its int8 byte products over the int8
+     tensor-core rate) at the main path's shapes, at the regression
+     app's wide shapes and at the m = 2^15 path's shapes (with 4 pairs:
+     its mul+relin step too); at the main path's and the m = 2^15 path's
+     shapes also with its launches per mul+relin step;
   6. the applications: the port's Test_Regression and Test_Statistics
      CLIs at m = 8192, p = 40961, g = 3 on a d = 4, n = 256 dataset made
      from the seed (both on the wide lane); each must print MATCH and
@@ -53,6 +58,10 @@ SEED = 2024
 RAGGED_ROWS = 37           # no block size divides it
 BATCH = 64                 # ciphertext pairs per mul+relin step
 MAIN = dict(m=8192, log_q=80, p=40961, generator=3)
+M15 = dict(m=32768, log_q=170, p=65537, generator=3)   # wide lane, L = 19
+BATCH15 = 4
+# a narrow and a wide prime, both 1 mod 2^15: 3 * 2^18 + 1, 63 * 2^17 + 1
+BIG_PRIMES = [786433, 8257537]
 SMALL = [dict(m=256, log_q=80, p=257, generator=3),
          dict(m=32, log_q=80, p=97, generator=3)]
 APP = dict(p=40961, generator=3, m=8192, dim=4, n=256)
@@ -154,6 +163,7 @@ def phase_kernels(dev):
     the narrow and the wide tables."""
     import torch
     from fhe_si_tpu_torch import DeviceContext, FheContext
+    from fhe_si_tpu_torch.hostmath import numbth
     from fhe_si_tpu_torch.ops import ntt_ct, ntt_ct_cuda
     err = dict.fromkeys(KERNELS, 0)
     rng = np.random.default_rng(SEED)
@@ -164,6 +174,28 @@ def phase_kernels(dev):
         if d:
             raise AssertionError(f"{name}: kernel differs from plain by {d}")
 
+    def check_tables(tab, q_np, meta, label, t2i_keys=("t2i", "t2i_crt")):
+        L, N = len(q_np), meta.N
+        for lead in ((RAGGED_ROWS,), (2, 3)):
+            x = torch.as_tensor(
+                rng.integers(0, q_np[:, None], size=lead + (L, N)).astype(
+                    np.int32), device=dev)
+            ev = ntt_ct_cuda.ct_fwd(tab, x, meta)
+            check("ct_fwd", ev, ntt_ct.ct_fwd(tab, x, meta))
+            for key in t2i_keys:
+                check("ct_inv", ntt_ct_cuda.ct_inv(tab, ev, meta, key),
+                      ntt_ct.ct_inv(tab, ev, meta, key))
+            back = ntt_ct_cuda.ct_inv(tab, ev, meta)
+            if not torch.equal(back, x):
+                raise AssertionError(f"ct_inv(ct_fwd(x)) != x at {label}")
+            digs = torch.as_tensor(
+                rng.integers(0, 1 << 24, size=lead + (N,)).astype(np.int32),
+                device=dev)
+            check("ct_fwd_digits",
+                  ntt_ct_cuda.ct_fwd_digits(tab, digs, meta, 24),
+                  ntt_ct.ct_fwd_digits(tab, digs, meta, 24))
+        print(f"kernels == plain: {label} N1xN2={meta.N1}x{meta.N2} L={L}")
+
     wide = [app_contexts()["regression"]] + [
         dict(cfg, prime_bits=23) for cfg in SMALL]
     for cfg, want_wide in ([(c, False) for c in [MAIN] + SMALL]
@@ -172,32 +204,20 @@ def phase_kernels(dev):
         if ctx.wide != want_wide:
             raise AssertionError(f"{cfg}: wide lane is {ctx.wide}")
         dc = DeviceContext(ctx, dev)
-        meta = dc.ct_meta
         for basis, T in (("full", dc.full), ("ksw", dc.ksw), ("lin", dc.lin)):
-            tab = T['ct']
-            q_np = T['primes_np']
-            L, N = len(q_np), meta.N
-            for lead in ((RAGGED_ROWS,), (2, 3)):
-                x = torch.as_tensor(
-                    rng.integers(0, q_np[:, None], size=lead + (L, N)).astype(
-                        np.int32), device=dev)
-                ev = ntt_ct_cuda.ct_fwd(tab, x, meta)
-                check("ct_fwd", ev, ntt_ct.ct_fwd(tab, x, meta))
-                for key in ("t2i", "t2i_crt"):
-                    check("ct_inv", ntt_ct_cuda.ct_inv(tab, ev, meta, key),
-                          ntt_ct.ct_inv(tab, ev, meta, key))
-                back = ntt_ct_cuda.ct_inv(tab, ev, meta)
-                if not torch.equal(back, x):
-                    raise AssertionError(f"ct_inv(ct_fwd(x)) != x at {cfg}")
-                digs = torch.as_tensor(
-                    rng.integers(0, 1 << 24, size=lead + (N,)).astype(np.int32),
-                    device=dev)
-                check("ct_fwd_digits",
-                      ntt_ct_cuda.ct_fwd_digits(tab, digs, meta, 24),
-                      ntt_ct.ct_fwd_digits(tab, digs, meta, 24))
-            print(f"kernels == plain: m={cfg['m']} logQ={cfg['log_q']} "
-                  f"{'wide' if ctx.wide else 'narrow'} basis={basis} "
-                  f"N1xN2={meta.N1}x{meta.N2} L={L}")
+            check_tables(T['ct'], T['primes_np'], dc.ct_meta,
+                         f"m={cfg['m']} logQ={cfg['log_q']} "
+                         f"{'wide' if ctx.wide else 'narrow'} basis={basis}")
+    # the largest rings, on tables of one narrow and one wide prime
+    # (m = 2^15: the twiddle read from global memory, 16 tiles per warp)
+    for m in (1 << 14, 1 << 15):
+        meta, ct = ntt_ct.ct_tables(
+            m, BIG_PRIMES, [numbth.find_element_of_order(q, m)
+                            for q in BIG_PRIMES])
+        tab = {k: torch.as_tensor(v, device=dev) for k, v in
+               dict(ct, **ntt_ct_cuda.kernel_tables(ct)).items()}
+        check_tables(tab, np.asarray(BIG_PRIMES, np.int64), meta,
+                     f"m={m} primes={BIG_PRIMES}", t2i_keys=("t2i",))
     torch.cuda.synchronize()
     return err
 
@@ -206,6 +226,82 @@ def encrypt_pairs(scheme, ctx, pk, src, count):
     msgs = [src.uniform_mod_p(ctx.phim, ctx.p) for _ in range(2 * count)]
     cts = pk.encrypt_batch([scheme.Plaintext(ctx, mm) for mm in msgs], src)
     return msgs, list(zip(cts[0::2], cts[1::2]))
+
+
+def lean_path(dev, cfg, batch, label):
+    """keygen, relinearization key, batched encrypt of `batch` pairs,
+    batched multiply + relinearize and batched decrypt at FheContext(cfg),
+    with the kernel counts set to 0 just before and read just after.
+    Every decrypt must equal oracle.plaintext_mul and every kernel must
+    have launched.  Returns (dc, ksw, pairs, out, launches)."""
+    import torch
+    from fhe_si_tpu_torch import DeviceContext, FheContext, sampling, scheme
+    from fhe_si_tpu_torch.hostmath import oracle
+    from fhe_si_tpu_torch.ops import ntt_ct_cuda
+    t0 = time.perf_counter()
+    ctx = FheContext(**cfg)
+    dc = DeviceContext(ctx, dev)
+    src = sampling.RandomSource(SEED)
+    kg = sampling.sample_keygen(src, ctx.phim, ctx.stdev, ctx.log_q)
+    kr = sampling.sample_keyswitch(src, ctx.phim, ctx.stdev, ctx.log_q, 3,
+                                   ctx.ndigits)
+    print(f"setup {ctx} on {dev}: {time.perf_counter() - t0:.2f} s")
+    ntt_ct_cuda.reset_launches()
+    sk, pk = scheme.keygen(dc, kg)
+    ksw = scheme.KeySwitch.for_relinearization(sk, kr)
+    msgs, pairs = encrypt_pairs(scheme, ctx, pk, src, batch)
+    out = scheme.relin_batch(scheme.mul_batch(pairs), ksw)
+    dec = sk.decrypt_batch(out)
+    torch.cuda.synchronize()
+    launches = dict(ntt_ct_cuda.LAUNCHES)
+    print(f"{label} launches: {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{label} did not launch {name}")
+    for c in out:
+        if c.parts.shape != (2, ctx.phim, ctx.n_limbs_ct) \
+                or c.parts.dtype != torch.int32:
+            raise AssertionError(f"bad output part {tuple(c.parts.shape)}")
+    for i in range(batch):
+        want = oracle.plaintext_mul(ctx, msgs[2 * i], msgs[2 * i + 1])
+        if not np.array_equal(dec[i].message, want):
+            raise AssertionError(f"{label} pair {i}: decrypt != plaintext "
+                                 "product")
+    print(f"{label}: {batch}/{batch} decrypted products == plaintext "
+          f"products at m={ctx.m} (phim {ctx.phim}, L={ctx.num_primes}, "
+          f"Lk={len(ctx.ksw_rows)}, {'wide' if ctx.wide else 'narrow'} "
+          f"lane)")
+    return dc, ksw, pairs, out, launches
+
+
+def step_cases(dc, batch):
+    """The kernel calls of one mul+relin step on `batch` pairs: 4 parts
+    lifted, 3 tensored parts back, 3 x ndigits digit rows transformed
+    and 2 keyswitched parts back on the ksw basis."""
+    return [("ct_fwd", "full", batch * 4), ("ct_inv", "full", batch * 3),
+            ("ct_inv", "ksw", batch * 2),
+            ("ct_fwd_digits", "ksw", batch * 3 * dc.ndigits)]
+
+
+def time_step(card, dc, pairs, ksw, out, label):
+    """mul+relin over the stacked pairs, held equal to `out` and timed;
+    returns (a, b, ms per step, launches of one step)."""
+    import torch
+    from fhe_si_tpu_torch.ops import ntt_ct_cuda
+    a = torch.stack([x.parts for x, _ in pairs])
+    b = torch.stack([y.parts for _, y in pairs])
+    ref = torch.stack([c.parts for c in out])
+    step = lambda: dc.mul_relin(a, b, ksw.matrix_evals)  # noqa: E731
+    for _ in range(2):
+        step()
+    ms = cuda_ms(step, 10)
+    if not torch.equal(step(), ref):
+        raise AssertionError(f"{label}: timed mul+relin output changed")
+    print(f"[{card}] {label} mul+relin B={len(pairs)} m={dc.ctx.m}: "
+          f"{ms:.3f} ms/step, {len(pairs) * 1000.0 / ms:.1f} mults/s")
+    ntt_ct_cuda.reset_launches()
+    step()
+    return a, b, ms, dict(ntt_ct_cuda.LAUNCHES)
 
 
 def oracle_check_small(dev):
@@ -245,10 +341,10 @@ def oracle_check_small(dev):
 
 def time_kernels(card, dev, dc, cases, per_step=None):
     """Each (kernel, basis, rows) case against its plain version on random
-    operands: held equal, then timed plain, kernel, kernel, plain.  With
-    per_step (launches per mul+relin step), also the bound and the share
-    of it.  Returns {kernel: [(shape, kernel ms, plain ms, bound ms,
-    bound_by), ...]} in case order."""
+    operands: held equal, then timed plain, kernel, kernel, plain, and
+    set against its bound.  With per_step, also the kernel's launches per
+    mul+relin step.  Returns {kernel: [(shape, kernel ms, plain ms, bound
+    ms, bound_by), ...]} in case order."""
     import torch
     from fhe_si_tpu_torch.ops import ntt_ct, ntt_ct_cuda
     rng = np.random.default_rng(SEED)
@@ -279,11 +375,11 @@ def time_kernels(card, dev, dc, cases, per_step=None):
         k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
         b_ms, b_by = kernel_bound(name, rows, len(q_np), meta)
         line = (f"[{card}] {name} {lane} m={dc.ctx.m} {basis} "
-                f"{tuple(x.shape)}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+                f"{tuple(x.shape)}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms"
+                f", bound {b_ms * 1e3:.1f} us ({b_by}), share of bound "
+                f"{100 * b_ms / k_ms:.1f}%")
         if per_step is not None:
-            line += (f", bound {b_ms * 1e3:.1f} us ({b_by}), share of bound "
-                     f"{100 * b_ms / k_ms:.1f}%, launches per mul+relin step "
-                     f"{per_step[name]}")
+            line += f", launches per mul+relin step {per_step[name]}"
         print(line)
         out.setdefault(name, []).append((tuple(x.shape), k_ms, p_ms, b_ms, b_by))
     return out
@@ -341,8 +437,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
               "kernels run only on a CUDA card", file=sys.stderr)
         return 1
-    from fhe_si_tpu_torch import DeviceContext, FheContext, sampling, scheme
-    from fhe_si_tpu_torch.hostmath import oracle
+    from fhe_si_tpu_torch import DeviceContext, FheContext
     from fhe_si_tpu_torch.ops import ntt_ct_cuda
 
     # 1. device
@@ -370,53 +465,17 @@ def main() -> int:
 
     # 4. the main path
     oracle_check_small(dev)
+    dc, ksw, pairs, out, launches = lean_path(dev, MAIN, BATCH, "main path")
+
+    # 4b. the same path at m = 2^15
     t0 = time.perf_counter()
-    ctx = FheContext(**MAIN)
-    dc = DeviceContext(ctx, dev)
-    src = sampling.RandomSource(SEED)
-    kg = sampling.sample_keygen(src, ctx.phim, ctx.stdev, ctx.log_q)
-    kr = sampling.sample_keyswitch(src, ctx.phim, ctx.stdev, ctx.log_q, 3,
-                                   ctx.ndigits)
-    print(f"setup {ctx} on {dev}: {time.perf_counter() - t0:.2f} s")
-    ntt_ct_cuda.reset_launches()
-    sk, pk = scheme.keygen(dc, kg)
-    ksw = scheme.KeySwitch.for_relinearization(sk, kr)
-    msgs, pairs = encrypt_pairs(scheme, ctx, pk, src, BATCH)
-    out = scheme.relin_batch(scheme.mul_batch(pairs), ksw)
-    dec = sk.decrypt_batch(out)
-    torch.cuda.synchronize()
-    launches = dict(ntt_ct_cuda.LAUNCHES)
-    print(f"main path launches: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"main path did not launch {name}")
-    for c in out:
-        if c.parts.shape != (2, ctx.phim, ctx.n_limbs_ct) \
-                or c.parts.dtype != torch.int32:
-            raise AssertionError(f"bad output part {tuple(c.parts.shape)}")
-    for i in range(BATCH):
-        want = oracle.plaintext_mul(ctx, msgs[2 * i], msgs[2 * i + 1])
-        if not np.array_equal(dec[i].message, want):
-            raise AssertionError(f"pair {i}: decrypt != plaintext product")
-    print(f"main path: {BATCH}/{BATCH} decrypted products == plaintext "
-          f"products at m={ctx.m} (phim {ctx.phim}, L={ctx.num_primes}, "
-          f"Lk={len(ctx.ksw_rows)})")
+    dc15, ksw15, pairs15, out15, launches15 = lean_path(
+        dev, M15, BATCH15, "m=32768 path")
+    print(f"m=32768 path wall time: {time.perf_counter() - t0:.2f} s "
+          f"(setup, keys, encrypt, mul+relin, decrypt)")
 
     # 5. timing
-    a = torch.stack([x.parts for x, _ in pairs])
-    b = torch.stack([y.parts for _, y in pairs])
-    ref = torch.stack([c.parts for c in out])
-    step = lambda: dc.mul_relin(a, b, ksw.matrix_evals)  # noqa: E731
-    for _ in range(2):
-        step()
-    ms = cuda_ms(step, 10)
-    if not torch.equal(step(), ref):
-        raise AssertionError("timed mul+relin output changed")
-    print(f"[{card}] mul+relin B={BATCH} m={ctx.m}: {ms:.3f} ms/step, "
-          f"{BATCH * 1000.0 / ms:.1f} mults/s")
-    ntt_ct_cuda.reset_launches()
-    step()
-    per_step = dict(ntt_ct_cuda.LAUNCHES)
+    a, b, ms, per_step = time_step(card, dc, pairs, ksw, out, "main path")
     tprod = dc._tensor_mul(a, b)
     parts = dc._scale_down(tprod)
     digs = dc._digit_evals(parts)
@@ -430,10 +489,7 @@ def main() -> int:
     for name, fn in stages.items():
         print(f"[{card}] stage {name}: {cuda_ms(fn, 5):.3f} ms")
 
-    narrow_ms = time_kernels(card, dev, dc, [
-        ("ct_fwd", "full", BATCH * 4), ("ct_inv", "full", BATCH * 3),
-        ("ct_inv", "ksw", BATCH * 2),
-        ("ct_fwd_digits", "ksw", BATCH * 3 * ctx.ndigits)], per_step)
+    narrow_ms = time_kernels(card, dev, dc, step_cases(dc, BATCH), per_step)
     # the regression app's shapes at d = 4, one block: 14 products of
     # 2 x 2 parts lifted, 14 x 3 tensored parts back, 20 entries x 2 parts
     # keyswitched (digits on the ksw basis, the dot's result back on it)
@@ -443,6 +499,11 @@ def main() -> int:
         ("ct_inv", "ksw", 20 * 2),
         ("ct_fwd_digits", "ksw", 20 * 2 * rdc.ndigits)])
     del rdc
+    *_, per_step15 = time_step(card, dc15, pairs15, ksw15, out15,
+                               "m=32768 path")
+    m15_ms = time_kernels(card, dev, dc15, step_cases(dc15, BATCH15),
+                          per_step15)
+    del dc15, ksw15, pairs15, out15
     print(f"peak device memory (phases 3-5): "
           f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
 
@@ -451,6 +512,7 @@ def main() -> int:
     kernels = []
     for name in KERNELS:
         by_path = dict(mul_relin=launches[name],
+                       mul_relin_m32768=launches15[name],
                        **{app: n[name] for app, n in app_launches.items()})
         _, k_ms, p_ms, b_ms, b_by = narrow_ms[name][0]
         kernels.append(dict(
@@ -460,7 +522,9 @@ def main() -> int:
             max_abs_err=max_err[name], ms=k_ms, plain_ms=p_ms,
             bound_ms=b_ms, bound_by=b_by,
             library_ms=None,     # no PyTorch call computes a transform mod q
-            wide_ms=wide_ms[name][0][1], wide_plain_ms=wide_ms[name][0][2]))
+            wide_ms=wide_ms[name][0][1], wide_plain_ms=wide_ms[name][0][2],
+            m32768_ms=m15_ms[name][0][1], m32768_plain_ms=m15_ms[name][0][2],
+            m32768_bound_ms=m15_ms[name][0][3]))
 
     print(json.dumps({"kernels": kernels}))
     print(card_line())

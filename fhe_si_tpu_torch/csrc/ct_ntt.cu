@@ -1,10 +1,12 @@
 // Two-level Cooley-Tukey NTT kernels for both residue lanes (primes
-// q < 2^23, q >= 2^14; power-of-two m), written for Hopper (sm_90a).
+// q < 2^23, q >= 2^14; power-of-two m up to 2^15), written for Hopper
+// (sm_90a).
 //
-// Replaces the three Pallas TPU kernels of fhe_si_tpu/ops/ntt_ct_pallas.py:
-//   fsi_ct_fwd        <- _fwd_res_kernel    (:148)  ct_fwd_kernel<false>
-//   fsi_ct_fwd_digits <- _fwd_digits_kernel (:137)  ct_mma_kernel<true>
-//   fsi_ct_inv        <- _inv_kernel        (:158)  ct_mma_kernel<false>
+// Replaces the three Pallas TPU kernels of fhe_si_tpu/ops/ntt_ct_pallas.py
+// with one tensor-core kernel:
+//   fsi_ct_fwd        <- _fwd_res_kernel    (:148)  ct_mma_kernel<false>, S = N2
+//   fsi_ct_fwd_digits <- _fwd_digits_kernel (:137)  ct_mma_kernel<true>,  S = N2
+//   fsi_ct_inv        <- _inv_kernel        (:158)  ct_mma_kernel<false>, S = N1
 //
 // What they compute (the index maps of fhe_si_tpu_torch/ops/ntt_ct.py):
 //   forward:  y[c1,j2] = (sum_c2 T2[j2,c2] x[c1 + N1*c2]) mod q
@@ -16,32 +18,27 @@
 // bit-identical to the TPU kernels' int8-plane Karatsuba + Barrett-Horner
 // and to the plain versions.
 //
-// ---- ct_fwd_kernel<false> (fsi_ct_fwd): the first port, unchanged ----
-// One block per (row, prime); the row and the stage-1 intermediate live in
-// shared memory.  Each stage accumulates T.x in unsigned 64 bits on the
-// CUDA cores and reduces once with %: exact while K products of a table
-// entry (< 2^23) and a residue (< 2^23) stay below 2^64 (K < 2^18).  It is
-// bound by integer instruction issue (64-bit multiply-adds and remainders).
-//
-// ---- ct_mma_kernel (fsi_ct_fwd_digits, fsi_ct_inv): tensor cores ----
-// Both transforms are two stages C = A @ B of a per-prime table A and the
+// ---- ct_mma_kernel: tensor cores ----
+// Every transform is two stages C = A @ B of a per-prime table A and the
 // row viewed as a matrix, then a mod-q epilogue.  With the row viewed as
-// [S][R] (forward on digits: S = N2, R = N1; inverse: S = N1, R = N2):
+// [S][R] (forward, on residues or digits: S = N2, R = N1, the row read as
+// [c2][c1]; inverse: S = N1, R = N2):
 //   stage 1: C1[S][R] = A1[S][S] @ in[S][R], reduce, times the twiddle
 //            tw1[S][R] (forward: tw transposed; inverse: twi), reduce;
 //   stage 2: C2[R][S] = A2[R][R] @ C1^T, reduce; out[R][S] row-major.
-// (A1, A2) = (T2, T1) forward, (T1i, T2i or T2i_crt) inverse.
+// (A1, A2) = (T2, T1) forward, (T1i, T2i or T2i_crt) inverse.  The two
+// forward transforms differ only in the input's address: a digit row
+// [rows, N] is shared by every prime, a residue row is x[row, l].
 //
 // What bounds them on this card (H100 SXM, main path m = 8192, N1 = N2 = 64;
 // int32 in and out once each; the int8 count is 9 byte products per
 // multiply-add at 1,979 TOP/s; memory at 3.35 TB/s):
+//   fsi_ct_fwd [256, 12, 4096]: 100.7 MB, 30.0 us memory vs 14.7 us int8:
+//     bound by bytes;
 //   fsi_ct_fwd_digits [768, 4096] -> [768, 8, 4096]: 113.2 MB, 33.8 us
-//     memory vs 29.3 us int8: bound by bytes;
+//     vs 29.3 us: bytes;
 //   fsi_ct_inv [192, 12, 4096]: 75.5 MB, 22.5 us vs 11.0 us: bytes;
 //   fsi_ct_inv [128, 8, 4096]: 33.6 MB, 10.0 us vs 4.9 us: bytes.
-// The first port ran 40x to 50x above these bounds: scalar 64-bit
-// multiply-adds on the CUDA cores, three 64-bit % by a runtime divisor per
-// output, and every block reloading its prime's tables for one row.
 //
 // The design:
 // * Stages on the int8 tensor cores.  Table entries (< 2^23) and operands
@@ -51,7 +48,7 @@
 //   diagonal d = a + b (d = 0..4).  A diagonal sums at most 3 plane
 //   products of K terms below 255^2: 3 * K * 255^2 < 2^31 for K <= 11,008,
 //   so it is exact for every K the kernels take (K <= 128: the shared
-//   memory caps m at 2^14).  The diagonals stand for
+//   memory caps m at 2^15).  The diagonals stand for
 //   v = sum_d D_d 2^(8d) < K * 2^23 * 2^24 <= 2^60.
 // * No 64-bit %.  v mod q is computed from the diagonals in 32 bits with
 //   Shoup's reciprocals, precomputed per prime on the host (ops/ntt_ct_cuda.py
@@ -67,8 +64,10 @@
 //   twiddle with its reciprocals (36 KB) once and runs every row of its
 //   tile.  The L primes of a tile are adjacent in launch order, so a digit
 //   row is read from device memory once and from L2 by the other primes'
-//   blocks (its 16 KB per (row, prime) is a quarter of the tables' 66 KB,
-//   so tiling by prime rather than by row moves fewer bytes).  The next
+//   blocks.  A residue row (ct_fwd, ct_inv) is read by one block only.
+//   Either way a (row, prime) moves 16 KB in and 16 KB out, a quarter of
+//   the tables' 66 KB, so tiling by prime rather than by row moves fewer
+//   bytes: the prime's tables stay resident for the whole tile.  The next
 //   row is fetched into registers while the current one computes.
 // * Layouts unchanged: the input and output orders above.  The output is
 //   stored as 16-byte vectors (a lane-pair shuffle of the mma fragments),
@@ -77,68 +76,29 @@
 //   the kernel: the host pads the table planes with zero rows and columns,
 //   so padded operand bytes multiply zeros and padded outputs are never
 //   stored.  The wrapper raises where a shape exceeds shared memory.
+// * m = 2^15 (N1 = N2 = 128).  The four byte-plane blocks A1, A2, B1, B2
+//   take 55,296 bytes each, 221,184 of a block's 232,448; the twiddle
+//   pairs (139,264 bytes) do not fit beside them.  Geo keeps the twiddle
+//   in shared memory wherever the whole layout fits (every m <= 2^14) and
+//   otherwise leaves it in global memory, where the stage-1 epilogue
+//   reads each (w, w') pair with a 16-byte __ldg (a prime's 136 KB stays
+//   in L2).  The input prefetch there takes 16
+//   tiles per warp (64 registers), past the 128-register cap of two blocks
+//   per SM.  The 221 KB layout leaves one block per SM anyway, so TPW = 16
+//   is built with __launch_bounds__(256, 1) (up to 255 registers) and
+//   keeps the register prefetch: with only 8 warps on an SM, the next
+//   row's loads overlapping the current row's stages matter more, not
+//   less, than at two blocks.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-
-// Forward transform of one (row, prime).  DIGITS: the input row is shared
-// by every prime (x [rows, N]); otherwise x is [rows, L, N].
-template <bool DIGITS>
-__global__ void __launch_bounds__(kThreads)
-ct_fwd_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ t2,
-              const int32_t* __restrict__ t1, const int32_t* __restrict__ tw,
-              const int32_t* __restrict__ q, int32_t* __restrict__ out,
-              int L, int N1, int N2) {
-  extern __shared__ uint32_t smem[];
-  const int N = N1 * N2;
-  uint32_t* xs = smem;        // [c2][c1]
-  uint32_t* ys = smem + N;    // [c1][j2]
-  const int l = blockIdx.y;
-  const size_t row = blockIdx.x;
-  const uint64_t ql = static_cast<uint32_t>(q[l]);
-  const int32_t* xrow = DIGITS ? x + row * N : x + (row * L + l) * N;
-  for (int i = threadIdx.x; i < N; i += blockDim.x)
-    xs[i] = static_cast<uint32_t>(xrow[i]);
-  __syncthreads();
-
-  const int32_t* T2 = t2 + static_cast<size_t>(l) * N2 * N2;
-  const int32_t* T1 = t1 + static_cast<size_t>(l) * N1 * N1;
-  const int32_t* TW = tw + static_cast<size_t>(l) * N;
-  // stage 1 over c2, then the twiddle; neighbouring threads take
-  // neighbouring c1 (consecutive shared-memory reads)
-  for (int i = threadIdx.x; i < N; i += blockDim.x) {
-    const int c1 = i % N1, j2 = i / N1;
-    const int32_t* trow = T2 + j2 * N2;
-    // each term < 2^46 for residues, < 2^47 for 24-bit digits (q < 2^23);
-    // N2 <= 2^13 terms stay below 2^60
-    uint64_t acc = 0;
-    for (int c2 = 0; c2 < N2; ++c2)
-      acc += static_cast<uint64_t>(static_cast<uint32_t>(trow[c2])) * xs[c2 * N1 + c1];
-    const uint64_t y = acc % ql;   // y * tw < 2^46
-    ys[c1 * N2 + j2] = static_cast<uint32_t>(
-        y * static_cast<uint32_t>(TW[c1 * N2 + j2]) % ql);
-  }
-  __syncthreads();
-
-  // stage 2 over c1; output index i = j2 + N2*j1 (coalesced store)
-  int32_t* orow = out + (row * L + l) * N;
-  for (int i = threadIdx.x; i < N; i += blockDim.x) {
-    const int j2 = i % N2, j1 = i / N2;
-    const int32_t* trow = T1 + j1 * N1;
-    uint64_t acc = 0;                // < 2^46 * N1 <= 2^59
-    for (int c1 = 0; c1 < N1; ++c1)
-      acc += static_cast<uint64_t>(static_cast<uint32_t>(trow[c1])) * ys[c1 * N2 + j2];
-    orow[i] = static_cast<int32_t>(acc % ql);
-  }
-}
-
-// ------------------------------------------------------ tensor-core kernel
 constexpr int kWarps = kThreads / 32;
 constexpr int kPlanes = 3;       // bytes of a table entry or an operand
 constexpr int kConsts = 10;      // per prime: q, floor(2^32/q), c[4], c'[4]
+constexpr int kSmemMax = 232448; // a block's opt-in shared memory on sm_90
 
 __host__ __device__ constexpr int pad_to(int x, int a) { return (x + a - 1) / a * a; }
 
@@ -146,24 +106,29 @@ __host__ __device__ constexpr int pad_to(int x, int a) { return (x + a - 1) / a 
 // row-major with K contiguous and a row stride Ks = pad32(K) + 16 bytes
 // (4 mod 8 words: ldmatrix rows and the operand stores are conflict-free);
 // A planes [3][pad16(M)][Ks], B planes transposed, [3][pad16(N)][Ks].
+// The twiddle pairs follow A2 where the whole layout fits in kSmemMax,
+// and stay in global memory otherwise (header: m = 2^15).
 struct Geo {
   int S, R;
   int Kp1, Ks1, Mp1, Np1;   // stage 1: A1 [S x S] @ in [S x R]
   int Kp2, Ks2, Mp2, Np2;   // stage 2: A2 [R x R] @ C1^T [R x S]
   int tws;                  // twiddle row stride in words: (tw, tw') pairs
+  bool tw_shared;           // the twiddle pairs in shared memory
   __host__ __device__ Geo(int s, int r)
       : S(s), R(r),
         Kp1(pad_to(s, 32)), Ks1(pad_to(s, 32) + 16), Mp1(pad_to(s, 16)), Np1(pad_to(r, 16)),
         Kp2(pad_to(r, 32)), Ks2(pad_to(r, 32) + 16), Mp2(pad_to(r, 16)), Np2(pad_to(s, 16)),
-        tws(2 * r + 16) {}
+        tws(2 * r + 16), tw_shared(planes_bytes() + tw_bytes() <= kSmemMax) {}
   __host__ __device__ int a1_bytes() const { return kPlanes * Mp1 * Ks1; }
   __host__ __device__ int a2_bytes() const { return kPlanes * Mp2 * Ks2; }
   __host__ __device__ int tw_bytes() const { return S * tws * 4; }
   __host__ __device__ int b1_plane() const { return Np1 * Ks1; }
   __host__ __device__ int b2_plane() const { return Np2 * Ks2; }
-  __host__ __device__ int smem_bytes() const {
-    return a1_bytes() + a2_bytes() + tw_bytes() + kPlanes * (b1_plane() + b2_plane());
+  __host__ __device__ int planes_bytes() const {
+    return a1_bytes() + a2_bytes() + kPlanes * (b1_plane() + b2_plane());
   }
+  __host__ __device__ int tw_smem_bytes() const { return tw_shared ? tw_bytes() : 0; }
+  __host__ __device__ int smem_bytes() const { return planes_bytes() + tw_smem_bytes(); }
 };
 
 struct PrimeConsts {
@@ -246,9 +211,10 @@ __device__ __forceinline__ void copy16(void* dst, const void* src, int bytes, in
 // row [S][R]: digits [rows, N] shared by every prime (DIGITS) or
 // residues/evaluations [rows, L, N]; out [rows, L, N] as [R][S].  TPW:
 // input tiles of 8 columns x 16 rows per warp (a compile-time count, so
-// the prefetched row stays in registers).
+// the prefetched row stays in registers).  Two blocks per SM up to 8
+// tiles; one at 16 (m = 2^15, whose layout leaves one block per SM).
 template <bool DIGITS, int TPW>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, TPW > 8 ? 1 : 2)
 ct_mma_kernel(const int32_t* __restrict__ x, const uint8_t* __restrict__ a1g,
               const uint8_t* __restrict__ a2g, const uint32_t* __restrict__ twg,
               const uint32_t* __restrict__ kcg, int32_t* __restrict__ out,
@@ -258,7 +224,7 @@ ct_mma_kernel(const int32_t* __restrict__ x, const uint8_t* __restrict__ a1g,
   uint8_t* a1 = mma_smem;
   uint8_t* a2 = a1 + G.a1_bytes();
   uint32_t* tw = reinterpret_cast<uint32_t*>(a2 + G.a2_bytes());
-  uint8_t* b1 = reinterpret_cast<uint8_t*>(tw) + G.tw_bytes();
+  uint8_t* b1 = reinterpret_cast<uint8_t*>(tw) + G.tw_smem_bytes();
   uint8_t* b2 = b1 + kPlanes * G.b1_plane();
   const int l = blockIdx.x;
   const int N = S * R;
@@ -269,7 +235,8 @@ ct_mma_kernel(const int32_t* __restrict__ x, const uint8_t* __restrict__ a1g,
   // the prime's tables, once per block (the first barrier below orders them)
   copy16(a1, a1g + static_cast<size_t>(l) * G.a1_bytes(), G.a1_bytes(), tid);
   copy16(a2, a2g + static_cast<size_t>(l) * G.a2_bytes(), G.a2_bytes(), tid);
-  copy16(tw, twg + static_cast<size_t>(l) * (G.tw_bytes() / 4), G.tw_bytes(), tid);
+  const uint32_t* twl = twg + static_cast<size_t>(l) * (G.tw_bytes() / 4);
+  if (G.tw_shared) copy16(tw, twl, G.tw_bytes(), tid);
   PrimeConsts k;
   k.q = __ldg(kcg + l * kConsts);
   k.qr = __ldg(kcg + l * kConsts + 1);
@@ -337,7 +304,9 @@ ct_mma_kernel(const int32_t* __restrict__ x, const uint8_t* __restrict__ a1g,
           uint32_t y0 = reduce_diagonals(acc[t], 2 * h, k);
           uint32_t y1 = reduce_diagonals(acc[t], 2 * h + 1, k);
           if (m < S && n < R) {        // R is even: n + 1 < R as well
-            const uint4 w = *reinterpret_cast<const uint4*>(tw + m * G.tws + 2 * n);
+            const int o = m * G.tws + 2 * n;
+            const uint4 w = G.tw_shared ? *reinterpret_cast<const uint4*>(tw + o)
+                                        : __ldg(reinterpret_cast<const uint4*>(twl + o));
             y0 = csub(shoup(y0, w.x, w.y, k.q), k.q);
             y1 = csub(shoup(y1, w.z, w.w, k.q), k.q);
             uint8_t* dst = b2 + m * G.Ks2 + n;
@@ -383,25 +352,6 @@ ct_mma_kernel(const int32_t* __restrict__ x, const uint8_t* __restrict__ a1g,
       }
     }
   }
-}
-
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, long long rows, int L, int N1, int N2,
-                   cudaStream_t stream, const int32_t* a, const int32_t* b,
-                   const int32_t* c, const int32_t* d, const int32_t* q,
-                   int32_t* out) {
-  if (rows < 0 || rows > 0x7fffffffLL || L < 1 || L > 65535 || N1 < 1 || N2 < 1)
-    return cudaErrorInvalidValue;
-  if (rows == 0) return cudaSuccess;
-  const size_t smem = 2 * static_cast<size_t>(N1) * N2 * sizeof(uint32_t);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  dim3 grid(static_cast<unsigned>(rows), static_cast<unsigned>(L));
-  kernel<<<grid, kThreads, smem, stream>>>(a, b, c, d, q, out, L, N1, N2);
-  return cudaGetLastError();
 }
 
 // One wave of blocks: each of the L primes gets ceil(slots / L) tiles of
@@ -452,6 +402,7 @@ cudaError_t launch_mma(const void* x, const void* a1, const void* a2, const void
   if (tpw <= 2) return args(launch_mma_tpw<DIGITS, 2>);
   if (tpw <= 4) return args(launch_mma_tpw<DIGITS, 4>);
   if (tpw <= 8) return args(launch_mma_tpw<DIGITS, 8>);
+  if (tpw <= 16) return args(launch_mma_tpw<DIGITS, 16>);
   return cudaErrorInvalidValue;
 }
 
@@ -460,20 +411,17 @@ cudaError_t launch_mma(const void* x, const void* a1, const void* a2, const void
 extern "C" {
 
 // x [rows, L, N] residues in [0, q); out [rows, L, N] evaluations.
-int fsi_ct_fwd(const void* x, const void* t2, const void* t1, const void* tw,
-               const void* q, void* out, long long rows, int L, int N1, int N2,
-               void* stream) {
-  return launch(ct_fwd_kernel<false>, rows, L, N1, N2,
-                static_cast<cudaStream_t>(stream),
-                static_cast<const int32_t*>(x), static_cast<const int32_t*>(t2),
-                static_cast<const int32_t*>(t1), static_cast<const int32_t*>(tw),
-                static_cast<const int32_t*>(q), static_cast<int32_t*>(out));
-}
-
-// x [rows, N] digits below 2^24 shared by every prime; out [rows, L, N].
 // a1 / a2: the byte planes of t2 / t1, tw: the transposed twiddle with its
 // reciprocals, kc: the per-prime constants (ops/ntt_ct_cuda.py
 // kernel_tables).
+int fsi_ct_fwd(const void* x, const void* a1, const void* a2, const void* tw,
+               const void* kc, void* out, long long rows, int L, int N1, int N2,
+               void* stream) {
+  return launch_mma<false>(x, a1, a2, tw, kc, out, rows, L, N2, N1, stream);
+}
+
+// x [rows, N] digits below 2^24 shared by every prime; out [rows, L, N].
+// The tables of fsi_ct_fwd.
 int fsi_ct_fwd_digits(const void* x, const void* a1, const void* a2, const void* tw,
                       const void* kc, void* out, long long rows, int L, int N1,
                       int N2, void* stream) {
@@ -489,8 +437,9 @@ int fsi_ct_inv(const void* e, const void* a1, const void* a2, const void* tw,
   return launch_mma<false>(e, a1, a2, tw, kc, out, rows, L, N1, N2, stream);
 }
 
-// Dynamic shared memory of fsi_ct_fwd_digits (S = N2, R = N1) and
-// fsi_ct_inv (S = N1, R = N2), and the current device's per-block limit.
+// Dynamic shared memory of the layout chosen for fsi_ct_fwd and
+// fsi_ct_fwd_digits (S = N2, R = N1) and for fsi_ct_inv (S = N1, R = N2),
+// and the current device's per-block limit.
 long long fsi_ct_mma_smem(int S, int R) { return Geo(S, R).smem_bytes(); }
 
 int fsi_smem_optin() {

@@ -6,10 +6,11 @@ fhe_si_tpu_torch/csrc/ct_ntt.cu (CUDA C++ for sm_90a, a plain C
 interface); the first launch compiles them with nvcc into
 fhe_si_tpu_torch/_build/ and loads the library with ctypes.  Nothing is
 compiled or loaded at import, so this module imports on a machine
-without nvcc.  ct_fwd runs a kernel on the CUDA cores; ct_fwd_digits and
-ct_inv run one tensor-core kernel (int8 byte planes, mma.sync), which
+without nvcc.  All three transforms run one tensor-core kernel (int8
+byte planes, mma.sync) on every power-of-two ring up to m = 2^15.  It
 reads the byte planes and Shoup reciprocals that kernel_tables prepares
-here on the host and DeviceContext keeps beside the tables (T['ct']).
+here on the host and DeviceContext keeps beside the tables (T['ct']);
+tables without them raise on a CUDA tensor.
 
 Dispatch: a tensor on the CPU takes the plain version of ops/ntt_ct.py;
 a tensor on a CUDA device launches the kernel, or raises.  There is no
@@ -95,10 +96,10 @@ def prime_consts(q) -> np.ndarray:
 
 
 def kernel_tables(ct: dict) -> dict:
-    """What the tensor-core kernels read, from the numpy tables of
+    """What the tensor-core kernel reads, from the numpy tables of
     ntt_ct.ct_tables (and t2i_crt where present): k_<table> byte planes
     of t1, t2, t1i, t2i, t2i_crt; k_tw the forward twiddle transposed to
-    the digits kernel's [N2, N1] stage-1 layout, k_twi the inverse one
+    the forward transforms' [N2, N1] stage-1 layout, k_twi the inverse one
     [N1, N2], both with reciprocals; k_consts per prime."""
     q = np.asarray(ct['q'], np.int64).reshape(-1)
     out = {'k_consts': prime_consts(q),
@@ -221,7 +222,7 @@ def _mma_tables(name, x, T: dict, keys, S: int, R: int):
     if missing:
         raise ValueError(f"{name}: the tables lack {missing}; build them "
                          "with ntt_ct_cuda.kernel_tables (DeviceContext does)")
-    need, limit = _smem(S, R, x.device)
+    need, limit = _smem(S, R, x.device)   # the layout the kernel chooses
     if need > limit:
         raise ValueError(f"{name}: input {tuple(x.shape)} (N1 x N2 = "
                          f"{max(S, R)} x {min(S, R)}) needs {need} bytes of "
@@ -235,10 +236,11 @@ def ct_fwd(T: dict, x, meta: CtMeta):
         return ntt_ct.ct_fwd(T, x, meta)
     L = T['q'].shape[0]
     _check("ct_fwd", x, (L, meta.N), T, meta)
+    tabs = _mma_tables("ct_fwd", x, T, ('k_t2', 'k_t1', 'k_tw', 'k_consts'),
+                       meta.N2, meta.N1)
     x = x.contiguous()
     out = torch.empty_like(x)
-    return _launch("ct_fwd", _lib().fsi_ct_fwd, x,
-                   (T['t2'], T['t1'], T['tw'], T['q']), out,
+    return _launch("ct_fwd", _lib().fsi_ct_fwd, x, tabs, out,
                    x.numel() // (L * meta.N), L, meta)
 
 

@@ -64,46 +64,73 @@ def test_kernels_match_plain(cuda, mp):
     assert all(n > 0 for n in ntt_ct_cuda.LAUNCHES.values())
 
 
-@pytest.mark.cuda
-def test_tensor_core_kernel_m16384(cuda):
-    """The largest ring the tensor-core kernel takes (N1 x N2 = 128 x 64,
-    one block per SM), on tables of three primes of both lanes."""
+def _kernel_tables(cuda, m, qs):
     from fhe_si_tpu_torch.hostmath import numbth
-    m, qs = 1 << 14, [786433, 1032193, 8257537]
     meta, ct = ntt_ct.ct_tables(
         m, qs, [numbth.find_element_of_order(q, m) for q in qs])
-    T = {k: torch.as_tensor(v, device=cuda)
-         for k, v in dict(ct, **ntt_ct_cuda.kernel_tables(ct)).items()}
-    rng = np.random.default_rng(14)
+    return meta, {k: torch.as_tensor(v, device=cuda)
+                  for k, v in dict(ct, **ntt_ct_cuda.kernel_tables(ct)).items()}
+
+
+def _all_transforms_match_plain(cuda, meta, T, seed):
+    """The three kernels against their plain versions on 37 rows, and the
+    round trip."""
+    rng = np.random.default_rng(seed)
+    q = T["q"].cpu().numpy().astype(np.int64)
+    x = torch.as_tensor(rng.integers(0, q[:, None], size=(
+        RAGGED, len(q), meta.N)).astype(np.int32), device=cuda)
     d = torch.as_tensor(rng.integers(0, 1 << 24, size=(RAGGED, meta.N)).astype(
         np.int32), device=cuda)
+    ntt_ct_cuda.reset_launches()
+    ev = ntt_ct_cuda.ct_fwd(T, x, meta)
+    assert torch.equal(ev, ntt_ct.ct_fwd(T, x, meta))
+    assert torch.equal(ntt_ct_cuda.ct_inv(T, ev, meta), x)
     ev = ntt_ct_cuda.ct_fwd_digits(T, d, meta, 24)
     assert torch.equal(ev, ntt_ct.ct_fwd_digits(T, d, meta, 24))
     assert torch.equal(ntt_ct_cuda.ct_inv(T, ev, meta),
                        ntt_ct.ct_inv(T, ev, meta))
+    torch.cuda.synchronize()
+    assert ntt_ct_cuda.LAUNCHES == {"ct_fwd": 1, "ct_fwd_digits": 1,
+                                    "ct_inv": 2}
+
+
+@pytest.mark.cuda
+def test_tensor_core_kernel_m16384(cuda):
+    """m = 2^14 (N1 x N2 = 128 x 64, one block per SM), on tables of three
+    primes of both lanes."""
+    meta, T = _kernel_tables(cuda, 1 << 14, [786433, 1032193, 8257537])
+    _all_transforms_match_plain(cuda, meta, T, 14)
+
+
+@pytest.mark.cuda
+def test_tensor_core_kernel_m32768(cuda):
+    """The largest ring the kernel takes (N1 x N2 = 128 x 128: the twiddle
+    in global memory, 16 prefetched tiles per warp), on one narrow and one
+    wide prime."""
+    meta, T = _kernel_tables(cuda, 1 << 15, [786433, 8257537])
+    _all_transforms_match_plain(cuda, meta, T, 15)
 
 
 @pytest.mark.cuda
 def test_tensor_core_kernel_refusals(cuda):
-    """At m = 2^15 (N1 x N2 = 128 x 128) the tensor-core kernel's tables
+    """At m = 2^16 (N1 x N2 = 256 x 128) the tensor-core kernel's tables
     exceed shared memory: the wrappers raise with the shape.  Tables
     without the kernel's byte planes raise too."""
-    from fhe_si_tpu_torch.hostmath import numbth
-    m, q = 1 << 15, 786433                        # q = 3 * 2^18 + 1
-    meta, ct = ntt_ct.ct_tables(m, [q], [numbth.find_element_of_order(q, m)])
-    T = {k: torch.as_tensor(v, device=cuda)
-         for k, v in dict(ct, **ntt_ct_cuda.kernel_tables(ct)).items()}
+    meta, T = _kernel_tables(cuda, 1 << 16, [786433])   # q = 3 * 2^18 + 1
     d = torch.zeros((2, meta.N), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match=r"\(2, 16384\).*shared memory"):
+    with pytest.raises(ValueError, match=r"\(2, 32768\).*shared memory"):
         ntt_ct_cuda.ct_fwd_digits(T, d, meta, 24)
-    with pytest.raises(ValueError, match=r"\(2, 1, 16384\).*shared memory"):
-        ntt_ct_cuda.ct_inv(T, d[:, None], meta)
+    for fn in (ntt_ct_cuda.ct_fwd, ntt_ct_cuda.ct_inv):
+        with pytest.raises(ValueError,
+                           match=r"\(2, 1, 32768\).*256 x 128.*shared memory"):
+            fn(T, d[:, None], meta)
     dc = DeviceContext(_ctx(32, 97, None), cuda)
     bare = {k: v for k, v in dc.full["ct"].items() if not k.startswith("k_")}
     x = torch.zeros((1, len(dc.full["primes_np"]), 16), dtype=torch.int32,
                     device=cuda)
-    with pytest.raises(ValueError, match="kernel_tables"):
-        ntt_ct_cuda.ct_inv(bare, x, dc.ct_meta)
+    for fn in (ntt_ct_cuda.ct_fwd, ntt_ct_cuda.ct_inv):
+        with pytest.raises(ValueError, match="kernel_tables"):
+            fn(bare, x, dc.ct_meta)
 
 
 @pytest.mark.cuda

@@ -5,13 +5,15 @@ kernel's 32-bit reduction of the five byte diagonals equals % up to and
 past the stated bound (2^60); and a numpy emulation of the kernel's
 arithmetic on those tables (byte-plane products per diagonal, the
 reduction, the twiddle, the same index maps) equals the plain versions
-of ct_fwd_digits and ct_inv on both lanes.  The kernel itself runs only
-on a card (tests/test_torch_cuda.py, chip_smoke.py)."""
+of ct_fwd, ct_fwd_digits and ct_inv on both lanes, up to m = 2^15.  The
+kernel itself runs only on a card (tests/test_torch_cuda.py,
+chip_smoke.py)."""
 import numpy as np
 import pytest
 import torch
 
 from fhe_si_tpu_torch import DeviceContext, FheContext
+from fhe_si_tpu_torch.hostmath import numbth
 from fhe_si_tpu_torch.ops import ntt_ct, ntt_ct_cuda as nc
 
 torch.set_num_threads(1)
@@ -150,6 +152,37 @@ def emulate(kt, a1, a2, tw, rows, S, R):
     return out
 
 
+def _emulate_fwd(kt, T, meta, res):
+    got = emulate(kt, 'k_t2', 'k_t1', 'k_tw', res, meta.N2, meta.N1)
+    want = ntt_ct.ct_fwd(T, torch.as_tensor(res, dtype=torch.int32), meta)
+    assert np.array_equal(got, want.numpy())
+
+
+def _emulate_fwd_digits(kt, T, meta, digits):
+    L = len(kt['q'])
+    got = emulate(kt, 'k_t2', 'k_t1', 'k_tw',
+                  np.repeat(digits[:, None], L, axis=1), meta.N2, meta.N1)
+    want = ntt_ct.ct_fwd_digits(T, torch.as_tensor(digits, dtype=torch.int32),
+                                meta, 24)
+    assert np.array_equal(got, want.numpy())
+
+
+def _emulate_inv(kt, T, meta, ev, key):
+    got = emulate(kt, 'k_t1i', 'k_' + key, 'k_twi', ev, meta.N1, meta.N2)
+    want = ntt_ct.ct_inv(T, torch.as_tensor(ev, dtype=torch.int32), meta, key)
+    assert np.array_equal(got, want.numpy())
+
+
+def _operands(rng, q, n_rows, N):
+    """Residue rows (row 0 all at q - 1) and 24-bit digit rows (row 0
+    with every byte at 255)."""
+    res = rng.integers(0, q[:, None], size=(n_rows, len(q), N))
+    res[0] = q[:, None] - 1
+    digits = rng.integers(0, 1 << 24, size=(n_rows, N))
+    digits[0] = (1 << 24) - 1
+    return res, digits
+
+
 @pytest.mark.parametrize("mp", CONFIGS)
 def test_emulated_kernel_equals_plain(mp):
     m, p, bits = mp
@@ -158,19 +191,27 @@ def test_emulated_kernel_equals_plain(mp):
     meta, rng = dc.ct_meta, np.random.default_rng(m)
     for T in (dc.full['ct'], dc.ksw['ct']):
         kt = {k: v.numpy() for k, v in T.items()}
-        q = kt['q'].astype(np.int64)
-        L, n_rows = len(q), 3
-        digits = rng.integers(0, 1 << 24, size=(n_rows, meta.N))
-        digits[0] = (1 << 24) - 1                     # every byte at 255
-        got = emulate(kt, 'k_t2', 'k_t1', 'k_tw',
-                      np.repeat(digits[:, None], L, axis=1), meta.N2, meta.N1)
-        want = ntt_ct.ct_fwd_digits(T, torch.as_tensor(digits, dtype=torch.int32),
-                                    meta, 24)
-        assert np.array_equal(got, want.numpy())
-        ev = rng.integers(0, q[:, None], size=(n_rows, L, meta.N))
-        ev[0] = q[:, None] - 1
+        res, digits = _operands(rng, kt['q'].astype(np.int64), 3, meta.N)
+        _emulate_fwd(kt, T, meta, res)
+        _emulate_fwd_digits(kt, T, meta, digits)
         for key in ('t2i', 't2i_crt'):
-            got = emulate(kt, 'k_t1i', 'k_' + key, 'k_twi', ev, meta.N1, meta.N2)
-            want = ntt_ct.ct_inv(T, torch.as_tensor(ev, dtype=torch.int32),
-                                 meta, key)
-            assert np.array_equal(got, want.numpy())
+            _emulate_inv(kt, T, meta, res, key)
+
+
+@pytest.mark.parametrize("transform", ["ct_fwd", "ct_fwd_digits", "ct_inv"])
+def test_emulated_kernel_equals_plain_m32768(transform):
+    """m = 2^15 (N1 = N2 = 128, K = 128 on both stages), the largest ring
+    the kernel takes, on one narrow and one wide prime."""
+    m, qs = 1 << 15, [786433, 8257537]    # 3 * 2^18 + 1, 63 * 2^17 + 1
+    meta, ct = ntt_ct.ct_tables(
+        m, qs, [numbth.find_element_of_order(q, m) for q in qs])
+    kt = dict(ct, **nc.kernel_tables(ct))
+    T = {k: torch.as_tensor(v) for k, v in kt.items()}
+    res, digits = _operands(np.random.default_rng(15), ct['q'].astype(np.int64),
+                            2, meta.N)
+    if transform == "ct_fwd":
+        _emulate_fwd(kt, T, meta, res)
+    elif transform == "ct_fwd_digits":
+        _emulate_fwd_digits(kt, T, meta, digits)
+    else:
+        _emulate_inv(kt, T, meta, res, 't2i')

@@ -17,6 +17,7 @@ from fhe_si_tpu.context import FheContext as RefContext
 from fhe_si_tpu.device import DeviceContext as RefDevice
 from fhe_si_tpu.ops import ntt_ct as jct, ntt_ct_pallas as jctp
 from fhe_si_tpu_torch import DeviceContext, FheContext
+from fhe_si_tpu_torch.hostmath import numbth
 from fhe_si_tpu_torch.ops import ntt_ct as tct, ntt_ct_cuda
 
 torch.set_num_threads(1)
@@ -88,6 +89,34 @@ def test_plain_transforms_match_pallas_interpret():
     want = jctp.ct_fwd_digits(JT["ct"], jnp.asarray(d), jd.ct_meta, 24,
                               interpret=True)
     got = tct.ct_fwd_digits(T["ct"], torch.from_numpy(d), meta, 24)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("q,wide", [(786433, False), (8257537, True)],
+                         ids=["narrow", "wide"])
+def test_plain_transforms_match_xla_m32768(q, wide):
+    """m = 2^15 (N1 = N2 = 128), the largest ring the kernels take: the
+    plain digit stage splits its table at 12 bits here (ops/ntt_ct.py
+    _stage), the residue stages stay one float64 matmul."""
+    m = 1 << 15
+    root = numbth.find_element_of_order(q, m)
+    meta, T = tct.ct_tables(m, [q], [root])
+    T = {k: torch.as_tensor(v) for k, v in T.items()}
+    jt = jct.CtNttTables(m, [q], [root], wide=wide)
+    assert tuple(meta) == tuple(jt.meta)
+    JT = jt.pack()
+    rng = np.random.default_rng(15)
+    x = rng.integers(0, q, size=(2, 1, meta.N)).astype(np.int32)
+    d = rng.integers(0, 1 << 24, size=(2, meta.N)).astype(np.int32)
+    ev = tct.ct_fwd(T, torch.from_numpy(x), meta)
+    assert np.array_equal(ev.numpy(),
+                          np.asarray(xla_fwd(JT, jnp.asarray(x), jt.meta)))
+    got = tct.ct_inv(T, ev, meta)
+    want = xla_inv(JT, jnp.asarray(ev.numpy()), jt.meta, "t2i")
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    assert np.array_equal(got.numpy(), x)
+    got = tct.ct_fwd_digits(T, torch.from_numpy(d), meta, 24)
+    want = xla_fwd_digits(JT, jnp.asarray(d), jt.meta, 24)
     assert np.array_equal(got.numpy(), np.asarray(want))
 
 

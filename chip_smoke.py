@@ -37,7 +37,29 @@ prints no result line):
      CLIs at m = 8192, p = 40961, g = 3 on a d = 4, n = 256 dataset made
      from the seed (both on the wide lane); each must print MATCH and
      launch every kernel.  Prints each app's phase times, L, lane and
-     peak device memory.
+     peak device memory;
+  7. the reference's own rings (m = p - 1), which ride the dense
+     transform family (float64 matmuls, no Cooley-Tukey kernel), each
+     part with its wall time:
+     a. the dense transforms on the card against the same function on
+        the CPU, bit for bit: forward, raw inverse and prescaled inverse
+        on the full chain and both subset bases, at p = 4007, logQ 170
+        (narrow) and p = 2027, logQ 120 with 23-bit primes (wide: the
+        12-bit table split);
+     b. mul+relin at the JAX package's bench_big config (p = 4007,
+        m = 4006, logQ 170, g = 5), batch 64: every decrypt must equal
+        oracle.plaintext_mul; the step and its four stages timed with
+        CUDA events, the dense transform at the path's shapes against its
+        bound, and its calls per step;
+     c. Test_Regression and Test_Statistics at p = 4007, g = 5, m = 4006
+        (logQ as derive_log_q gives it) on the d = 4, n = 256 dataset:
+        both must print MATCH;
+     d. Test_General at its defaults (p = 2027, g = 3, logQ 120) and
+        Test_AddMul 170 4007 5 --trials 10: both must exit 0;
+     e. decompSize 4 at m = 8192, logQ 80, batch 8: decrypts right, the
+        32-bit digits through the ct_fwd kernel;
+     f. a 24-bit p with 4006 | p - 1 at m = 4006 (the large-p decrypt
+        tail), 4 pairs.
 The line before the last is the card's name and power limit; the last
 is {"ok": true, "device": {...}}.
 """
@@ -65,8 +87,19 @@ BIG_PRIMES = [786433, 8257537]
 SMALL = [dict(m=256, log_q=80, p=257, generator=3),
          dict(m=32, log_q=80, p=97, generator=3)]
 APP = dict(p=40961, generator=3, m=8192, dim=4, n=256)
+# the reference's own rings, m = p - 1 (dense transform family)
+BIG = dict(m=4006, log_q=170, p=4007, generator=5)     # bench.py bench_big
+GENERAL = dict(p=2027, generator=3, log_q=120)         # Test_General defaults
+# Test_General's ring on 23-bit primes: the wide lane's 12-bit table split
+DENSE_WIDE = dict(GENERAL, m=2026, prime_bits=23)
+APP_REF = dict(p=4007, generator=5, m=None, dim=4, n=256)
+DECOMP4 = dict(MAIN, decomp_size=4)
+BATCH_DECOMP4 = 8
+LARGE_P = dict(m=4006, log_q=120, generator=5, bits=24)
+BATCH_LARGE_P = 4
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 peak bandwidth
 INT8_OPS_PER_S = 1979e12        # dense int8 tensor-core rate, H100 SXM
+F64_OPS_PER_S = 67e12           # FP64 tensor-core rate, H100 SXM
 PALLAS = "fhe_si_tpu/ops/ntt_ct_pallas.py"
 KERNELS = {   # wrapper -> Pallas kernel body it replaces
     "ct_fwd": f"{PALLAS}:148",
@@ -228,36 +261,66 @@ def encrypt_pairs(scheme, ctx, pk, src, count):
     return msgs, list(zip(cts[0::2], cts[1::2]))
 
 
-def lean_path(dev, cfg, batch, label):
+@contextlib.contextmanager
+def dense_calls():
+    """Records the ops/ntt.modmatmul calls made while the block runs, as
+    (operands, input shape, q).  The dense transform is a float64
+    torch.matmul, not a kernel of the port, so it has no launch counter of
+    its own; DeviceContext reaches it through the module attribute."""
+    from fhe_si_tpu_torch.ops import ntt
+    calls, plain = [], ntt.modmatmul
+
+    def counted(tab, x, q):
+        calls.append((tab, tuple(x.shape), q))
+        return plain(tab, x, q)
+    ntt.modmatmul = counted
+    try:
+        yield calls
+    finally:
+        ntt.modmatmul = plain
+
+
+def check_launches(label, launches, expect, n_dense):
+    """The kernels in `expect` launched and no other; a run that launched
+    no kernel must have gone through the dense transform."""
+    print(f"{label} launches: {launches}, dense transforms: {n_dense}")
+    for name, n in launches.items():
+        if (n > 0) != (name in expect):
+            raise AssertionError(f"{label}: {name} launched {n} times")
+    if not expect and not n_dense:
+        raise AssertionError(f"{label}: no transform ran")
+
+
+def lean_path(dev, cfg, batch, label, expect=tuple(KERNELS), dc=None):
     """keygen, relinearization key, batched encrypt of `batch` pairs,
-    batched multiply + relinearize and batched decrypt at FheContext(cfg),
-    with the kernel counts set to 0 just before and read just after.
-    Every decrypt must equal oracle.plaintext_mul and every kernel must
-    have launched.  Returns (dc, ksw, pairs, out, launches)."""
+    batched multiply + relinearize and batched decrypt at FheContext(cfg)
+    (or on the DeviceContext dc), with the kernel counts set to 0 just
+    before and read just after.  Every decrypt must equal
+    oracle.plaintext_mul, and the kernels in `expect` must have launched
+    and no other.  Returns (dc, ksw, pairs, out, launches)."""
     import torch
     from fhe_si_tpu_torch import DeviceContext, FheContext, sampling, scheme
     from fhe_si_tpu_torch.hostmath import oracle
     from fhe_si_tpu_torch.ops import ntt_ct_cuda
     t0 = time.perf_counter()
-    ctx = FheContext(**cfg)
-    dc = DeviceContext(ctx, dev)
+    if dc is None:
+        dc = DeviceContext(FheContext(**cfg), dev)
+    ctx = dc.ctx
     src = sampling.RandomSource(SEED)
     kg = sampling.sample_keygen(src, ctx.phim, ctx.stdev, ctx.log_q)
     kr = sampling.sample_keyswitch(src, ctx.phim, ctx.stdev, ctx.log_q, 3,
                                    ctx.ndigits)
     print(f"setup {ctx} on {dev}: {time.perf_counter() - t0:.2f} s")
     ntt_ct_cuda.reset_launches()
-    sk, pk = scheme.keygen(dc, kg)
-    ksw = scheme.KeySwitch.for_relinearization(sk, kr)
-    msgs, pairs = encrypt_pairs(scheme, ctx, pk, src, batch)
-    out = scheme.relin_batch(scheme.mul_batch(pairs), ksw)
-    dec = sk.decrypt_batch(out)
-    torch.cuda.synchronize()
+    with dense_calls() as dense:
+        sk, pk = scheme.keygen(dc, kg)
+        ksw = scheme.KeySwitch.for_relinearization(sk, kr)
+        msgs, pairs = encrypt_pairs(scheme, ctx, pk, src, batch)
+        out = scheme.relin_batch(scheme.mul_batch(pairs), ksw)
+        dec = sk.decrypt_batch(out)
+        torch.cuda.synchronize()
     launches = dict(ntt_ct_cuda.LAUNCHES)
-    print(f"{label} launches: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{label} did not launch {name}")
+    check_launches(label, launches, expect, len(dense))
     for c in out:
         if c.parts.shape != (2, ctx.phim, ctx.n_limbs_ct) \
                 or c.parts.dtype != torch.int32:
@@ -269,8 +332,9 @@ def lean_path(dev, cfg, batch, label):
                                  "product")
     print(f"{label}: {batch}/{batch} decrypted products == plaintext "
           f"products at m={ctx.m} (phim {ctx.phim}, L={ctx.num_primes}, "
-          f"Lk={len(ctx.ksw_rows)}, {'wide' if ctx.wide else 'narrow'} "
-          f"lane)")
+          f"Lk={len(ctx.ksw_rows)}, {ctx.ndigits} digits of "
+          f"{ctx.digit_bits} bits, {'wide' if ctx.wide else 'narrow'} lane, "
+          f"{'Cooley-Tukey' if ctx.use_ct else 'dense'} family)")
     return dc, ksw, pairs, out, launches
 
 
@@ -302,6 +366,23 @@ def time_step(card, dc, pairs, ksw, out, label):
     ntt_ct_cuda.reset_launches()
     step()
     return a, b, ms, dict(ntt_ct_cuda.LAUNCHES)
+
+
+def time_stages(card, dc, a, b, ksw, label):
+    """The four stages of one mul+relin step on the stacked pairs a, b,
+    each timed with CUDA events."""
+    tprod = dc._tensor_mul(a, b)
+    parts = dc._scale_down(tprod)
+    digs = dc._digit_evals(parts)
+    stages = {
+        "tensor_mul": lambda: dc._tensor_mul(a, b),
+        "scale_down": lambda: dc._scale_down(tprod),
+        "digit_evals": lambda: dc._digit_evals(parts),
+        "keyswitch_digits": lambda: dc._keyswitch_digits(ksw.matrix_evals,
+                                                         digs),
+    }
+    for name, fn in stages.items():
+        print(f"[{card}] {label} stage {name}: {cuda_ms(fn, 5):.3f} ms")
 
 
 def oracle_check_small(dev):
@@ -385,49 +466,244 @@ def time_kernels(card, dev, dc, cases, per_step=None):
     return out
 
 
-def phase_apps(dev, card):
-    """The port's app CLIs at APP on the card.  Returns each app's kernel
-    launch counts, read after its run with the counts set to 0 before."""
+def check_dense(dc):
+    """The dense transforms of every basis on the card against the same
+    function (ops/ntt.modmatmul on the same operands) on the CPU, bit for
+    bit: forward, prescaled inverse and, on the full chain, the raw
+    inverse, at a ragged row count and a [2, 3] lead shape; then the raw
+    inverse undoes the forward transform on the card."""
+    import torch
+    from fhe_si_tpu_torch.ops import ntt
+    ctx = dc.ctx
+    label = (f"p={ctx.p} m={ctx.m} logQ {ctx.log_q} "
+             f"{'wide' if ctx.wide else 'narrow'}")
+    rng = np.random.default_rng(SEED)
+    seen = set()
+    for basis in ("full", "ksw", "lin"):
+        T = getattr(dc, basis)
+        if id(T) in seen:
+            continue
+        seen.add(id(T))
+        q_np, q_cpu = T['primes_np'], T['q'].cpu()
+        keys = [k for k in ("fwd", "inv_crt", "inv") if k in T]
+        for key in keys:
+            tab_cpu = tuple(t.cpu() for t in T[key])
+            for lead in ((RAGGED_ROWS,), (2, 3)):
+                x = rng.integers(0, q_np[:, None], size=lead + (
+                    len(q_np), dc.phim)).astype(np.int32)
+                got = ntt.modmatmul(T[key], torch.as_tensor(x, device=dc.device),
+                                    T['q']).cpu()
+                if not torch.equal(got, ntt.modmatmul(
+                        tab_cpu, torch.as_tensor(x), q_cpu)):
+                    raise AssertionError(f"dense {key} {label} basis={basis}: "
+                                         "card != CPU")
+            del tab_cpu
+        print(f"dense transforms on the card == CPU: {label} basis={basis} "
+              f"L={len(q_np)} {'+'.join(keys)}, {len(T['fwd'])} matmul(s) "
+              "per transform")
+    x = torch.as_tensor(rng.integers(0, ctx.primes[:, None], size=(
+        RAGGED_ROWS, dc.L, dc.phim)).astype(np.int32), device=dc.device)
+    if not torch.equal(dc.ntt_inv(dc.ntt_fwd(x)), x):
+        raise AssertionError(f"dense ntt_inv(ntt_fwd(x)) != x at {label}")
+    torch.cuda.synchronize()
+
+
+def time_dense(card, calls, label):
+    """The dense transform (ops/ntt.modmatmul: float64 torch.matmul, then
+    mod q) at the shapes of `calls`, the modmatmul calls of one step: each
+    distinct (table, input shape) timed on random residues with CUDA
+    events, beside its bound, the larger of 2 * rows * L * n_out * n_in
+    operations per matmul over the FP64 tensor-core rate and its bytes
+    (the float64 table, the int32 input and output, each once) over the
+    HBM rate.  Returns (calls, ms, bound ms) per step."""
+    import torch
+    from fhe_si_tpu_torch.ops import ntt
+    rng = np.random.default_rng(SEED)
+    groups: dict = {}
+    for tab, shape, q in calls:
+        groups.setdefault((id(tab[0]), shape), [tab, shape, q, 0])[3] += 1
+    tot_ms = tot_bound = 0.0
+    for tab, shape, q, n in groups.values():
+        q_np = q.cpu().numpy().astype(np.int64)
+        x = torch.as_tensor(rng.integers(0, q_np, size=shape).astype(np.int32),
+                            device=q.device)
+        run = lambda: ntt.modmatmul(tab, x, q)  # noqa: E731
+        for _ in range(2):
+            run()
+        ms = (cuda_ms(run, 5) + cuda_ms(run, 5)) / 2
+        *lead, L, n_in = shape
+        rows, n_out = int(np.prod(lead)), tab[0].shape[-2]
+        t_ops = (2 * rows * L * n_out * n_in * len(tab) / F64_OPS_PER_S
+                 * 1e3)
+        t_bytes = ((8 * L * n_out * n_in * len(tab) + 4 * rows * L
+                    * (n_in + n_out)) / HBM_BYTES_PER_S * 1e3)
+        bound, by = max((t_ops, "operations"), (t_bytes, "bytes"))
+        print(f"[{card}] dense transform {label} {tuple(shape)} -> "
+              f"L={L} n_out={n_out}, {len(tab)} matmul(s): {ms:.4f} ms, "
+              f"bound {bound:.4f} ms ({by}), share of bound "
+              f"{100 * bound / ms:.1f}%, calls per step {n}")
+        tot_ms += n * ms
+        tot_bound += n * bound
+    print(f"[{card}] dense transform {label}: {len(calls)} calls per step, "
+          f"{tot_ms:.3f} ms per step against a bound of {tot_bound:.3f} ms")
+    return len(calls), tot_ms, tot_bound
+
+
+def find_large_p(m: int, bits: int) -> int:
+    """The largest prime p < 2^bits with m | p - 1 (slots of degree 1)."""
+    from fhe_si_tpu_torch.hostmath import numbth
+    p = (1 << bits) - 1
+    p -= (p - 1) % m
+    while not numbth.is_prime(p):
+        p -= m
+    return p
+
+
+def phase_dense(dev, card):
+    """Phase 7: the reference's own rings on the dense transform family.
+    Returns the launch counts of each path, keyed by path."""
+    import torch
+    from fhe_si_tpu_torch import DeviceContext, FheContext
+    from fhe_si_tpu_torch.cli import test_addmul, test_general
+    launches = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def part(name):
+        print(f"phase 7{name} wall time: {time.perf_counter() - t0:.2f} s")
+        return time.perf_counter()
+
+    # a. bit for bit against the CPU, narrow (one matmul) and wide (split)
+    t0 = time.perf_counter()
+    dc = DeviceContext(FheContext(**BIG), dev)
+    print(f"dense context {dc.ctx}: {time.perf_counter() - t0:.2f} s "
+          "(host tables included)")
+    if dc.use_ct or dc.wide or len(dc.full['fwd']) != 1:
+        raise AssertionError("p=4007 logQ 170: expected dense, narrow, "
+                             "one matmul per transform")
+    check_dense(dc)
+    wdc = DeviceContext(FheContext(**DENSE_WIDE), dev)
+    if wdc.use_ct or not wdc.wide or len(wdc.full['fwd']) != 2:
+        raise AssertionError("p=2027 prime_bits=23: expected dense, wide, "
+                             "the 12-bit split")
+    check_dense(wdc)
+    del wdc
+    t0 = part("a")
+
+    # b. mul+relin at bench_big, uncut
+    dc, ksw, pairs, out, launches["dense_mul_relin"] = lean_path(
+        dev, BIG, BATCH, "dense path", expect=(), dc=dc)
+    a, b, *_ = time_step(card, dc, pairs, ksw, out, "dense path")
+    time_stages(card, dc, a, b, ksw, "dense path")
+    with dense_calls() as calls:
+        dc.mul_relin(a, b, ksw.matrix_evals)
+        torch.cuda.synchronize()
+    dense_step = time_dense(card, calls, f"m={dc.ctx.m} B={BATCH}")
+    print(f"peak device memory (phase 7a-b): "
+          f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+    del dc, ksw, pairs, out, a, b, calls
+    torch.cuda.empty_cache()
+    t0 = part("b")
+
+    # c. the apps at the reference's regression ring
+    launches.update(phase_apps(dev, card, APP_REF, "narrow", "_m4006",
+                               expect=()))
+    t0 = part("c")
+
+    # d. Test_General at its defaults, Test_AddMul at bench_big's ring
+    rc, text, *_, launches["general"] = run_cli(
+        dev, test_general, ["test_general", str(GENERAL["p"]),
+                            str(GENERAL["generator"]), str(GENERAL["log_q"]),
+                            str(SEED), f"--device={dev}"], "general", ())
+    if rc != 0 or text.strip() != "All tests finished.":
+        raise AssertionError(f"Test_General failed (rc {rc})")
+    t0 = part("d (Test_General)")
+    rc, text, *_, launches["addmul"] = run_cli(
+        dev, test_addmul, ["test_addmul", str(BIG["log_q"]), str(BIG["p"]),
+                           str(BIG["generator"]), "--trials", "10",
+                           f"--device={dev}"], "addmul", ())
+    if rc != 0 or not text.rstrip().endswith("All tests SUCCEEDED!"):
+        raise AssertionError(f"Test_AddMul failed (rc {rc})")
+    t0 = part("d (Test_AddMul)")
+
+    # e. decompSize 4 on the main Cooley-Tukey ring: 32-bit digits as
+    # residues through ct_fwd, no ct_fwd_digits
+    dc, *_, launches["decomp4"] = lean_path(
+        dev, DECOMP4, BATCH_DECOMP4, "decompSize 4",
+        expect=("ct_fwd", "ct_inv"))
+    if dc.digit_bits != 32:
+        raise AssertionError(f"decompSize 4: {dc.digit_bits}-bit digits")
+    del dc
+    t0 = part("e")
+
+    # f. the large-p decrypt tail
+    p = find_large_p(LARGE_P["m"], LARGE_P["bits"])
+    cfg = dict(m=LARGE_P["m"], log_q=LARGE_P["log_q"], p=p,
+               generator=LARGE_P["generator"])
+    dc, *_, launches["large_p"] = lean_path(dev, cfg, BATCH_LARGE_P,
+                                            f"large p={p}", expect=())
+    if dc.ctx.slot_degree != 1 or p < 1 << 20:
+        raise AssertionError(f"p={p}: not a large p with slots of degree 1")
+    del dc
+    torch.cuda.empty_cache()
+    part("f")
+    return launches, dense_step
+
+
+def run_cli(dev, cli, argv, label, expect):
+    """One port CLI's main(argv) on the card, its output captured and
+    echoed, with the kernel counts set to 0 just before and read just
+    after; the kernels in `expect` must have launched and no other.
+    Returns (rc, stdout, stderr, launches)."""
+    import torch
+    from fhe_si_tpu_torch.ops import ntt_ct_cuda
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out, err = io.StringIO(), io.StringIO()
+    ntt_ct_cuda.reset_launches()
+    with dense_calls() as dense, contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+    launches = dict(ntt_ct_cuda.LAUNCHES)
+    print(out.getvalue(), end="")
+    check_launches(label, launches, expect, len(dense))
+    return rc, out.getvalue(), err.getvalue(), launches
+
+
+def phase_apps(dev, card, app, lane, suffix="", expect=tuple(KERNELS)):
+    """The port's app CLIs at `app` on the card, each on the `lane`
+    residue lane; m None runs the CLIs' default ring m = p - 1.  Returns
+    each app's kernel launch counts, keyed by app name + suffix."""
     import torch
     from fhe_si_tpu_torch.cli.gen_data import generate
     from fhe_si_tpu_torch.cli import test_regression, test_statistics
-    from fhe_si_tpu_torch.ops import ntt_ct_cuda
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "data.txt")
-        generate(path, APP["dim"], APP["n"], seed=SEED)
+        generate(path, app["dim"], app["n"], seed=SEED)
         for name, cli in (("regression", test_regression),
                           ("statistics", test_statistics)):
-            argv = ["chip_smoke", path, str(APP["p"]), str(APP["generator"]),
-                    str(SEED), f"--m={APP['m']}", f"--device={dev}"]
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats(dev)
-            out, err = io.StringIO(), io.StringIO()
-            ntt_ct_cuda.reset_launches()
-            with contextlib.redirect_stdout(out), \
-                    contextlib.redirect_stderr(err):
-                rc = cli.main(argv)
-            torch.cuda.synchronize()
-            launches[name] = dict(ntt_ct_cuda.LAUNCHES)
-            text = out.getvalue()
-            print(text, end="")
+            argv = ["chip_smoke", path, str(app["p"]), str(app["generator"]),
+                    str(SEED), f"--device={dev}"]
+            if app["m"] is not None:
+                argv.append(f"--m={app['m']}")
+            rc, text, err, launches[name + suffix] = run_cli(
+                dev, cli, argv, name + suffix, expect)
             if rc != 0 or text.rstrip().splitlines()[-1] != "MATCH":
-                raise AssertionError(f"{name}: no MATCH (rc {rc})\n"
-                                     f"{err.getvalue()}")
-            if "(wide lane)" not in text:
-                raise AssertionError(f"{name}: expected the wide lane")
-            for k, n in launches[name].items():
-                if n <= 0:
-                    raise AssertionError(f"{name} did not launch {k}")
-            phases = json.loads(err.getvalue().split("[phases] ", 1)[1]
-                                .splitlines()[0])
-            lane = next(ln.strip() for ln in text.splitlines()
-                        if ln.strip().startswith("primes:"))
-            print(f"[{card}] app {name} m={APP['m']} {lane}: "
+                raise AssertionError(f"{name}{suffix}: no MATCH (rc {rc})\n"
+                                     f"{err}")
+            if f"({lane} lane)" not in text:
+                raise AssertionError(f"{name}{suffix}: expected the {lane} "
+                                     "lane")
+            phases = json.loads(err.split("[phases] ", 1)[1].splitlines()[0])
+            ring, log_q, primes = (next(ln.strip() for ln in text.splitlines()
+                                        if ln.strip().startswith(key))
+                                   for key in ("m:", "logQ:", "primes:"))
+            print(f"[{card}] app {name} {ring} p={app['p']} {log_q} {primes}: "
                   + ", ".join(f"{k} {v:.3f} s" for k, v in phases.items())
                   + f"; peak device memory "
                   f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f} GiB;"
-                  f" launches {launches[name]}")
+                  f" launches {launches[name + suffix]}")
     return launches
 
 
@@ -476,18 +752,7 @@ def main() -> int:
 
     # 5. timing
     a, b, ms, per_step = time_step(card, dc, pairs, ksw, out, "main path")
-    tprod = dc._tensor_mul(a, b)
-    parts = dc._scale_down(tprod)
-    digs = dc._digit_evals(parts)
-    stages = {
-        "tensor_mul": lambda: dc._tensor_mul(a, b),
-        "scale_down": lambda: dc._scale_down(tprod),
-        "digit_evals": lambda: dc._digit_evals(parts),
-        "keyswitch_digits": lambda: dc._keyswitch_digits(ksw.matrix_evals,
-                                                         digs),
-    }
-    for name, fn in stages.items():
-        print(f"[{card}] stage {name}: {cuda_ms(fn, 5):.3f} ms")
+    time_stages(card, dc, a, b, ksw, "main path")
 
     narrow_ms = time_kernels(card, dev, dc, step_cases(dc, BATCH), per_step)
     # the regression app's shapes at d = 4, one block: 14 products of
@@ -508,12 +773,16 @@ def main() -> int:
           f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
 
     # 6. the applications
-    app_launches = phase_apps(dev, card)
+    app_launches = phase_apps(dev, card, APP, "wide")
+
+    # 7. the reference's own rings on the dense transform family
+    dense_launches, (n_dense, dense_ms, dense_bound) = phase_dense(dev, card)
     kernels = []
     for name in KERNELS:
         by_path = dict(mul_relin=launches[name],
                        mul_relin_m32768=launches15[name],
-                       **{app: n[name] for app, n in app_launches.items()})
+                       **{path: n[name] for path, n in
+                          (app_launches | dense_launches).items()})
         _, k_ms, p_ms, b_ms, b_by = narrow_ms[name][0]
         kernels.append(dict(
             name=name, route="cuda", source="fhe_si_tpu_torch/csrc/ct_ntt.cu",
@@ -526,6 +795,12 @@ def main() -> int:
             m32768_ms=m15_ms[name][0][1], m32768_plain_ms=m15_ms[name][0][2],
             m32768_bound_ms=m15_ms[name][0][3]))
 
+    # not a kernel of the port: the XLA einsum of the JAX package
+    # (fhe_si_tpu/ops/ntt.py modmatmul) is plain float64 torch.matmul here
+    print(json.dumps({"dense_transform": dict(
+        source="fhe_si_tpu_torch/ops/ntt.py", calls_per_step=n_dense,
+        ms_per_step=dense_ms, bound_ms_per_step=dense_bound,
+        bound_by_config=f"m={BIG['m']} B={BATCH}")}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""What the two app CLIs share: their arguments, the device choice and
-phase timing that waits for the card."""
+"""What the port's CLIs share: the app CLIs' arguments, the device
+choice and phase timing that waits for the card."""
 from __future__ import annotations
 
 import contextlib
@@ -40,7 +40,18 @@ def parse(argv, name: str) -> Args | None:
         print(f"usage: {name} datafile p generator [seed] [--m=M] "
               "[--device=cuda:0|cpu]")
         return None
-    device = torch.device(device)
+    device = pick_device(device, name)
+    if device is None:
+        return None
+    seed = int(argv[4]) if len(argv) > 4 else int(time.time())
+    return Args(argv[1], int(argv[2]), int(argv[3]), seed, m, device)
+
+
+def pick_device(spec: str, name: str) -> torch.device | None:
+    """The --device value as a torch.device (CUDA by default, the CPU
+    only when asked for).  Prints the reason and returns None when the
+    run cannot start there."""
+    device = torch.device(spec)
     if device.type == "cuda" and not torch.cuda.is_available():
         print(f"{name}: CUDA is not available; pass --device=cpu to run on "
               "the CPU", file=sys.stderr)
@@ -48,8 +59,7 @@ def parse(argv, name: str) -> Args | None:
     if device.type not in ("cuda", "cpu"):
         print(f"{name}: no kernels for device {device}", file=sys.stderr)
         return None
-    seed = int(argv[4]) if len(argv) > 4 else int(time.time())
-    return Args(argv[1], int(argv[2]), int(argv[3]), seed, m, device)
+    return device
 
 
 class Profiler:

@@ -1,14 +1,22 @@
 """DeviceContext: the scheme's device pipelines for one FheContext on one
 torch.device.
 
-Counterpart of fhe_si_tpu/device.py for power-of-two m (the Cooley-Tukey
-family) on both residue lanes (narrow: primes < 2^20; wide: primes
-< 2^23, wherever the narrow chain runs out), with p < 2^20 and
-decompSize <= 3.  The tables of the JAX DeviceContext live here as torch
-tensors on `device`; every function is a plain eager function of tensors
-(no jit, no vmap), rank-generic with a native batch axis in front.  The
-three transforms go through ops/ntt_ct_cuda.py: the Hopper kernels for
-CUDA tensors, the plain versions for CPU tensors.
+Counterpart of fhe_si_tpu/device.py on both transform families and both
+residue lanes (narrow: primes < 2^20; wide: primes < 2^23, wherever the
+narrow chain runs out), for any p below 2^30 and any decompSize:
+  - power-of-two m rides the Cooley-Tukey family: the three transforms
+    go through ops/ntt_ct_cuda.py, the Hopper kernels for CUDA tensors
+    and the plain versions for CPU tensors;
+  - every other ring with phim <= 4096 (m = p - 1 of the reference,
+    m = 22, 46, 31, ...) rides the dense family: one phim x phim table
+    per prime and direction (FheContext.ntt_tables), run as exact
+    float64 matmuls by ops/ntt.modmatmul on either device.
+The mixed-radix Cooley-Tukey family (m = 2^a * q^b past the dense
+threshold) is not ported and raises.  The tables of the JAX
+DeviceContext live here as torch tensors on `device`; every function is
+a plain eager function of tensors (no jit, no vmap), rank-generic with a
+native batch axis in front (the JAX package vmaps its dense batched ops;
+the tensors are the same).
 
 Pipeline map to the reference (file:line into the dwu4/fhe-si sources):
   from_poly   = Cmodulus::FFT per prime        CModulus.cpp:89-107
@@ -27,15 +35,15 @@ import numpy as np
 import torch
 
 from .context import MAX_KSW_PARTS, FheContext, int_to_limbs
-from .ops import crt, limbs as lb, modular, ntt_ct, ntt_ct_cuda
+from .ops import crt, limbs as lb, modular, ntt, ntt_ct, ntt_ct_cuda
 
 
 class DeviceContext:
     def __init__(self, ctx: FheContext, device):
-        if not ctx.use_ct or ctx.m & (ctx.m - 1):
+        if ctx.use_ct and ctx.m & (ctx.m - 1):
             raise NotImplementedError(
-                f"m={ctx.m}: only power-of-two rings (the Cooley-Tukey "
-                "family) are ported")
+                f"m={ctx.m}: the mixed-radix Cooley-Tukey family "
+                "(m = 2^a * q^b with use_ct) is not ported")
         self.ctx = ctx
         self.device = torch.device(device)
         self.phim = ctx.phim
@@ -47,18 +55,23 @@ class DeviceContext:
         self.ndigits = ctx.ndigits
         self.p = ctx.p
         self.wide = ctx.wide            # residue lane of every mod_mul/dot
+        self.use_ct = ctx.use_ct        # transform family
 
         rt = ctx.residue_tables
-        self.ct_meta, ct_full = ntt_ct.ct_tables(ctx.m, ctx.primes, ctx.roots)
+        if self.use_ct:
+            self.ct_meta, ct_full = ntt_ct.ct_tables(ctx.m, ctx.primes,
+                                                     ctx.roots)
+        else:
+            self.ct_meta = None
+            dense_fwd, dense_inv = ctx.ntt_tables
 
         def subset_tables(rows, fast_crt_np):
             """Row gather of the full-chain tables onto a basis, with that
-            basis' CRT premultiplier folded into t2i_crt.  rows None =
-            the full chain."""
+            basis' CRT premultiplier folded into its inverse transform
+            (t2i_crt, or the dense 'inv_crt').  rows None = the full
+            chain."""
             q_np = ctx.primes if rows is None else ctx.primes[rows]
-            ct = ct_full if rows is None else {
-                k: v[rows] for k, v in ct_full.items()}
-            return dict(
+            T = dict(
                 rows=None if rows is None else torch.as_tensor(
                     rows, dtype=torch.long, device=self.device),
                 q=self._i32(q_np[:, None]),
@@ -66,9 +79,18 @@ class DeviceContext:
                 chunk_tbl=self._i32(rt['chunk_tbl'] if rows is None
                                     else rt['chunk_tbl'][:, rows]),
                 fast_crt=self._fast_crt(fast_crt_np),
-                ct=self._ct(ntt_ct.with_crt_premultiplier(
-                    ct, fast_crt_np['binv'])),
                 primes_np=q_np)
+            if self.use_ct:
+                ct = ct_full if rows is None else {
+                    k: v[rows] for k, v in ct_full.items()}
+                T['ct'] = self._ct(ntt_ct.with_crt_premultiplier(
+                    ct, fast_crt_np['binv']))
+            else:
+                rows = np.arange(self.L) if rows is None else rows
+                T['fwd'] = self._dense(dense_fwd, rows)
+                T['inv_crt'] = self._dense(dense_inv, rows,
+                                           fast_crt_np['binv'])
+            return T
 
         # Subset bases (context.ksw_value_primes / lin_value_primes): the
         # pipelines whose exact-integer bound is smaller than the tensor
@@ -82,6 +104,9 @@ class DeviceContext:
             self.lin = subset_tables(ctx.lin_rows, ctx.lin_fast_crt_tables)
         else:
             self.lin = self.full
+        if not self.use_ct:
+            # the raw inverse, for ntt_inv (the CT tables keep raw t2i)
+            self.full['inv'] = self._dense(dense_inv, np.arange(self.L))
         self.q = self.full['q']
         self.qinv_f = self.full['qinv_f']
         self.p_mod_q = self._i32((ctx.p % ctx.primes)[:, None])
@@ -107,6 +132,29 @@ class DeviceContext:
         ct_np = dict(ct_np, **ntt_ct_cuda.kernel_tables(ct_np))
         return {k: torch.as_tensor(np.ascontiguousarray(v), device=self.device)
                 for k, v in ct_np.items()}
+
+    def _dense(self, tab_np, rows, binv=None) -> tuple:
+        """The modmatmul operands (ops/ntt.operands) on the device of the
+        rows `rows` of a dense table [L, phim, phim], with the basis CRT
+        premultiplier binv folded in when given.  Built one prime at a
+        time, so the host holds one slab and the device one float64 copy
+        of each operand."""
+        q_np = self.ctx.primes[rows]
+        q_max = int(q_np.max())
+        out = None
+        for i, r in enumerate(rows):
+            slab = tab_np[r:r + 1]
+            if binv is not None:
+                slab = ntt.with_crt_premultiplier(slab, binv[i:i + 1],
+                                                  q_np[i:i + 1])
+            ops = ntt.operands(slab, q_max)
+            if out is None:
+                out = tuple(torch.empty((len(rows),) + op.shape[1:],
+                                        dtype=op.dtype, device=self.device)
+                            for op in ops)
+            for o, op in zip(out, ops):
+                o[i] = op[0]
+        return out
 
     def _f32(self, q_np):
         """1/q rounded to float32 by the same numpy expression as the JAX
@@ -136,12 +184,30 @@ class DeviceContext:
 
     # --------------------------------------------------------- primitives
     def _fwd_t(self, T, x):
-        return ntt_ct_cuda.ct_fwd(T['ct'], x, self.ct_meta)
+        """Forward transform over the rows of basis T, on the context's
+        transform family."""
+        if self.use_ct:
+            return ntt_ct_cuda.ct_fwd(T['ct'], x, self.ct_meta)
+        return ntt.modmatmul(T['fwd'], x, T['q'])
 
     def _inv_crt_t(self, T, x):
         """Inverse transform with the basis binv folded in (feeds the
         single-pass CRT reconstruction with prescaled=True)."""
-        return ntt_ct_cuda.ct_inv(T['ct'], x, self.ct_meta, t2i_key='t2i_crt')
+        if self.use_ct:
+            return ntt_ct_cuda.ct_inv(T['ct'], x, self.ct_meta,
+                                      t2i_key='t2i_crt')
+        return ntt.modmatmul(T['inv_crt'], x, T['q'])
+
+    def ntt_fwd(self, x):
+        """Full-chain forward transform of residues [..., L, phim]
+        (Cmodulus::FFT)."""
+        return self._fwd_t(self.full, x)
+
+    def ntt_inv(self, x):
+        """Raw full-chain inverse, no CRT premultiplier (Cmodulus::iFFT)."""
+        if self.use_ct:
+            return ntt_ct_cuda.ct_inv(self.full['ct'], x, self.ct_meta)
+        return ntt.modmatmul(self.full['inv'], x, self.q)
 
     def _from_poly_sub(self, T, poly_limbs):
         wrap = self._wrap_const(T['primes_np'], poly_limbs.shape[-1])
@@ -267,8 +333,6 @@ class DeviceContext:
         [..., k, phim, n] -> messages [..., phim] mod p.  Parts wider
         than n_ct (unreduced automorph outputs) are reduced first: the
         rounding quotient shifts by exactly t*p under d -> d + t*q."""
-        if self.p >= (1 << 20):
-            raise NotImplementedError("the large-p decrypt tail is not ported")
         if parts_limbs.shape[-1] > self.n_ct:
             parts_limbs = self.reduce_signed(parts_limbs)
         T = self.lin
@@ -282,6 +346,10 @@ class DeviceContext:
         y = lb.mul_small(d, 2 * self.p)
         y = lb.add(y, self.q_limbs[..., :nw].expand(y.shape))
         y = lb.arith_shift_right(y, self.log_q + 1)
+        if self.p >= 1 << 20:
+            # the chunk-dot sum below would leave int32: reduce the
+            # bounded quotient (|y| <= K_dec * p) directly
+            return lb.mod_p_bounded(y, self.p, self.ctx.exact_bounds['K_dec'])
         return crt.limbs_to_mod_small(y, self.p_chunk_tbl,
                                       pow(2, 16 * nw, self.p), self.p,
                                       self.pinv_f)
@@ -318,21 +386,46 @@ class DeviceContext:
     def _digit_evals(self, parts_limbs):
         """ByteDecomp digits and their forward transform over the
         keyswitch basis: parts [..., k, phim, n] -> [..., k*nd, Lk, phim].
-        The digits are prime-independent and go into stage 1 unreduced."""
+
+        Digits of at most 24 bits (decompSize <= 3) are prime-independent:
+        on a Cooley-Tukey ring they go into ct_fwd_digits unreduced; on a
+        dense ring they are reduced per prime first (a 24-bit digit times
+        a table entry would leave float64's exact range).  Wider digits
+        (decompSize >= 4) ride 16-bit planes (limbs.byte_decomp_planes)
+        and become residues by a Horner over the planes, which then take
+        the family's forward transform of residues.  The JAX package
+        splits each x2^16 step into int32 shift hops (10 + 6 narrow,
+        6 + 6 + 4 wide); here a step is one int64 product below 2^39 and
+        a `%`, the same canonical residue."""
         k = parts_limbs.shape[-3]
         if k > MAX_KSW_PARTS:
             raise ValueError(
                 f"keyswitching {k} parts exceeds MAX_KSW_PARTS="
                 f"{MAX_KSW_PARTS} (context.exact_bounds['ksw'])")
-        if self.digit_bits > ntt_ct.MAX_DIGIT_BITS:
-            raise NotImplementedError("decompSize >= 4 is not ported")
+        K = self.ksw
         lead = parts_limbs.shape[:-3]
-        digs = lb.byte_decomp(parts_limbs, self.log_q, self.digit_bits,
-                              self.ndigits, self.q_limbs)
-        digs = digs.movedim(-1, -2)                   # [..., k, nd, phim]
-        digs = digs.reshape(lead + (k * self.ndigits, self.phim))
-        return ntt_ct_cuda.ct_fwd_digits(self.ksw['ct'], digs, self.ct_meta,
-                                         self.digit_bits)
+        rows = k * self.ndigits
+        if self.digit_bits <= ntt_ct.MAX_DIGIT_BITS:
+            digs = lb.byte_decomp(parts_limbs, self.log_q, self.digit_bits,
+                                  self.ndigits, self.q_limbs)
+            digs = digs.movedim(-1, -2)               # [..., k, nd, phim]
+            digs = digs.reshape(lead + (rows, self.phim))
+            if self.use_ct:
+                return ntt_ct_cuda.ct_fwd_digits(K['ct'], digs, self.ct_meta,
+                                                 self.digit_bits)
+            res = digs[..., None, :] % K['q']         # [..., rows, Lk, phim]
+        else:
+            planes = lb.byte_decomp_planes(parts_limbs, self.log_q,
+                                           self.digit_bits, self.ndigits,
+                                           self.q_limbs)
+            planes = planes.movedim(-2, -3)           # [..., k, nd, phim, pl]
+            planes = planes.reshape(lead + (rows, self.phim, planes.shape[-1]))
+            q = K['q'].to(torch.int64)
+            res = planes[..., None, :, -1] % q        # [..., rows, Lk, phim]
+            for t in range(planes.shape[-1] - 2, -1, -1):
+                res = ((res << lb.LIMB_BITS) + planes[..., None, :, t]) % q
+            res = res.to(torch.int32)
+        return self._fwd_t(K, res)
 
     def _keyswitch_digits(self, matrix_evals, digit_evals):
         """Keyswitch dot + reconstruction over the keyswitch basis.

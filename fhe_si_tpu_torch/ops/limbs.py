@@ -181,9 +181,10 @@ def from_small_signed(coeffs, n: int):
 def byte_decomp(a, log_q: int, digit_bits: int, ndigits: int, q_limbs):
     """ByteDecomp digits (Ciphertext.cpp:82-121): positive rep mod q,
     then digit j = bits [digit_bits*j, digit_bits*(j+1)).  Returns int32
-    [..., ndigits], digits < 2^digit_bits <= 2^24."""
+    [..., ndigits], digits < 2^digit_bits <= 2^24 (wider radixes:
+    byte_decomp_planes)."""
     if digit_bits > 24:
-        raise NotImplementedError("digit radix above 2^24 (decompSize >= 4)")
+        raise ValueError("digit radix above 2^24: use byte_decomp_planes")
     pos = reduce_mod_q(a, log_q, True, q_limbs)
     n = pos.shape[-1]
     zero = torch.zeros_like(pos[..., 0])
@@ -203,3 +204,54 @@ def byte_decomp(a, log_q: int, digit_bits: int, ndigits: int, q_limbs):
             idx += 1
         digits.append(v & ((1 << digit_bits) - 1))
     return torch.stack(digits, dim=-1)
+
+
+def byte_decomp_planes(a, log_q: int, digit_bits: int, ndigits: int, q_limbs):
+    """ByteDecomp for digit radixes past int32 values (decompSize >= 4;
+    the reference accepts any decompSize, FHEContext.h:91-99): each
+    radix-2^digit_bits digit as ceil(digit_bits/16) little-endian 16-bit
+    planes, plane t of digit j holding bits [digit_bits*j + 16t, +16) of
+    the positive representative.  Returns int32 [..., ndigits, nplanes],
+    every plane in [0, 2^16)."""
+    nplanes = (digit_bits + LIMB_BITS - 1) // LIMB_BITS
+    pos = reduce_mod_q(a, log_q, True, q_limbs)
+    n = pos.shape[-1]
+    zero = torch.zeros_like(pos[..., 0])
+
+    def limb(k):
+        return pos[..., k] if k < n else zero
+
+    digits = []
+    for j in range(ndigits):
+        planes = []
+        for t in range(nplanes):
+            width = min(LIMB_BITS, digit_bits - LIMB_BITS * t)
+            k0, off = divmod(digit_bits * j + LIMB_BITS * t, LIMB_BITS)
+            v = limb(k0) >> off
+            if off:
+                v = v | (limb(k0 + 1) << (LIMB_BITS - off))
+            planes.append(v & ((1 << width) - 1))
+        digits.append(torch.stack(planes, dim=-1))
+    return torch.stack(digits, dim=-2)
+
+
+def mod_p_bounded(y, p: int, K_bound: int):
+    """y mod p in [0, p), as int32, for two's complement limbs y with
+    |y| <= K_bound * p: the decrypt tail for p >= 2^20, where the 4-bit
+    chunk-dot sum of limbs_to_mod_small would leave int32 (bound
+    context.exact_bounds['K_dec']).
+
+    The JAX package (ops/limbs.py mod_p_bounded) estimates the quotient in
+    float32 and corrects it in the limb domain to stay in int32 lanes.
+    Here |y| < 2^47 is read exactly as an int64 from the low three limbs
+    (the limbs above them are sign fill) and reduced with `%`: the
+    canonical residue the JAX corrections also reach."""
+    m = min(y.shape[-1], 3)
+    bits = LIMB_BITS * m
+    if K_bound * p >= 1 << (bits - 1):
+        raise ValueError("mod_p_bounded: |y| may exceed the int64 window")
+    v = y[..., 0].to(torch.int64)
+    for k in range(1, m):
+        v = v + (y[..., k].to(torch.int64) << (LIMB_BITS * k))
+    v = v - ((v >> (bits - 1)) << bits)             # sign-extend the window
+    return (v % p).to(torch.int32)

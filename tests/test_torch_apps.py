@@ -23,23 +23,25 @@ torch.set_num_threads(1)
 M, P, G, SEED = 32, 97, 3, 42
 
 
-def run_apps(tmp_dir, prime_bits=None):
-    """Both packages' Regression and Statistics on one dataset; returns a
-    dict of (JAX ciphertexts, port ciphertexts, port secret key, expected
-    slot-0 values mod p) per app, plus the data file and contexts."""
+def run_apps(tmp_dir, prime_bits=None, ring=(M, P, G)):
+    """Both packages' Regression and Statistics on one dataset at ring
+    (m, p, generator), a ring with 8 usable slots; returns a dict of (JAX
+    ciphertexts, port ciphertexts, port secret key, expected slot-0 values
+    mod p) per app, plus the data file, contexts and p."""
+    m, p, g = ring
     path = str(tmp_dir / "data.txt")
     gen_data.generate(path, 2, 16, seed=5)
-    out = {"path": path}
+    out = {"path": path, "p": p}
 
     def contexts(log_q, xi):
-        kw = dict(m=M, log_q=log_q, p=P, generator=G, xi=xi,
+        kw = dict(m=m, log_q=log_q, p=p, generator=g, xi=xi,
                   prime_bits=prime_bits)
         ref, ctx = RefContext(**kw), FheContext(**kw)
         assert ctx.usable_slots == 8 and ctx.wide == (prime_bits is not None)
         return ref, ctx
 
     raw, labels, dim = treg.load_data(path)
-    ref, ctx = contexts(*treg.derive_log_q(len(labels), dim, P))
+    ref, ctx = contexts(*treg.derive_log_q(len(labels), dim, p))
     jm = jreg.Regression(ref, sampling.RandomSource(SEED))
     tm = treg.Regression(DeviceContext(ctx, "cpu"), sampling.RandomSource(SEED))
     jm.add_data(*jreg.batch_data(ref, raw, labels))
@@ -53,7 +55,7 @@ def run_apps(tmp_dir, prime_bits=None):
 
     data, dim = tst.load_data(path)
     n = data.num_rows()
-    ref, ctx = contexts(*tst.derive_log_q(n, dim, P))
+    ref, ctx = contexts(*tst.derive_log_q(n, dim, p))
     js = jst.Statistics(ref, sampling.RandomSource(SEED))
     ts = tst.Statistics(DeviceContext(ctx, "cpu"), sampling.RandomSource(SEED))
     js.add_data(*jst.batch_data(ref, data))
@@ -93,7 +95,7 @@ def test_ciphertexts_equal_jax(apps, app):
 def test_decrypts_equal_oracle(apps, app):
     _, tcts, sk, want = apps[app]
     got = [int(pt.decode_slots()[0]) for pt in sk.decrypt_batch(tcts)]
-    assert got == [w % P for w in want]
+    assert got == [w % apps["p"] for w in want]
 
 
 def test_keys_equal_jax(apps):

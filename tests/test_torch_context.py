@@ -95,14 +95,24 @@ def test_t2i_crt_equals_jax_device_tables(mp):
 
 
 def test_unported_configs_raise():
-    with pytest.raises(NotImplementedError, match="power-of-two"):
-        DeviceContext(FheContext(m=22, log_q=80, p=23, generator=7), "cpu")
-    # the wide lane is ported (tests/test_torch_wide.py); decompSize >= 4
-    # is not
+    """Only the mixed-radix Cooley-Tukey family is left: m = 2^a * q^b with
+    use_ct (forced at m = 160 as in tests/test_ct_scheme.py:151-159)
+    raises.  The dense family, the wide lane and decompSize >= 4 build
+    (tests/test_torch_dense*.py hold them against fhe_si_tpu)."""
+    ctx = FheContext(m=160, log_q=80, p=641, generator=3)
+    assert not ctx.use_ct
+    assert DeviceContext(ctx, "cpu").ct_meta is None       # dense
+    ctx.use_ct = True
+    with pytest.raises(NotImplementedError, match="mixed-radix"):
+        DeviceContext(ctx, "cpu")
+    assert not DeviceContext(FheContext(m=22, log_q=80, p=23, generator=7),
+                             "cpu").use_ct
     assert DeviceContext(FheContext(m=32, log_q=80, p=97, generator=3,
                                     prime_bits=23), "cpu").wide
     dev = DeviceContext(FheContext(m=32, log_q=80, p=97, generator=3,
                                    decomp_size=4), "cpu")
-    with pytest.raises(NotImplementedError, match="decompSize"):
-        dev.keyswitch_parts(torch.zeros((2, dev.phim, dev.n_ct),
-                                        dtype=torch.int32), None)
+    out = dev.keyswitch_parts(torch.zeros((2, dev.phim, dev.n_ct),
+                                          dtype=torch.int32),
+                              torch.zeros((2, 2 * dev.ndigits, dev.L,
+                                           dev.phim), dtype=torch.int32))
+    assert out.shape == (2, dev.phim, dev.n_ct)

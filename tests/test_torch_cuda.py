@@ -1,8 +1,10 @@
 """The port on a CUDA card: the three kernels against their plain PyTorch
-versions on both residue lanes, the multiply + relinearize slice and the
+versions on both residue lanes, the dense transform family against the
+same function on the CPU, the multiply + relinearize slice (on the
+Cooley-Tukey rings, decompSize 4 included, and on dense rings) and the
 two applications on the card against the same runs on the CPU (which
-test_torch_slice.py and test_torch_apps*.py hold equal to fhe_si_tpu).
-Every test skips without a card.
+test_torch_slice.py, test_torch_dense*.py and test_torch_apps*.py hold
+equal to fhe_si_tpu).  Every test skips without a card.
 
 This file imports neither JAX nor fhe_si_tpu, so it also runs where JAX
 is absent:
@@ -26,6 +28,11 @@ CONFIGS = [pytest.param((256, 257, None), id="m256"),
            pytest.param((32, 97, 23), id="m32-wide")]
 KERNEL_CONFIGS = CONFIGS + [pytest.param((8192, 40961, None), id="m8192"),
                             pytest.param((8192, 40961, 23), id="m8192-wide")]
+# dense-family rings (m, log_q, p, generator, prime_bits)
+DENSE = [pytest.param((22, 80, 23, 7, None), id="m22"),
+         pytest.param((22, 80, 23, 7, 23), id="m22-wide"),
+         pytest.param((46, 96, 47, 5, None), id="m46"),
+         pytest.param((46, 96, 47, 5, 23), id="m46-wide")]
 
 
 @pytest.fixture
@@ -133,29 +140,77 @@ def test_tensor_core_kernel_refusals(cuda):
             fn(bare, x, dc.ct_meta)
 
 
+def _slice_round(ctx, device):
+    """keygen, relinearization key, batched encrypt of 2 pairs, mul+relin
+    and decrypt on `device`: (parts on the CPU, decrypts, launches)."""
+    dev = DeviceContext(ctx, device)
+    src = sampling.RandomSource(5)
+    sk, pk = scheme.keygen(dev, src)
+    ksw = scheme.KeySwitch.for_relinearization(sk, src)
+    msgs = [src.uniform_mod_p(ctx.phim, ctx.p) for _ in range(4)]
+    cts = pk.encrypt_batch([scheme.Plaintext(ctx, mm) for mm in msgs], src)
+    ntt_ct_cuda.reset_launches()
+    out = scheme.relin_batch(scheme.mul_batch(list(zip(cts[0::2],
+                                                       cts[1::2]))), ksw)
+    dec = sk.decrypt_batch(out)
+    for i in range(2):
+        assert np.array_equal(dec[i].message, oracle.plaintext_mul(
+            ctx, msgs[2 * i], msgs[2 * i + 1]))
+    return (torch.stack([c.parts for c in out]).cpu(), dec,
+            dict(ntt_ct_cuda.LAUNCHES))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mp", CONFIGS)
 def test_slice_on_card_equals_cpu(cuda, mp):
     ctx = _ctx(*mp)
-    outs = []
-    for device in ("cpu", cuda):
-        dev = DeviceContext(ctx, device)
-        src = sampling.RandomSource(5)
-        sk, pk = scheme.keygen(dev, src)
-        ksw = scheme.KeySwitch.for_relinearization(sk, src)
-        msgs = [src.uniform_mod_p(ctx.phim, ctx.p) for _ in range(4)]
-        cts = pk.encrypt_batch([scheme.Plaintext(ctx, mm) for mm in msgs], src)
-        ntt_ct_cuda.reset_launches()
-        out = scheme.relin_batch(scheme.mul_batch(list(zip(cts[0::2],
-                                                           cts[1::2]))), ksw)
-        dec = sk.decrypt_batch(out)
-        launched = dict(ntt_ct_cuda.LAUNCHES)
-        outs.append((torch.stack([c.parts for c in out]).cpu(), dec))
+    (cpu_parts, _, _), (parts, _, launched) = (_slice_round(ctx, "cpu"),
+                                               _slice_round(ctx, cuda))
     assert all(n > 0 for n in launched.values())       # the card's run
-    assert torch.equal(outs[0][0], outs[1][0])
-    for i in range(2):
-        assert np.array_equal(outs[1][1][i].message, oracle.plaintext_mul(
-            ctx, msgs[2 * i], msgs[2 * i + 1]))
+    assert torch.equal(cpu_parts, parts)
+
+
+@pytest.mark.cuda
+def test_decomp4_on_card_equals_cpu(cuda):
+    """decompSize 4 on a Cooley-Tukey ring: the 32-bit digits become
+    residues by the plane Horner and take the ct_fwd kernel, not
+    ct_fwd_digits."""
+    ctx = FheContext(m=256, log_q=80, p=257, generator=3, decomp_size=4)
+    (cpu_parts, _, _), (parts, _, launched) = (_slice_round(ctx, "cpu"),
+                                               _slice_round(ctx, cuda))
+    assert torch.equal(cpu_parts, parts)
+    assert launched["ct_fwd_digits"] == 0
+    assert launched["ct_fwd"] > 0 and launched["ct_inv"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", DENSE)
+def test_dense_on_card_equals_cpu(cuda, cfg):
+    """The dense transforms (forward, raw inverse and the prescaled
+    inverse of every basis) on the card equal the same function on the
+    CPU bit for bit, and so does a mul+relin round, which launches no
+    Cooley-Tukey kernel."""
+    m, log_q, p, g, prime_bits = cfg
+    ctx = FheContext(m=m, log_q=log_q, p=p, generator=g,
+                     prime_bits=prime_bits)
+    cpu, card = DeviceContext(ctx, "cpu"), DeviceContext(ctx, cuda)
+    rng = np.random.default_rng(m)
+    for Tc, Tg in ((cpu.full, card.full), (cpu.ksw, card.ksw),
+                   (cpu.lin, card.lin)):
+        q = Tc["primes_np"]
+        x = torch.as_tensor(rng.integers(0, q[:, None], size=(
+            RAGGED, len(q), ctx.phim)).astype(np.int32))
+        for op_c, op_g in ((cpu._fwd_t, card._fwd_t),
+                           (cpu._inv_crt_t, card._inv_crt_t)):
+            assert torch.equal(op_g(Tg, x.to(cuda)).cpu(), op_c(Tc, x))
+    x = torch.as_tensor(rng.integers(0, ctx.primes[:, None], size=(
+        2, 3, ctx.num_primes, ctx.phim)).astype(np.int32))
+    assert torch.equal(card.ntt_fwd(x.to(cuda)).cpu(), cpu.ntt_fwd(x))
+    assert torch.equal(card.ntt_inv(x.to(cuda)).cpu(), cpu.ntt_inv(x))
+    (cpu_parts, _, _), (parts, _, launched) = (_slice_round(ctx, "cpu"),
+                                               _slice_round(ctx, cuda))
+    assert torch.equal(cpu_parts, parts)
+    assert all(n == 0 for n in launched.values())
 
 
 @pytest.mark.cuda

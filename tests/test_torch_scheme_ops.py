@@ -3,7 +3,8 @@ randomness at m = 32, p = 97, narrow lane: the adds (ragged widths and
 unpaired tails included), scalar and constant multiplies, automorph and
 rotation, and the batched helpers of the apps.  Each result's tensors
 equal JAX's, and its decrypt equals the plaintext computation.
-test_torch_scheme_ops_wide.py runs the same cases on the wide lane."""
+test_torch_scheme_ops_wide.py runs the same cases on the wide lane, and
+test_torch_scheme_ops_dense.py on a dense-family ring (m = 22)."""
 import numpy as np
 import pytest
 import torch
@@ -46,8 +47,11 @@ class Side:
         return (self.c[a] * self.c[b]).relinearized_view()
 
 
-def make_world(prime_bits=None):
-    kw = dict(m=32, log_q=80, p=97, generator=3, prime_bits=prime_bits)
+def make_world(prime_bits=None, ring=(32, 80, 97, 3)):
+    """Both packages' Sides on ring (m, log_q, p, generator): m = 32 rides
+    the Cooley-Tukey family, a ring like (22, 80, 23, 7) the dense one."""
+    m, log_q, p, g = ring
+    kw = dict(m=m, log_q=log_q, p=p, generator=g, prime_bits=prime_bits)
     ref, ctx = RefContext(**kw), FheContext(**kw)
     assert ctx.wide == (prime_bits is not None)
     return (Side(jscheme, ref, ref),

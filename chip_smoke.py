@@ -16,8 +16,13 @@ prints no result line):
      m = 256 and 32, on the full chain and both subset bases, and on
      tables of a narrow and a wide prime at m = 2^14 and 2^15, with a
      ragged row count, a [2, 3] lead shape, the forward/inverse round
-     trip and both inverse tables, bit for bit; plus the int32 semantics
-     the port relies on (wraparound, round half to even, arithmetic >>);
+     trip and both inverse tables, bit for bit; the same on mixed-radix
+     tables (m = 2^a * q^b: the kernel on the N-point transform, the
+     wrappers' pad, drop, insert and fold around it) at m = 40, 96, 160,
+     18 and 54 on narrow primes (odd N1 among them), m = 13122 (81 x 81)
+     on one narrow prime and m = 20480 (128 x 80) on a narrow and a
+     23-bit prime; plus the int32 semantics the port relies on
+     (wraparound, round half to even, arithmetic >>);
   4. the main path at FheContext(m=8192, log_q=80, p=40961, g=3):
      keygen, relinearization key, batched encrypt of 64 pairs, batched
      multiply + relinearize, batched decrypt; every decrypt must equal
@@ -59,8 +64,23 @@ prints no result line):
      e. decompSize 4 at m = 8192, logQ 80, batch 8: decrypts right, the
         32-bit digits through the ct_fwd kernel;
      f. a 24-bit p with 4006 | p - 1 at m = 4006 (the large-p decrypt
-        tail), 4 pairs.
-The line before the last is the card's name and power limit; the last
+        tail), 4 pairs;
+  8. the mixed-radix family at full width: keygen, relinearization key,
+     encrypt, mul+relin and decrypt of 16 pairs at the JAX package's
+     FheContext(m=20480, log_q=80, p=40961, generator=3) (phim 8192,
+     N1 x N2 = 128 x 80, bench.py's ct20k_mixedradix); every decrypt must
+     equal oracle.plaintext_mul, all three kernels must launch and no
+     plain transform run; the step and its four stages timed with CUDA
+     events, each kernel at the path's shapes against its bound and its
+     plain version;
+  9. the object API and the serializers on the card: DoubleCrt round
+     trip, arithmetic, automorph against the oracle and
+     scale_down_to_set at p = 4007, m = 4006 (dense, phim 2002); an npz
+     export/import of context, keys and ciphertexts from the m = 8192
+     DeviceContext, decrypted right after import; the reference byte
+     format (refcompat) round trip of keys and ciphertexts at m = 22 on a
+     synthetic reference chain.
+Every phase prints its wall time.  The line before the last is the card's name and power limit; the last
 is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -97,6 +117,13 @@ DECOMP4 = dict(MAIN, decomp_size=4)
 BATCH_DECOMP4 = 8
 LARGE_P = dict(m=4006, log_q=120, generator=5, bits=24)
 BATCH_LARGE_P = 4
+# the mixed-radix family: bench.py's ct20k_mixedradix ring, 128 x 80
+MIXED = dict(m=20480, log_q=80, p=40961, generator=3)
+BATCH_MIXED = 16
+# mixed-radix tables of phase 3: (m, narrow primes, 23-bit primes)
+MIXED_TABLES = [(40, 2, 0), (96, 2, 0), (160, 2, 0), (18, 2, 0), (54, 2, 0),
+                (13122, 1, 0), (20480, 1, 1)]
+REF_CANONICAL = dict(m=22, log_q=80, p=23, generator=7)
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 peak bandwidth
 INT8_OPS_PER_S = 1979e12        # dense int8 tensor-core rate, H100 SXM
 F64_OPS_PER_S = 67e12           # FP64 tensor-core rate, H100 SXM
@@ -129,11 +156,13 @@ def cuda_ms(fn, iters: int) -> float:
 
 def kernel_bound(name: str, rows: int, L: int, meta) -> tuple[float, str]:
     """Least time (ms) the card could take for one call and what sets it:
-    the int32 input and output moved once each over the HBM rate, or the
-    multiply-adds of both stages (N * (N1 + N2) per row and prime) as 9
-    int8 byte products of 2 operations each over the int8 rate."""
-    n_in = rows * meta.N if name == "ct_fwd_digits" else rows * L * meta.N
-    t_bytes = 4 * (n_in + rows * L * meta.N) / HBM_BYTES_PER_S * 1e3
+    the int32 input and output (phim wide) moved once each over the HBM
+    rate, or the multiply-adds of both stages of the N-point transform
+    (N * (N1 + N2) per row and prime) as 9 int8 byte products of 2
+    operations each over the int8 rate."""
+    n_in = rows * meta.phim if name == "ct_fwd_digits" \
+        else rows * L * meta.phim
+    t_bytes = 4 * (n_in + rows * L * meta.phim) / HBM_BYTES_PER_S * 1e3
     t_ops = (2 * 9 * rows * L * meta.N * (meta.N1 + meta.N2)
              / INT8_OPS_PER_S * 1e3)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -208,7 +237,7 @@ def phase_kernels(dev):
             raise AssertionError(f"{name}: kernel differs from plain by {d}")
 
     def check_tables(tab, q_np, meta, label, t2i_keys=("t2i", "t2i_crt")):
-        L, N = len(q_np), meta.N
+        L, N = len(q_np), meta.phim
         for lead in ((RAGGED_ROWS,), (2, 3)):
             x = torch.as_tensor(
                 rng.integers(0, q_np[:, None], size=lead + (L, N)).astype(
@@ -227,7 +256,8 @@ def phase_kernels(dev):
             check("ct_fwd_digits",
                   ntt_ct_cuda.ct_fwd_digits(tab, digs, meta, 24),
                   ntt_ct.ct_fwd_digits(tab, digs, meta, 24))
-        print(f"kernels == plain: {label} N1xN2={meta.N1}x{meta.N2} L={L}")
+        print(f"kernels == plain: {label} N1xN2={meta.N1}x{meta.N2} "
+              f"phim={meta.phim} L={L}")
 
     wide = [app_contexts()["regression"]] + [
         dict(cfg, prime_bits=23) for cfg in SMALL]
@@ -251,8 +281,34 @@ def phase_kernels(dev):
                dict(ct, **ntt_ct_cuda.kernel_tables(ct)).items()}
         check_tables(tab, np.asarray(BIG_PRIMES, np.int64), meta,
                      f"m={m} primes={BIG_PRIMES}", t2i_keys=("t2i",))
+    # mixed-radix tables, with a CRT premultiplier folded into t2i_crt
+    for m, narrow, wide in MIXED_TABLES:
+        qs = primes_below(m, 1 << 20, narrow) + primes_below(m, 1 << 23, wide)
+        meta, ct = ntt_ct.ct_tables(
+            m, qs, [numbth.find_element_of_order(q, m) for q in qs])
+        ct = ntt_ct.with_crt_premultiplier(
+            ct, rng.integers(1, min(qs), size=len(qs)))
+        tab = {k: torch.as_tensor(v, device=dev) for k, v in
+               dict(ct, **ntt_ct_cuda.kernel_tables(ct)).items()}
+        check_tables(tab, np.asarray(qs, np.int64), meta,
+                     f"m={m} primes={qs}")
     torch.cuda.synchronize()
     return err
+
+
+def primes_below(m: int, bound: int, count: int) -> list[int]:
+    """The largest `count` primes q < bound with m | q - 1 (at least
+    2^20 when bound is 2^23: primes of the wide lane)."""
+    from fhe_si_tpu_torch.hostmath import numbth
+    out, t = [], (bound - 1) // m
+    while len(out) < count:
+        q = t * m + 1
+        if q < bound >> 3 and bound > 1 << 20:
+            raise ValueError(f"no 23-bit prime with {m} | q - 1")
+        if numbth.is_prime(q):
+            out.append(q)
+        t -= 1
+    return out
 
 
 def encrypt_pairs(scheme, ctx, pk, src, count):
@@ -280,15 +336,42 @@ def dense_calls():
         ntt.modmatmul = plain
 
 
-def check_launches(label, launches, expect, n_dense):
-    """The kernels in `expect` launched and no other; a run that launched
-    no kernel must have gone through the dense transform."""
-    print(f"{label} launches: {launches}, dense transforms: {n_dense}")
+@contextlib.contextmanager
+def plain_ct_calls():
+    """Counts the calls of the plain Cooley-Tukey transforms
+    (ops/ntt_ct.py) made while the block runs: the wrappers reach them only
+    for CPU tensors, so a path on the card must make none."""
+    from fhe_si_tpu_torch.ops import ntt_ct
+    names = ("ct_fwd", "ct_fwd_digits", "ct_inv", "ct_fwd_n",
+             "ct_fwd_digits_n", "ct_inv_n")
+    calls, plain = [], {n: getattr(ntt_ct, n) for n in names}
+
+    def counted(name):
+        def call(*args, **kw):
+            calls.append(name)
+            return plain[name](*args, **kw)
+        return call
+    for n in names:
+        setattr(ntt_ct, n, counted(n))
+    try:
+        yield calls
+    finally:
+        for n in names:
+            setattr(ntt_ct, n, plain[n])
+
+
+def check_launches(label, launches, expect, n_dense, n_plain):
+    """The kernels in `expect` launched and no other, and no plain
+    Cooley-Tukey transform ran; a run that launched no kernel must have
+    gone through the dense transform, and one that did, not."""
+    print(f"{label} launches: {launches}, dense transforms: {n_dense}, "
+          f"plain Cooley-Tukey transforms: {n_plain}")
     for name, n in launches.items():
         if (n > 0) != (name in expect):
             raise AssertionError(f"{label}: {name} launched {n} times")
-    if not expect and not n_dense:
-        raise AssertionError(f"{label}: no transform ran")
+    if n_plain or (bool(expect) == bool(n_dense)):
+        raise AssertionError(f"{label}: {n_dense} dense and {n_plain} plain "
+                             "Cooley-Tukey transforms ran")
 
 
 def lean_path(dev, cfg, batch, label, expect=tuple(KERNELS), dc=None):
@@ -312,7 +395,7 @@ def lean_path(dev, cfg, batch, label, expect=tuple(KERNELS), dc=None):
                                    ctx.ndigits)
     print(f"setup {ctx} on {dev}: {time.perf_counter() - t0:.2f} s")
     ntt_ct_cuda.reset_launches()
-    with dense_calls() as dense:
+    with dense_calls() as dense, plain_ct_calls() as plain:
         sk, pk = scheme.keygen(dc, kg)
         ksw = scheme.KeySwitch.for_relinearization(sk, kr)
         msgs, pairs = encrypt_pairs(scheme, ctx, pk, src, batch)
@@ -320,7 +403,7 @@ def lean_path(dev, cfg, batch, label, expect=tuple(KERNELS), dc=None):
         dec = sk.decrypt_batch(out)
         torch.cuda.synchronize()
     launches = dict(ntt_ct_cuda.LAUNCHES)
-    check_launches(label, launches, expect, len(dense))
+    check_launches(label, launches, expect, len(dense), len(plain))
     for c in out:
         if c.parts.shape != (2, ctx.phim, ctx.n_limbs_ct) \
                 or c.parts.dtype != torch.int32:
@@ -436,11 +519,12 @@ def time_kernels(card, dev, dc, cases, per_step=None):
         T = getattr(dc, basis)
         tab, q_np = T['ct'], T['primes_np']
         if name == "ct_fwd_digits":
-            x = rng.integers(0, 1 << dc.digit_bits, size=(rows, meta.N))
+            x = rng.integers(0, 1 << dc.digit_bits, size=(rows, meta.phim))
             run = lambda m, x: m.ct_fwd_digits(  # noqa: E731
                 tab, x, meta, dc.digit_bits)
         else:
-            x = rng.integers(0, q_np[:, None], size=(rows, len(q_np), meta.N))
+            x = rng.integers(0, q_np[:, None],
+                             size=(rows, len(q_np), meta.phim))
             run = (lambda m, x: m.ct_fwd(tab, x, meta)) if name == "ct_fwd" \
                 else (lambda m, x: m.ct_inv(tab, x, meta, 't2i_crt'))
         x = torch.as_tensor(x.astype(np.int32), device=dev)
@@ -561,7 +645,8 @@ def find_large_p(m: int, bits: int) -> int:
 
 def phase_dense(dev, card):
     """Phase 7: the reference's own rings on the dense transform family.
-    Returns the launch counts of each path, keyed by path."""
+    Returns the launch counts of each path, keyed by path, the dense
+    transform's calls and times per step, and the p = 4007 FheContext."""
     import torch
     from fhe_si_tpu_torch import DeviceContext, FheContext
     from fhe_si_tpu_torch.cli import test_addmul, test_general
@@ -575,6 +660,7 @@ def phase_dense(dev, card):
     # a. bit for bit against the CPU, narrow (one matmul) and wide (split)
     t0 = time.perf_counter()
     dc = DeviceContext(FheContext(**BIG), dev)
+    big_ctx = dc.ctx           # its host tables are reused in phase 9
     print(f"dense context {dc.ctx}: {time.perf_counter() - t0:.2f} s "
           "(host tables included)")
     if dc.use_ct or dc.wide or len(dc.full['fwd']) != 1:
@@ -646,7 +732,7 @@ def phase_dense(dev, card):
     del dc
     torch.cuda.empty_cache()
     part("f")
-    return launches, dense_step
+    return launches, dense_step, big_ctx
 
 
 def run_cli(dev, cli, argv, label, expect):
@@ -660,13 +746,13 @@ def run_cli(dev, cli, argv, label, expect):
     torch.cuda.reset_peak_memory_stats(dev)
     out, err = io.StringIO(), io.StringIO()
     ntt_ct_cuda.reset_launches()
-    with dense_calls() as dense, contextlib.redirect_stdout(out), \
-            contextlib.redirect_stderr(err):
+    with dense_calls() as dense, plain_ct_calls() as plain, \
+            contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = cli.main(argv)
         torch.cuda.synchronize()
     launches = dict(ntt_ct_cuda.LAUNCHES)
     print(out.getvalue(), end="")
-    check_launches(label, launches, expect, len(dense))
+    check_launches(label, launches, expect, len(dense), len(plain))
     return rc, out.getvalue(), err.getvalue(), launches
 
 
@@ -704,6 +790,206 @@ def phase_apps(dev, card, app, lane, suffix="", expect=tuple(KERNELS)):
                   + f"; peak device memory "
                   f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f} GiB;"
                   f" launches {launches[name + suffix]}")
+    return launches
+
+
+def phase_mixed(dev, card):
+    """Phase 8: mul+relin on the mixed-radix family at full width.
+    Returns the path's launches and its kernel timings at the path's
+    shapes (time_kernels)."""
+    import torch
+    t0 = time.perf_counter()
+    dc, ksw, pairs, out, launches = lean_path(dev, MIXED, BATCH_MIXED,
+                                              "m=20480 path")
+    if tuple(dc.ct_meta) != (128, 80, 8192, 5) or dc.wide or dc.L != 12:
+        raise AssertionError(f"m=20480: {dc.ct_meta}, L={dc.L}, "
+                             f"wide={dc.wide}")
+    print(f"m=20480 path wall time: {time.perf_counter() - t0:.2f} s "
+          "(setup, keys, encrypt, mul+relin, decrypt)")
+    a, b, _, per_step = time_step(card, dc, pairs, ksw, out, "m=20480 path")
+    time_stages(card, dc, a, b, ksw, "m=20480 path")
+    kms = time_kernels(card, dev, dc, step_cases(dc, BATCH_MIXED), per_step)
+    time_mixed_helpers(card, dc, BATCH_MIXED)
+    print(f"peak device memory (phase 8): "
+          f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+    print(f"phase 8 wall time: {time.perf_counter() - t0:.2f} s")
+    return launches, kms
+
+
+def time_mixed_helpers(card, dc, batch):
+    """The plain phim <-> N steps that the wrappers run around the kernel
+    (ops/ntt_ct.py pad_to_N and drop_excluded around the forward
+    transforms, insert_excluded and fold_mod_phim around ct_inv), timed
+    alone with CUDA events at the shapes of one mul+relin step."""
+    import torch
+    from fhe_si_tpu_torch.ops import ntt_ct
+    meta = dc.ct_meta
+    rng = np.random.default_rng(SEED)
+
+    def rand(*shape):
+        return torch.as_tensor(rng.integers(0, 40961, size=shape).astype(
+            np.int32), device=dc.device)
+    for name, basis, rows in step_cases(dc, batch):
+        T = getattr(dc, basis)['ct']
+        L = T['q'].shape[0]
+        full = rand(rows, L, meta.N)
+        if name == "ct_inv":
+            ev = rand(rows, L, meta.phim)
+            steps = (lambda: ntt_ct.insert_excluded(ev, meta),
+                     lambda: ntt_ct.fold_mod_phim(full, T['q'], meta))
+        else:
+            x = rand(rows, meta.phim) if name == "ct_fwd_digits" \
+                else rand(rows, L, meta.phim)
+            steps = (lambda: ntt_ct.pad_to_N(x, meta),
+                     lambda: ntt_ct.drop_excluded(full, meta))
+        ms = [cuda_ms(f, 10) for f in steps]
+        print(f"[{card}] {name} m={dc.ctx.m} {basis} rows={rows}: the "
+              f"wrapper's phim <-> N steps {ms[0]:.4f} + {ms[1]:.4f} ms")
+
+
+def phase_objects(dev, big_ctx, main_dc):
+    """Phase 9: DoubleCrt at p = 4007, m = 4006; an npz round trip from
+    the m = 8192 DeviceContext; the reference byte format at m = 22.
+    Returns the kernel launches of the npz part."""
+    import torch
+    from fhe_si_tpu_torch import (DeviceContext, FheContext, refcompat,
+                                  refserial, sampling, scheme,
+                                  serialization as ser)
+    from fhe_si_tpu_torch.doublecrt import DoubleCrt
+    from fhe_si_tpu_torch.hostmath import numbth, oracle
+    from fhe_si_tpu_torch.indexmap import IndexSet
+    from fhe_si_tpu_torch.ops import ntt_ct_cuda
+    t0 = time.perf_counter()
+
+    def part(name):
+        print(f"phase 9{name} wall time: {time.perf_counter() - t0:.2f} s")
+        return time.perf_counter()
+
+    # a. DoubleCrt on the card, dense ring phim 2002
+    dc = DeviceContext(big_ctx, dev)
+    ctx, L = dc.ctx, dc.L
+    P = ctx.prime_product
+    rng = np.random.default_rng(SEED)
+    a = [int(v) for v in rng.integers(-2 ** 60, 2 ** 60, ctx.phim)]
+    b = [int(v) for v in rng.integers(-2 ** 60, 2 ** 60, ctx.phim)]
+    da, db = DoubleCrt.from_poly(dc, a), DoubleCrt.from_poly(dc, b)
+    if da.evals.device != dev:
+        raise AssertionError(f"DoubleCrt evals on {da.evals.device}")
+    ca, cb = ([oracle.centered_mod(v, P) for v in x] for x in (a, b))
+    if da.to_poly() != ca:
+        raise AssertionError("DoubleCrt round trip")
+    if (da + db).to_poly() != [oracle.centered_mod(x + y, P)
+                               for x, y in zip(a, b)] \
+            or (da - db).to_poly() != [oracle.centered_mod(x - y, P)
+                                       for x, y in zip(a, b)]:
+        raise AssertionError("DoubleCrt add/sub")
+    want = oracle.poly_mod_phim(oracle.poly_mul(ca, cb), ctx.phim_x)
+    if (da * db).to_poly() != [oracle.centered_mod(v, P)
+                               for v in oracle.pad(want, ctx.phim)]:
+        raise AssertionError("DoubleCrt product != oracle")
+    if (da * 12345).div_by_constant(12345) != da:
+        raise AssertionError("DoubleCrt div_by_constant")
+    small = [int(v) for v in rng.integers(0, 1000, ctx.phim)]
+    got = DoubleCrt.from_poly(dc, small).automorph(ctx.generator).to_poly()
+    if got != oracle.automorph(oracle.OracleCiphertext(ctx, parts=[small]),
+                               ctx.generator).parts[0]:
+        raise AssertionError("DoubleCrt automorph != oracle")
+    keep = IndexSet(0, L - 3)
+    removed = int(ctx.primes[L - 2]) * int(ctx.primes[L - 1])
+    da.scale_down_to_set(keep)
+    poly = da.to_poly()
+    if da.index_set != keep or da.evals.shape != (L - 2, ctx.phim) or any(
+            new % ctx.p != old % ctx.p
+            or abs(new) > abs(old) * ctx.p / removed + ctx.p
+            for old, new in zip(a, poly)):
+        raise AssertionError("DoubleCrt scale_down_to_set")
+    print(f"DoubleCrt on the card at p={ctx.p} m={ctx.m} (phim {ctx.phim}, "
+          f"L={L}): round trip, +, -, * == oracle, automorph == oracle, "
+          f"scale_down_to_set to {L - 2} primes")
+    del dc, da, db
+    torch.cuda.empty_cache()
+    t0 = part("a (DoubleCrt)")
+
+    # b. npz export and import from the m = 8192 DeviceContext
+    ctx = main_dc.ctx
+    src = sampling.RandomSource(SEED)
+    ntt_ct_cuda.reset_launches()
+    sk, pk = scheme.keygen(main_dc, src)
+    ksw = scheme.KeySwitch.for_relinearization(sk, src)
+    msgs = [src.uniform_mod_p(ctx.phim, ctx.p) for _ in range(2)]
+    cts = pk.encrypt_batch([scheme.Plaintext(ctx, mm) for mm in msgs], src)
+    with tempfile.TemporaryDirectory() as d:
+        ser.export_context(ctx, f"{d}/ctx.npz")
+        ser.export_secret_key(sk, f"{d}/sk.npz")
+        ser.export_public_key(pk, f"{d}/pk.npz")
+        ser.export_keyswitch(ksw, f"{d}/ksw.npz")
+        ser.export_ciphertext(cts[0], f"{d}/ct.npz")
+        ser.export_ciphertext(cts[0] * cts[1], f"{d}/ct2.npz")
+        dev2 = DeviceContext(ser.import_context(f"{d}/ctx.npz"), dev)
+        sk2 = ser.import_secret_key(dev2, f"{d}/sk.npz")
+        pk2 = ser.import_public_key(dev2, f"{d}/pk.npz")
+        ksw2 = ser.import_keyswitch(dev2, f"{d}/ksw.npz")
+        ct1 = ser.import_ciphertext(dev2, f"{d}/ct.npz")
+        ct2 = ser.import_ciphertext(dev2, f"{d}/ct2.npz")
+    if not (torch.equal(sk2.sk_evals, sk.sk_evals)
+            and torch.equal(pk2.pk_limbs, pk.pk_limbs)
+            and torch.equal(ksw2.matrix_evals, ksw.matrix_evals)
+            and torch.equal(ct1.parts, cts[0].parts)
+            and ct1.parts.device == dev):
+        raise AssertionError("npz import differs from the export")
+    if list(sk2.decrypt(ct1).message) != list(msgs[0] % ctx.p) or list(
+            sk2.decrypt(ksw2.apply(ct2)).message) != list(
+            oracle.plaintext_mul(ctx, msgs[0], msgs[1])):
+        raise AssertionError("decrypt after npz import")
+    ct3 = pk2.encrypt(scheme.Plaintext(dev2.ctx, msgs[1]), src)
+    if list(sk2.decrypt(ct3).message) != list(msgs[1] % ctx.p):
+        raise AssertionError("encrypt with an imported key")
+    torch.cuda.synchronize()
+    launches = dict(ntt_ct_cuda.LAUNCHES)
+    print(f"npz round trip at m={ctx.m} on {dev}: context, keys and "
+          f"ciphertexts equal after import, decrypts right; launches "
+          f"{launches}")
+    t0 = part("b (npz)")
+
+    # c. the reference byte format at m = 22 on a synthetic reference chain
+    ctx = FheContext(**REF_CANONICAL)
+    dc = DeviceContext(ctx, dev)
+    m2, primes, q = 2 * ctx.m, [], (1 << 30) - 1
+    q = q - q % m2 + m2 + 1
+    while len(primes) < 8:
+        q -= m2
+        if numbth.is_prime(q):
+            primes.append(q)
+    ref = refserial.RefContext(ctx.m, ctx.log_q, ctx.p, ctx.generator,
+                               ctx.decomp_size,
+                               [(q, numbth.find_element_of_order(q, m2))
+                                for q in primes])
+    if refserial.read_context(refserial.write_context(ref)) != ref:
+        raise AssertionError("reference context stream round trip")
+    src = sampling.RandomSource(SEED)
+    sk, pk = scheme.keygen(dc, src)
+    ksw = scheme.KeySwitch.for_relinearization(sk, src)
+    msgs = [src.uniform_mod_p(ctx.phim, ctx.p) for _ in range(2)]
+    cts = [pk.encrypt(scheme.Plaintext(ctx, mm), src) for mm in msgs]
+    sk2 = refcompat.import_secret_key(refcompat.export_secret_key(sk, ref),
+                                      ref, dc)
+    pk2 = refcompat.import_public_key(refcompat.export_public_key(pk, ref),
+                                      ref, dc)
+    ksw2 = refcompat.import_keyswitch(refcompat.export_keyswitch(ksw, ref),
+                                      ref, dc)
+    ct2 = refcompat.import_ciphertext(refcompat.export_ciphertext(cts[0]), dc)
+    if not (torch.equal(sk2.sk_evals, sk.sk_evals)
+            and torch.equal(pk2.pk_evals, pk.pk_evals)
+            and torch.equal(ksw2.matrix_evals, ksw.matrix_evals)
+            and torch.equal(ct2.parts, cts[0].parts)):
+        raise AssertionError("reference-format import differs from export")
+    if list(sk2.decrypt(ksw2.apply(ct2 * cts[1])).message) != list(
+            oracle.plaintext_mul(ctx, msgs[0], msgs[1])):
+        raise AssertionError("decrypt after reference-format import")
+    print(f"reference format at m={ctx.m} on {dev}: secret, public and "
+          "keyswitch keys re-based through an 8-prime reference chain and "
+          "back equal, the ciphertext equal, the product decrypts right")
+    part("c (refcompat)")
     return launches
 
 
@@ -776,11 +1062,24 @@ def main() -> int:
     app_launches = phase_apps(dev, card, APP, "wide")
 
     # 7. the reference's own rings on the dense transform family
-    dense_launches, (n_dense, dense_ms, dense_bound) = phase_dense(dev, card)
+    t0 = time.perf_counter()
+    dense_launches, (n_dense, dense_ms, dense_bound), big_ctx = phase_dense(
+        dev, card)
+    print(f"phase 7 wall time: {time.perf_counter() - t0:.2f} s")
+
+    # 8. the mixed-radix family at full width
+    mixed_launches, mixed_ms = phase_mixed(dev, card)
+
+    # 9. the object API and the serializers
+    t0 = time.perf_counter()
+    npz_launches = phase_objects(dev, big_ctx, dc)
+    print(f"phase 9 wall time: {time.perf_counter() - t0:.2f} s")
     kernels = []
     for name in KERNELS:
         by_path = dict(mul_relin=launches[name],
                        mul_relin_m32768=launches15[name],
+                       mul_relin_m20480=mixed_launches[name],
+                       npz_m8192=npz_launches[name],
                        **{path: n[name] for path, n in
                           (app_launches | dense_launches).items()})
         _, k_ms, p_ms, b_ms, b_by = narrow_ms[name][0]
@@ -793,7 +1092,9 @@ def main() -> int:
             library_ms=None,     # no PyTorch call computes a transform mod q
             wide_ms=wide_ms[name][0][1], wide_plain_ms=wide_ms[name][0][2],
             m32768_ms=m15_ms[name][0][1], m32768_plain_ms=m15_ms[name][0][2],
-            m32768_bound_ms=m15_ms[name][0][3]))
+            m32768_bound_ms=m15_ms[name][0][3],
+            m20480_ms=mixed_ms[name][0][1], m20480_plain_ms=mixed_ms[name][0][2],
+            m20480_bound_ms=mixed_ms[name][0][3]))
 
     # not a kernel of the port: the XLA einsum of the JAX package
     # (fhe_si_tpu/ops/ntt.py modmatmul) is plain float64 torch.matmul here

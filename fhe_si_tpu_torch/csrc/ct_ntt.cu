@@ -1,6 +1,10 @@
 // Two-level Cooley-Tukey NTT kernels for both residue lanes (primes
-// q < 2^23, q >= 2^14; power-of-two m up to 2^15), written for Hopper
-// (sm_90a).
+// q < 2^23, q >= 2^14), written for Hopper (sm_90a).  They compute the
+// N-point transform (N = m/2 = N1 * N2) of every ring m = 2^a * q^b whose
+// split has N1, N2 >= 2 and fits in shared memory: every power of two up
+// to m = 2^15, and mixed-radix splits such as 128 x 80 (m = 20480) and
+// 81 x 81 (m = 13122).  The wrappers (ops/ntt_ct_cuda.py) check the split
+// before launching and run the phim <-> N pad, drop and fold around it.
 //
 // Replaces the three Pallas TPU kernels of fhe_si_tpu/ops/ntt_ct_pallas.py
 // with one tensor-core kernel:
@@ -8,7 +12,8 @@
 //   fsi_ct_fwd_digits <- _fwd_digits_kernel (:137)  ct_mma_kernel<true>,  S = N2
 //   fsi_ct_inv        <- _inv_kernel        (:158)  ct_mma_kernel<false>, S = N1
 //
-// What they compute (the index maps of fhe_si_tpu_torch/ops/ntt_ct.py):
+// What they compute (the index maps of fhe_si_tpu_torch/ops/ntt_ct.py
+// ct_*_n):
 //   forward:  y[c1,j2] = (sum_c2 T2[j2,c2] x[c1 + N1*c2]) mod q
 //             y[c1,j2] = y[c1,j2] * tw[c1,j2] mod q
 //             X[j1,j2] = (sum_c1 T1[j1,c1] y[c1,j2]) mod q,  out[j2 + N2*j1]
@@ -47,9 +52,9 @@
 //   mma.sync.m16n8k32.row.col.s32.u8.u8.s32, accumulated in s32 per
 //   diagonal d = a + b (d = 0..4).  A diagonal sums at most 3 plane
 //   products of K terms below 255^2: 3 * K * 255^2 < 2^31 for K <= 11,008,
-//   so it is exact for every K the kernels take (K <= 128: the shared
-//   memory caps m at 2^15).  The diagonals stand for
-//   v = sum_d D_d 2^(8d) < K * 2^23 * 2^24 <= 2^60.
+//   so it is exact for every K the kernels take (K <= 1024, launch_mma's
+//   guard).  The diagonals stand for
+//   v = sum_d D_d 2^(8d) < K * 2^23 * 2^24 <= 2^57.
 // * No 64-bit %.  v mod q is computed from the diagonals in 32 bits with
 //   Shoup's reciprocals, precomputed per prime on the host (ops/ntt_ct_cuda.py
 //   kernel_tables): for w < q and w' = floor(w 2^32 / q), any a < 2^32
@@ -72,10 +77,24 @@
 // * Layouts unchanged: the input and output orders above.  The output is
 //   stored as 16-byte vectors (a lane-pair shuffle of the mma fragments),
 //   every 32-byte sector written whole.
-// * Shapes below the mma tile (m = 32 is 4 x 4) are zero-padded inside
-//   the kernel: the host pads the table planes with zero rows and columns,
-//   so padded operand bytes multiply zeros and padded outputs are never
-//   stored.  The wrapper raises where a shape exceeds shared memory.
+// * Shapes below the mma tile (m = 32 is 4 x 4), and sides that are not
+//   multiples of it (m = 20480 is 128 x 80, m = 54 is 9 x 3), are
+//   zero-padded inside the kernel: the host pads the table planes with
+//   zero rows and columns, so padded operand bytes multiply zeros and
+//   padded outputs are never stored.  The wrapper raises where a shape
+//   exceeds shared memory or a side is 1 (m = 2q: N2 = 1).
+// * Odd R (m = 40 is 5 x 4 forward, m = 13122 is 81 x 81).  The stage-1
+//   epilogue handles output columns in pairs (n, n + 1), n even.  At
+//   n = R - 1 the column n + 1 = R is a B1 row that fetch() zeroes (the
+//   input tile of 8 columns reaches pad8(R) > R), its twiddle pair is the
+//   row's zero padding, and it lands in B2's K padding at column R, which
+//   the zero columns R.. of A2 cancel.  The twiddle row stride Geo::tws is
+//   2R + 16 rounded up to a multiple of 4 words, so every 16-byte twiddle
+//   load, and each prime's twiddle base, is aligned whatever R is
+//   (ops/ntt_ct_cuda.py tw_stride makes the host rows the same).
+// * S not a multiple of 4 (S = 2 at m <= 16, S = 6 at m = 96 forward,
+//   S = 9 at m = 54 inverse): an output row [R][S] is not a multiple of
+//   16 bytes, so stage 2 stores element by element.
 // * m = 2^15 (N1 = N2 = 128).  The four byte-plane blocks A1, A2, B1, B2
 //   take 55,296 bytes each, 221,184 of a block's 232,448; the twiddle
 //   pairs (139,264 bytes) do not fit beside them.  Geo keeps the twiddle
@@ -112,13 +131,13 @@ struct Geo {
   int S, R;
   int Kp1, Ks1, Mp1, Np1;   // stage 1: A1 [S x S] @ in [S x R]
   int Kp2, Ks2, Mp2, Np2;   // stage 2: A2 [R x R] @ C1^T [R x S]
-  int tws;                  // twiddle row stride in words: (tw, tw') pairs
+  int tws;                  // twiddle row stride in words, a multiple of 4: (tw, tw') pairs
   bool tw_shared;           // the twiddle pairs in shared memory
   __host__ __device__ Geo(int s, int r)
       : S(s), R(r),
         Kp1(pad_to(s, 32)), Ks1(pad_to(s, 32) + 16), Mp1(pad_to(s, 16)), Np1(pad_to(r, 16)),
         Kp2(pad_to(r, 32)), Ks2(pad_to(r, 32) + 16), Mp2(pad_to(r, 16)), Np2(pad_to(s, 16)),
-        tws(2 * r + 16), tw_shared(planes_bytes() + tw_bytes() <= kSmemMax) {}
+        tws(pad_to(2 * r + 16, 4)), tw_shared(planes_bytes() + tw_bytes() <= kSmemMax) {}
   __host__ __device__ int a1_bytes() const { return kPlanes * Mp1 * Ks1; }
   __host__ __device__ int a2_bytes() const { return kPlanes * Mp2 * Ks2; }
   __host__ __device__ int tw_bytes() const { return S * tws * 4; }
@@ -303,7 +322,7 @@ ct_mma_kernel(const int32_t* __restrict__ x, const uint8_t* __restrict__ a1g,
           const int m = m0 + g + 8 * h, n = n0 + 8 * t + 2 * tq;
           uint32_t y0 = reduce_diagonals(acc[t], 2 * h, k);
           uint32_t y1 = reduce_diagonals(acc[t], 2 * h + 1, k);
-          if (m < S && n < R) {        // R is even: n + 1 < R as well
+          if (m < S && n < R) {        // n + 1 = R (odd R): zero input, zero pair
             const int o = m * G.tws + 2 * n;
             const uint4 w = G.tw_shared ? *reinterpret_cast<const uint4*>(tw + o)
                                         : __ldg(reinterpret_cast<const uint4*>(twl + o));
@@ -342,7 +361,7 @@ ct_mma_kernel(const int32_t* __restrict__ x, const uint8_t* __restrict__ a1g,
           int32_t* dst = orow + m * S + n;
           if (S % 4 == 0) {
             if (n < S) *reinterpret_cast<uint4*>(dst) = o;
-          } else {                     // S = 2 (m <= 16): element stores
+          } else {                     // S % 4 != 0: element stores
             const uint32_t ov[4] = {o.x, o.y, o.z, o.w};
 #pragma unroll
             for (int j = 0; j < 4; ++j)

@@ -4,19 +4,20 @@ torch.device.
 Counterpart of fhe_si_tpu/device.py on both transform families and both
 residue lanes (narrow: primes < 2^20; wide: primes < 2^23, wherever the
 narrow chain runs out), for any p below 2^30 and any decompSize:
-  - power-of-two m rides the Cooley-Tukey family: the three transforms
-    go through ops/ntt_ct_cuda.py, the Hopper kernels for CUDA tensors
-    and the plain versions for CPU tensors;
+  - power-of-two m, and m = 2^a * q^b past the dense threshold
+    (context.CT_PHIM_THRESHOLD, e.g. m = 20480), ride the Cooley-Tukey
+    family: the three transforms go through ops/ntt_ct_cuda.py, the
+    Hopper kernel for CUDA tensors and the plain versions for CPU
+    tensors, phim wide in and out (the pad, drop and fold of a mixed
+    radix ring happen inside them);
   - every other ring with phim <= 4096 (m = p - 1 of the reference,
     m = 22, 46, 31, ...) rides the dense family: one phim x phim table
     per prime and direction (FheContext.ntt_tables), run as exact
     float64 matmuls by ops/ntt.modmatmul on either device.
-The mixed-radix Cooley-Tukey family (m = 2^a * q^b past the dense
-threshold) is not ported and raises.  The tables of the JAX
-DeviceContext live here as torch tensors on `device`; every function is
-a plain eager function of tensors (no jit, no vmap), rank-generic with a
-native batch axis in front (the JAX package vmaps its dense batched ops;
-the tensors are the same).
+The tables of the JAX DeviceContext live here as torch tensors on
+`device`; every function is a plain eager function of tensors (no jit,
+no vmap), rank-generic with a native batch axis in front (the JAX
+package vmaps its dense batched ops; the tensors are the same).
 
 Pipeline map to the reference (file:line into the dwu4/fhe-si sources):
   from_poly   = Cmodulus::FFT per prime        CModulus.cpp:89-107
@@ -31,6 +32,8 @@ Pipeline map to the reference (file:line into the dwu4/fhe-si sources):
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -40,10 +43,6 @@ from .ops import crt, limbs as lb, modular, ntt, ntt_ct, ntt_ct_cuda
 
 class DeviceContext:
     def __init__(self, ctx: FheContext, device):
-        if ctx.use_ct and ctx.m & (ctx.m - 1):
-            raise NotImplementedError(
-                f"m={ctx.m}: the mixed-radix Cooley-Tukey family "
-                "(m = 2^a * q^b with use_ct) is not ported")
         self.ctx = ctx
         self.device = torch.device(device)
         self.phim = ctx.phim
@@ -239,11 +238,21 @@ class DeviceContext:
         context checks at build."""
         return self.lin if width <= self.n_ct else self.full
 
-    def _from_poly(self, poly_limbs):
+    def from_poly(self, poly_limbs):
+        """Limb coefficients [..., phim, n] -> full-chain evaluations
+        [..., L, phim] (Cmodulus::FFT after the per-prime reduction)."""
         return self._from_poly_sub(self.full, poly_limbs)
 
-    def _to_poly(self, evals):
+    def to_poly(self, evals):
+        """Full-chain evaluations [..., L, phim] -> the centered value as
+        limbs [..., phim, n] (DoubleCRT::toPoly)."""
         return self._to_poly_sub(self.full, evals)
+
+    @functools.cached_property
+    def garner(self) -> dict:
+        """FheContext.garner_tables on the device as int32, the operand of
+        ops/crt.residues_to_limbs (the JAX DeviceContext's C['garner'])."""
+        return {k: self._i32(v) for k, v in self.ctx.garner_tables.items()}
 
     def _mul(self, a, b, T=None):
         """mod_mul over the residue rows of basis T (the full chain by
@@ -278,13 +287,13 @@ class DeviceContext:
         s_evals = self.small_to_evals(s)
         ones = torch.ones((self.L, self.phim), dtype=torch.int32,
                           device=self.device)
-        c1_evals = self._from_poly(c1_limbs)
+        c1_evals = self.from_poly(c1_limbs)
         pk0_pre = modular.mod_add(self._mul(s_evals, c1_evals),
                                   self.small_to_evals(c0), self.q)
-        pk0_limbs = self.reduce_signed(self._to_poly(pk0_pre))
+        pk0_limbs = self.reduce_signed(self.to_poly(pk0_pre))
         pk1_limbs = self.reduce_signed(lb.neg(c1_limbs))
         pk_limbs = torch.stack([pk0_limbs, pk1_limbs])
-        return (torch.stack([ones, s_evals]), self._from_poly(pk_limbs),
+        return (torch.stack([ones, s_evals]), self.from_poly(pk_limbs),
                 pk_limbs)
 
     def square_evals(self, evals):
@@ -293,18 +302,18 @@ class DeviceContext:
     def _keyswitch_init(self, src_sk_evals, dst_t_evals, A_limbs, e):
         """KeySwitchSI::Init (FHE-SI.cpp:153-209): the matrix as
         evaluations [2, k*ndigits, L, phim]."""
-        s_limbs = self._to_poly(src_sk_evals)
+        s_limbs = self.to_poly(src_sk_evals)
         s_shift = torch.stack([
             lb.shift_left(s_limbs[i], self.digit_bits * j)
             for i in range(src_sk_evals.shape[0])
             for j in range(self.ndigits)])
-        b_ev = self._mul(self._from_poly(A_limbs), dst_t_evals[None])
-        b_limbs = self._to_poly(b_ev)
+        b_ev = self._mul(self.from_poly(A_limbs), dst_t_evals[None])
+        b_limbs = self.to_poly(b_ev)
         b_limbs = lb.add(lb.add(b_limbs, lb.from_small_signed(e, self.n)),
                          s_shift)
         row_b = self.reduce_signed(b_limbs)
         row_a = self.reduce_signed(lb.neg(A_limbs))
-        return self._from_poly(torch.stack([row_b, row_a]))
+        return self.from_poly(torch.stack([row_b, row_a]))
 
     # --------------------------------------------------------- scheme ops
     def _encrypt(self, pk_evals, msg, r, errors):
@@ -360,12 +369,12 @@ class DeviceContext:
         na, nb = a_parts.shape[-3], b_parts.shape[-3]
         if a_parts.shape[-1] == b_parts.shape[-1]:
             # one lift for both operands, then scale the a-side by p
-            ev = self._from_poly(torch.cat([a_parts, b_parts], dim=-3))
+            ev = self.from_poly(torch.cat([a_parts, b_parts], dim=-3))
             a_ev = self._mul(ev[..., :na, :, :], self.p_mod_q)
             b_ev = ev[..., na:, :, :]
         else:
-            a_ev = self._mul(self._from_poly(a_parts), self.p_mod_q)
-            b_ev = self._from_poly(b_parts)
+            a_ev = self._mul(self.from_poly(a_parts), self.p_mod_q)
+            b_ev = self.from_poly(b_parts)
         out = [None] * (na + nb - 1)
         for i in range(na):
             for j in range(nb):
@@ -377,7 +386,7 @@ class DeviceContext:
 
     def _scale_down(self, tprod_evals):
         """Ciphertext::ScaleDown: floor((2x + q) / 2q), reduced signed."""
-        x = self._to_poly(tprod_evals)
+        x = self.to_poly(tprod_evals)
         y = lb.shift_left(x, 1)
         y = lb.add(y, self.q_limbs.expand(y.shape))
         y = lb.arith_shift_right(y, self.log_q + 1)
@@ -459,7 +468,7 @@ class DeviceContext:
     add_const = add
 
     def add_const_tensored(self, tprod0, scaled):
-        return modular.mod_add(tprod0, self._from_poly(scaled), self.q)
+        return modular.mod_add(tprod0, self.from_poly(scaled), self.q)
 
     def mul_scalar(self, parts, scalar_abs, negate):
         """Multiply by a long (Ciphertext.cpp:220-231), reduced signed.

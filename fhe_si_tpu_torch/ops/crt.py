@@ -5,7 +5,8 @@ reduces the big coefficients mod each prime with 4-bit chunk dot
 products against 2^(4c) mod q_l tables (Cmodulus::FFT's input
 reduction, CModulus.cpp:89-107); to_poly is the single-pass
 redundant-modulus CRT reconstruction of DoubleCRT::toPoly
-(DoubleCRT.cpp:349-398).
+(DoubleCRT.cpp:349-398); residues_to_limbs is the Garner scan it
+replaced, kept as its cross-check.
 
 PyTorch has no integer matmul on CUDA, so the chunk dot of
 limbs_to_residues runs as one float64 matmul on both lanes, where the
@@ -138,3 +139,55 @@ def residues_to_limbs_fast(res, t, q, qinv_f, n_limbs: int | None = None,
     return crt_finish(acc, sig_raw, er, t,
                       n_limbs if n_limbs is not None else t['B'].shape[-1],
                       wide)
+
+
+def residues_to_limbs(res, tables, q, qinv_f, n_limbs: int,
+                      wide: bool = False):
+    """Garner reconstruction: [..., L, phim] residues -> [..., phim, n]
+    limbs of the centered representative in (-P/2, P/2).  Counterpart of
+    fhe_si_tpu/ops/crt.py residues_to_limbs (the scheme paths take the
+    single-pass residues_to_limbs_fast; the two agree within its budget).
+
+    tables: FheContext.garner_tables on the device (DeviceContext.garner):
+      invq [L, L], W / Wh [L, n] (prefix products, plain and 2^10-shifted),
+      P_limbs [n], halfP_digits [L].
+    """
+    L = res.shape[-2]
+    invq, W, Wh = tables['invq'], tables['W'], tables['Wh']
+    half_digits = tables['halfP_digits']
+
+    # mixed-radix digits: digit j in [0, q_j); after step j the rows past j
+    # hold the partial remainders
+    t = res
+    digits = []
+    for j in range(L):
+        a_j = t[..., j, :]
+        digits.append(a_j)
+        if j + 1 < L:
+            qr, qir = q[j + 1:], qinv_f[j + 1:]
+            diff = mod_sub(t[..., j + 1:, :], a_j[..., None, :] % qr, qr)
+            t = torch.cat([t[..., :j + 1, :],
+                           mod_mul(diff, invq[j, j + 1:, None], qr, qir,
+                                   wide)], dim=-2)
+    D = torch.stack(digits, dim=-2)                  # [..., L, phim]
+
+    # lexicographic compare against floor(P/2), most significant digit last
+    gt = torch.zeros(D.shape[:-2] + D.shape[-1:], dtype=torch.int32,
+                     device=D.device)
+    for j in range(L):
+        dj, hj = D[..., j, :], half_digits[j]
+        gt = torch.where(dj > hj, 1, torch.where(dj < hj, 0, gt))
+
+    # limb accumulation: sum_j digit_j * W_j, digits split at 10 bits
+    p0 = (D & 1023)[..., None] * W[:, None, :]      # < 2^26
+    p1 = (D >> 10)[..., None] * Wh[:, None, :]
+    i32 = torch.int32
+    acc = (torch.sum(p0 & lb.LIMB_MASK, dim=-3, dtype=i32)
+           + torch.sum(p1 & lb.LIMB_MASK, dim=-3, dtype=i32))
+    hi = (torch.sum(p0 >> lb.LIMB_BITS, dim=-3, dtype=i32)
+          + torch.sum(p1 >> lb.LIMB_BITS, dim=-3, dtype=i32))
+    acc = acc + lb._shift_up(hi) - gt[..., None] * tables['P_limbs']
+    out = lb.normalize(acc)
+    if out.shape[-1] != n_limbs:
+        raise AssertionError("table width mismatch")
+    return out

@@ -7,15 +7,21 @@ interface); the first launch compiles them with nvcc into
 fhe_si_tpu_torch/_build/ and loads the library with ctypes.  Nothing is
 compiled or loaded at import, so this module imports on a machine
 without nvcc.  All three transforms run one tensor-core kernel (int8
-byte planes, mma.sync) on every power-of-two ring up to m = 2^15.  It
-reads the byte planes and Shoup reciprocals that kernel_tables prepares
-here on the host and DeviceContext keeps beside the tables (T['ct']);
-tables without them raise on a CUDA tensor.
+byte planes, mma.sync) on the N-point transform of every ring
+m = 2^a * q^b whose split N1 x N2 it takes (check_kernel_shape: both
+sides at least 2 and the layout inside shared memory; every power of two
+from m = 8 to 2^15, m = 20480 = 128 x 80, m = 13122 = 81 x 81).  Around
+the launch the wrappers run the plain phim <-> N helpers of ops/ntt_ct.py
+(pad and drop forward, insert and fold inverse), no-ops on m = 2^k.  The
+kernel reads the byte planes and Shoup reciprocals that kernel_tables
+prepares here on the host and DeviceContext keeps beside the tables
+(T['ct']); tables without them raise on a CUDA tensor.
 
 Dispatch: a tensor on the CPU takes the plain version of ops/ntt_ct.py;
 a tensor on a CUDA device launches the kernel, or raises.  There is no
-fallback from a failed launch.  LAUNCHES counts the kernel launches of
-each wrapper (the plain path does not count).
+fallback from a failed launch or a split the kernel cannot take.
+LAUNCHES counts the kernel launches of each wrapper (the plain path does
+not count).
 
 The wrappers check what the kernels' exactness rests on (ct_ntt.cu
 header): every prime below 2^23, either residue lane, and keyswitch
@@ -73,13 +79,21 @@ def byte_planes(tab) -> np.ndarray:
     return out
 
 
+def tw_stride(R: int) -> int:
+    """Words per twiddle row (ct_ntt.cu Geo::tws): the R (w, w') pairs
+    and at least 16 words of zero padding, rounded up to a multiple of 4
+    so that every 16-byte twiddle load, and every prime's base, is
+    aligned whatever the parity of R."""
+    return _pad(2 * R + 16, 4)
+
+
 def twiddle_pairs(tw, q) -> np.ndarray:
     """Twiddle [L, S, R] (rows as the kernel's stage-1 output) as int32
-    bit patterns of uint32 [L, S, 2R + 16]: (w, floor(w 2^32 / q))
-    pairs, each row padded by 16 words."""
+    bit patterns of uint32 [L, S, tw_stride(R)]: (w, floor(w 2^32 / q))
+    pairs, zero in the padding."""
     tw = np.asarray(tw, np.int64)
     L, S, R = tw.shape
-    out = np.zeros((L, S, 2 * R + 16), np.int64)
+    out = np.zeros((L, S, tw_stride(R)), np.int64)
     out[..., 0:2 * R:2] = tw
     out[..., 1:2 * R:2] = _reciprocal(tw, np.asarray(q, np.int64)[:, None, None])
     return out.astype(np.uint32).view(np.int32)
@@ -174,6 +188,40 @@ def _on_cuda(x) -> bool:
     return True
 
 
+SMEM_MAX = 232448       # ct_ntt.cu kSmemMax: an H100 block's opt-in bytes
+
+
+def kernel_smem(S: int, R: int) -> int:
+    """Dynamic shared memory of ct_mma_kernel for a row [S][R]: Geo's
+    formula in ct_ntt.cu (fsi_ct_mma_smem returns the same number on the
+    card).  The four byte-plane blocks, and the twiddle pairs where the
+    whole layout fits in SMEM_MAX."""
+    ks1, ks2 = _pad(S, 32) + 16, _pad(R, 32) + 16
+    planes = 3 * (_pad(S, 16) * ks1 + _pad(R, 16) * ks2
+                  + _pad(R, 16) * ks1 + _pad(S, 16) * ks2)
+    tw = S * tw_stride(R) * 4
+    return planes + tw if planes + tw <= SMEM_MAX else planes
+
+
+def check_kernel_shape(name: str, shape, S: int, R: int,
+                       limit: int = SMEM_MAX):
+    """Raise ValueError, with the input's shape, unless ct_mma_kernel
+    takes a row [S][R] (S = N2, R = N1 forward; S = N1, R = N2 inverse):
+    both sides at least 2 and the layout inside `limit` bytes of shared
+    memory per block.  Every such split also keeps the kernel's launch
+    limits (sides up to 224 of its 1024, at most 16 input tiles per warp).
+    The wrappers call it before every launch; the plain versions take
+    every split."""
+    split = f"input {tuple(shape)} (N1 x N2 = {max(S, R)} x {min(S, R)})"
+    if min(S, R) < 2:
+        raise ValueError(f"{name}: {split}: the tensor-core kernel needs "
+                         "N1, N2 >= 2")
+    need = kernel_smem(S, R)
+    if need > limit:
+        raise ValueError(f"{name}: {split} needs {need} bytes of shared "
+                         f"memory per block; the card allows {limit}")
+
+
 def _launch(name: str, fn, inp, tabs, out, rows, L, meta: CtMeta):
     """Check the operands, launch on the current stream, count."""
     for t in (inp, *tabs, out):
@@ -194,9 +242,7 @@ def _launch(name: str, fn, inp, tabs, out, rows, L, meta: CtMeta):
     return out
 
 
-def _check(name, x, tail: tuple, T: dict, meta: CtMeta):
-    if meta.q_odd != 1:
-        raise NotImplementedError("mixed-radix m is not ported")
+def _check(name, x, tail: tuple, T: dict):
     if tuple(x.shape[-len(tail):]) != tail:
         raise ValueError(f"{name}: expected [..., {', '.join(map(str, tail))}]"
                          f", got {tuple(x.shape)}")
@@ -209,71 +255,68 @@ def _check(name, x, tail: tuple, T: dict, meta: CtMeta):
 
 
 @functools.cache
-def _smem(S: int, R: int, device: torch.device) -> tuple[int, int]:
-    lib = _lib()
+def _smem_limit(device: torch.device) -> int:
     with torch.cuda.device(device):
-        return lib.fsi_ct_mma_smem(S, R), lib.fsi_smem_optin()
+        return _lib().fsi_smem_optin()
 
 
 def _mma_tables(name, x, T: dict, keys, S: int, R: int):
-    """The tensor-core kernel's tables, after checking that the shape
-    fits in shared memory."""
+    """The tensor-core kernel's tables, after checking that it takes the
+    split (check_kernel_shape, against the card's shared memory)."""
     missing = [k for k in keys if k not in T]
     if missing:
         raise ValueError(f"{name}: the tables lack {missing}; build them "
                          "with ntt_ct_cuda.kernel_tables (DeviceContext does)")
-    need, limit = _smem(S, R, x.device)   # the layout the kernel chooses
-    if need > limit:
-        raise ValueError(f"{name}: input {tuple(x.shape)} (N1 x N2 = "
-                         f"{max(S, R)} x {min(S, R)}) needs {need} bytes of "
-                         f"shared memory per block; the card allows {limit}")
+    check_kernel_shape(name, x.shape, S, R, _smem_limit(x.device))
     return tuple(T[k] for k in keys)
 
 
 def ct_fwd(T: dict, x, meta: CtMeta):
-    """Forward transform of residues int32 [..., L, N] in [0, q)."""
+    """Forward transform of residues int32 [..., L, phim] in [0, q)."""
     if not _on_cuda(x):
         return ntt_ct.ct_fwd(T, x, meta)
     L = T['q'].shape[0]
-    _check("ct_fwd", x, (L, meta.N), T, meta)
+    _check("ct_fwd", x, (L, meta.phim), T)
     tabs = _mma_tables("ct_fwd", x, T, ('k_t2', 'k_t1', 'k_tw', 'k_consts'),
                        meta.N2, meta.N1)
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    return _launch("ct_fwd", _lib().fsi_ct_fwd, x, tabs, out,
-                   x.numel() // (L * meta.N), L, meta)
+    x = ntt_ct.pad_to_N(x, meta).contiguous()
+    out = _launch("ct_fwd", _lib().fsi_ct_fwd, x, tabs, torch.empty_like(x),
+                  x.numel() // (L * meta.N), L, meta)
+    return ntt_ct.drop_excluded(out, meta)
 
 
 def ct_fwd_digits(T: dict, digits, meta: CtMeta, digit_bits: int):
-    """Forward transform of prime-independent digits int32 [..., N] in
-    [0, 2^digit_bits) -> [..., L, N]."""
+    """Forward transform of prime-independent digits int32 [..., phim] in
+    [0, 2^digit_bits) -> [..., L, phim]."""
     if not _on_cuda(digits):
         return ntt_ct.ct_fwd_digits(T, digits, meta, digit_bits)
     if digit_bits > ntt_ct.MAX_DIGIT_BITS:
         raise NotImplementedError(
             f"digit radix above 2^{ntt_ct.MAX_DIGIT_BITS}")
     L = T['q'].shape[0]
-    _check("ct_fwd_digits", digits, (meta.N,), T, meta)
+    _check("ct_fwd_digits", digits, (meta.phim,), T)
     tabs = _mma_tables("ct_fwd_digits", digits, T,
                        ('k_t2', 'k_t1', 'k_tw', 'k_consts'), meta.N2, meta.N1)
-    digits = digits.contiguous()
+    digits = ntt_ct.pad_to_N(digits, meta).contiguous()
     out = torch.empty(digits.shape[:-1] + (L, meta.N), dtype=torch.int32,
                       device=digits.device)
-    return _launch("ct_fwd_digits", _lib().fsi_ct_fwd_digits, digits, tabs,
-                   out, digits.numel() // meta.N, L, meta)
+    out = _launch("ct_fwd_digits", _lib().fsi_ct_fwd_digits, digits, tabs,
+                  out, digits.numel() // meta.N, L, meta)
+    return ntt_ct.drop_excluded(out, meta)
 
 
 def ct_inv(T: dict, evals, meta: CtMeta, t2i_key: str = 't2i'):
-    """Inverse transform [..., L, N] -> coefficients; t2i_key='t2i_crt'
+    """Inverse transform [..., L, phim] -> coefficients; t2i_key='t2i_crt'
     folds in the CRT premultiplier."""
     if not _on_cuda(evals):
         return ntt_ct.ct_inv(T, evals, meta, t2i_key)
     L = T['q'].shape[0]
-    _check("ct_inv", evals, (L, meta.N), T, meta)
+    _check("ct_inv", evals, (L, meta.phim), T)
     tabs = _mma_tables("ct_inv", evals, T,
                        ('k_t1i', 'k_' + t2i_key, 'k_twi', 'k_consts'),
                        meta.N1, meta.N2)
-    evals = evals.contiguous()
-    out = torch.empty_like(evals)
-    return _launch("ct_inv", _lib().fsi_ct_inv, evals, tabs, out,
-                   evals.numel() // (L * meta.N), L, meta)
+    evals = ntt_ct.insert_excluded(evals, meta).contiguous()
+    out = _launch("ct_inv", _lib().fsi_ct_inv, evals, tabs,
+                  torch.empty_like(evals), evals.numel() // (L * meta.N), L,
+                  meta)
+    return ntt_ct.fold_mod_phim(out, T['q'], meta)

@@ -95,16 +95,54 @@ def test_t2i_crt_equals_jax_device_tables(mp):
 
 
 def test_unported_configs_raise():
-    """Only the mixed-radix Cooley-Tukey family is left: m = 2^a * q^b with
-    use_ct (forced at m = 160 as in tests/test_ct_scheme.py:151-159)
-    raises.  The dense family, the wide lane and decompSize >= 4 build
-    (tests/test_torch_dense*.py hold them against fhe_si_tpu)."""
+    """The refusals that stay now that the mixed-radix family is ported
+    (m = 160 with use_ct forced, as in tests/test_ct_scheme.py:151-159,
+    builds): a dense ring past phim = 4096 (context.py:302); a
+    Cooley-Tukey split the tensor-core kernel cannot take, which
+    ntt_ct_cuda.check_kernel_shape refuses with the shape before any
+    launch while the plain versions on the CPU take it (a side of 1, as
+    m = 22 with use_ct forced gives, and a layout past shared memory at
+    m = 2^16; test_torch_cuda.py shows the wrappers raise on the card);
+    and DoubleCrt on a Cooley-Tukey context.  The dense family, the wide
+    lane and decompSize >= 4 build (tests/test_torch_dense*.py hold them
+    against fhe_si_tpu)."""
+    from fhe_si_tpu_torch.doublecrt import DoubleCrt
+    from fhe_si_tpu_torch.ops import ntt_ct_cuda as nc
+    with pytest.raises(NotImplementedError, match="prime-power odd part"):
+        FheContext(m=3 * 5 * 2048, log_q=80, p=61441, generator=7)
     ctx = FheContext(m=160, log_q=80, p=641, generator=3)
     assert not ctx.use_ct
     assert DeviceContext(ctx, "cpu").ct_meta is None       # dense
     ctx.use_ct = True
-    with pytest.raises(NotImplementedError, match="mixed-radix"):
-        DeviceContext(ctx, "cpu")
+    assert tuple(DeviceContext(ctx, "cpu").ct_meta) == (10, 8, 64, 5)
+
+    # the kernel's shape rule: S = N2, R = N1 forward, S = N1, R = N2 inverse
+    for N1, N2 in ((2, 2), (128, 128), (128, 80), (81, 81), (5, 4), (3, 3),
+                   (9, 3), (11, 2)):
+        nc.check_kernel_shape("ct_fwd", (1, 1, N1 * N2), N2, N1)
+        nc.check_kernel_shape("ct_inv", (1, 1, N1 * N2), N1, N2)
+    ctx = FheContext(m=22, log_q=80, p=23, generator=7)
+    ctx.use_ct = True                      # N = 11: N1 x N2 = 11 x 1
+    dc = DeviceContext(ctx, "cpu")
+    assert tuple(dc.ct_meta) == (11, 1, 10, 11)
+    shape = (3, dc.L, dc.phim)
+    for S, R in ((1, 11), (11, 1)):
+        with pytest.raises(ValueError,
+                           match=r"\(3, 10, 10\) \(N1 x N2 = 11 x 1\).*>= 2"):
+            nc.check_kernel_shape("ct_fwd", shape, S, R)
+    with pytest.raises(ValueError, match=r"256 x 128.* 479232 bytes of shared"):
+        nc.check_kernel_shape("ct_inv", (2, 1, 32768), 256, 128)
+    with pytest.raises(ValueError, match=r"needs 159744 .* allows 100000"):
+        nc.check_kernel_shape("ct_fwd", (1, 1, 10240), 80, 128, limit=100000)
+    x = torch.as_tensor(np.random.default_rng(0).integers(
+        0, ctx.primes[:, None], size=shape).astype(np.int32))
+    nc.reset_launches()
+    ev = nc.ct_fwd(dc.full["ct"], x, dc.ct_meta)      # CPU: the plain version
+    assert torch.equal(nc.ct_inv(dc.full["ct"], ev, dc.ct_meta), x)
+    assert not any(nc.LAUNCHES.values())
+    with pytest.raises(NotImplementedError, match="Cooley-Tukey"):
+        DoubleCrt(dc)
+
     assert not DeviceContext(FheContext(m=22, log_q=80, p=23, generator=7),
                              "cpu").use_ct
     assert DeviceContext(FheContext(m=32, log_q=80, p=97, generator=3,

@@ -1,5 +1,6 @@
 """The port on a CUDA card: the three kernels against their plain PyTorch
-versions on both residue lanes, the dense transform family against the
+versions on both residue lanes, on power-of-two and mixed-radix rings
+(odd N1 among them), the splits the kernel refuses, the dense transform family against the
 same function on the CPU, the multiply + relinearize slice (on the
 Cooley-Tukey rings, decompSize 4 included, and on dense rings) and the
 two applications on the card against the same runs on the CPU (which
@@ -56,9 +57,9 @@ def test_kernels_match_plain(cuda, mp):
     for T in (dc.full, dc.ksw, dc.lin):
         q = T["primes_np"]
         x = torch.as_tensor(rng.integers(0, q[:, None], size=(
-            RAGGED, len(q), meta.N)).astype(np.int32), device=cuda)
+            RAGGED, len(q), meta.phim)).astype(np.int32), device=cuda)
         d = torch.as_tensor(rng.integers(0, 1 << 24, size=(
-            RAGGED, meta.N)).astype(np.int32), device=cuda)
+            RAGGED, meta.phim)).astype(np.int32), device=cuda)
         ev = ntt_ct_cuda.ct_fwd(T["ct"], x, meta)
         assert torch.equal(ev, ntt_ct.ct_fwd(T["ct"], x, meta))
         for key in ("t2i", "t2i_crt"):
@@ -85,9 +86,9 @@ def _all_transforms_match_plain(cuda, meta, T, seed):
     rng = np.random.default_rng(seed)
     q = T["q"].cpu().numpy().astype(np.int64)
     x = torch.as_tensor(rng.integers(0, q[:, None], size=(
-        RAGGED, len(q), meta.N)).astype(np.int32), device=cuda)
-    d = torch.as_tensor(rng.integers(0, 1 << 24, size=(RAGGED, meta.N)).astype(
-        np.int32), device=cuda)
+        RAGGED, len(q), meta.phim)).astype(np.int32), device=cuda)
+    d = torch.as_tensor(rng.integers(0, 1 << 24, size=(
+        RAGGED, meta.phim)).astype(np.int32), device=cuda)
     ntt_ct_cuda.reset_launches()
     ev = ntt_ct_cuda.ct_fwd(T, x, meta)
     assert torch.equal(ev, ntt_ct.ct_fwd(T, x, meta))
@@ -138,6 +139,73 @@ def test_tensor_core_kernel_refusals(cuda):
     for fn in (ntt_ct_cuda.ct_fwd, ntt_ct_cuda.ct_inv):
         with pytest.raises(ValueError, match="kernel_tables"):
             fn(bare, x, dc.ct_meta)
+
+
+# mixed-radix splits N1 x N2 (forward R = N1, inverse R = N2) on a narrow
+# and a wide prime with m | q - 1: odd R at 5 x 4, 3 x 3, 9 x 3, 81 x 81
+MIXED = [pytest.param((40, [1048361, 8387921]), id="m40-5x4"),
+         pytest.param((96, [1048129, 8387809]), id="m96-8x6"),
+         pytest.param((160, [1047841, 8385761]), id="m160-10x8"),
+         pytest.param((18, [1048573, 8388451]), id="m18-3x3"),
+         pytest.param((54, [1048573, 8388091]), id="m54-9x3"),
+         pytest.param((13122, [997273, 8306227]), id="m13122-81x81"),
+         pytest.param((20480, [962561, 8273921]), id="m20480-128x80")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mq", MIXED)
+def test_tensor_core_kernel_mixed_radix(cuda, mq):
+    """The mixed-radix rings: the kernel on the N-point transform, the
+    wrappers' pad, drop, insert and fold around it, against the plain
+    versions, phim wide in and out."""
+    meta, T = _kernel_tables(cuda, *mq)
+    assert meta.q_odd > 1
+    _all_transforms_match_plain(cuda, meta, T, mq[0])
+
+
+@pytest.mark.cuda
+def test_kernel_shape_rule_matches_card(cuda):
+    """check_kernel_shape's shared-memory formula is the kernel's (Geo):
+    equal to fsi_ct_mma_smem for every split the tests run, odd sides
+    included."""
+    lib = ntt_ct_cuda._lib()
+    for S, R in ((2, 2), (4, 5), (5, 4), (3, 3), (3, 9), (9, 3), (8, 10),
+                 (81, 81), (80, 128), (128, 80), (64, 64), (128, 128),
+                 (128, 256), (1, 11)):
+        assert ntt_ct_cuda.kernel_smem(S, R) == lib.fsi_ct_mma_smem(S, R)
+
+
+@pytest.mark.cuda
+def test_split_with_a_side_of_one_raises(cuda):
+    """m = 22 with use_ct forced splits N = 11 as 11 x 1: on the card the
+    wrappers raise with the shape and launch nothing; the CPU takes the
+    plain version (test_torch_context.py)."""
+    ctx = FheContext(m=22, log_q=80, p=23, generator=7)
+    ctx.use_ct = True
+    dc = DeviceContext(ctx, cuda)
+    T, meta = dc.full["ct"], dc.ct_meta
+    x = torch.zeros((2, dc.L, dc.phim), dtype=torch.int32, device=cuda)
+    ntt_ct_cuda.reset_launches()
+    for fn in (ntt_ct_cuda.ct_fwd, ntt_ct_cuda.ct_inv):
+        with pytest.raises(ValueError,
+                           match=r"\(2, 10, 10\) \(N1 x N2 = 11 x 1\)"):
+            fn(T, x, meta)
+    with pytest.raises(ValueError, match=r"\(2, 10\) \(N1 x N2 = 11 x 1\)"):
+        ntt_ct_cuda.ct_fwd_digits(dc.ksw["ct"], x[:, 0], meta, 24)
+    assert not any(ntt_ct_cuda.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+def test_mixed_radix_slice_on_card_equals_cpu(cuda):
+    """m = 160 with use_ct forced (tests/test_ct_scheme.py:151-159): the
+    mul+relin round on the card launches every kernel and equals the
+    CPU's."""
+    ctx = FheContext(m=160, log_q=80, p=641, generator=3)
+    ctx.use_ct = True
+    (cpu_parts, _, _), (parts, _, launched) = (_slice_round(ctx, "cpu"),
+                                               _slice_round(ctx, cuda))
+    assert all(n > 0 for n in launched.values())
+    assert torch.equal(cpu_parts, parts)
 
 
 def _slice_round(ctx, device):

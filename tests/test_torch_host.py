@@ -1,8 +1,9 @@
 """The port's own host layer against the JAX package's: the port keeps
 copies of fhe_si_tpu's JAX-free modules (sampling, hostmath, context,
-cli/gen_data, apps/matrix) and imports nothing of fhe_si_tpu.  Here the
-copies give the same draws, tables, bounds and results as the originals,
-and no module of the port imports fhe_si_tpu or jax."""
+cli/gen_data, apps/matrix, indexmap, the pure-Python codec of refserial)
+and imports nothing of fhe_si_tpu.  Here the copies give the same draws,
+tables, bounds, bytes and results as the originals, and no module of the
+port imports fhe_si_tpu, jax or the JAX package's native codec core."""
 import ast
 import os
 from pathlib import Path
@@ -10,12 +11,12 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from fhe_si_tpu import sampling as jsampling
+from fhe_si_tpu import refserial as jrefserial, sampling as jsampling
 from fhe_si_tpu.apps import matrix as jmatrix
 from fhe_si_tpu.cli import gen_data as jgen
 from fhe_si_tpu.context import FheContext as RefContext
 from fhe_si_tpu.hostmath import oracle as joracle
-from fhe_si_tpu_torch import FheContext, sampling
+from fhe_si_tpu_torch import FheContext, refserial, sampling
 from fhe_si_tpu_torch.apps import matrix, regression, statistics
 from fhe_si_tpu_torch.cli import gen_data
 from fhe_si_tpu_torch.hostmath import oracle
@@ -177,6 +178,49 @@ def _rows(M):
             for i in range(M.num_rows())]
 
 
+def _body_dump(path: Path) -> str:
+    """The module's AST without its docstring."""
+    tree = ast.parse(path.read_text())
+    if isinstance(tree.body[0], ast.Expr) and isinstance(
+            tree.body[0].value, ast.Constant):
+        tree.body = tree.body[1:]
+    return ast.dump(tree)
+
+
+def test_indexmap_copy_equals_original():
+    """fhe_si_tpu_torch/indexmap.py is fhe_si_tpu/indexmap.py below its
+    docstring."""
+    assert _body_dump(REPO / "fhe_si_tpu_torch" / "indexmap.py") == \
+        _body_dump(REPO / "fhe_si_tpu" / "indexmap.py")
+
+
+def test_refserial_bytes_equal_reference():
+    """Every writer of the port's pure-Python codec gives the JAX
+    package's bytes (whichever path its codec takes), and each package's
+    readers give back what the other wrote."""
+    rng = np.random.default_rng(5)
+    big = [int(v) for v in rng.integers(-2 ** 62, 2 ** 62, 40)] + [
+        0, 2 ** 300, -(2 ** 70), 7]
+    rows = {int(i): rng.integers(0, 2 ** 61, 12) for i in (0, 3, 5)}
+    chain = [(int(q), int(r)) for q, r in rng.integers(1, 2 ** 62, (4, 2))]
+    cases = [
+        ("write_context", "read_context", lambda m: m.RefContext(
+            22, 80, 2 ** 40 + 15, 7, 3, chain)),
+        ("write_ciphertext", "read_ciphertext", lambda m: [big, big[:5], []]),
+        ("write_key", "read_key", lambda m: [rows, {}]),
+        ("write_keyswitch", "read_keyswitch", lambda m: [[rows] * 3] * 2),
+        ("write_ciphertext_matrix", "read_ciphertext_matrix",
+         lambda m: [[[big[:3], big[3:9]]] * 2] * 3)]
+    for write, read, obj in cases:
+        buf = getattr(refserial, write)(obj(refserial))
+        assert buf == getattr(jrefserial, write)(obj(jrefserial)), write
+        for a, b in ((refserial, jrefserial), (jrefserial, refserial)):
+            got, want = getattr(a, read)(buf), getattr(b, read)(buf)
+            if read == "read_context":
+                got, want = vars(got), vars(want)
+            _same(got, want, read)
+
+
 def _port_files():
     pkg = REPO / "fhe_si_tpu_torch"
     return sorted(pkg.rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -187,17 +231,23 @@ def test_port_imports_nothing_of_jax_package():
     import of fhe_si_tpu or jax, at any depth of the file."""
     files = _port_files()
     assert len(files) > 20
+    mods = {os.path.relpath(f, REPO / "fhe_si_tpu_torch") for f in files}
+    assert {"doublecrt.py", "indexmap.py", "serialization.py",
+            "refserial.py", "refcompat.py"} <= mods
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                names = [node.module or ""]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+                # the JAX package's g++ codec core, by any path
+                names += [f"{node.module}.{a.name}" for a in node.names]
             else:
                 continue
             for name in names:
-                if name.split(".")[0] in ("fhe_si_tpu", "jax", "jaxlib"):
+                if name.split(".")[0] in ("fhe_si_tpu", "jax", "jaxlib") \
+                        or "native" in name.split("."):
                     bad.append(f"{os.path.relpath(path, REPO)}:{node.lineno} "
                                f"{name}")
     assert not bad, bad

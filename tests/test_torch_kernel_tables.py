@@ -2,12 +2,15 @@
 ct_mma_kernel), on the CPU: the byte planes and Shoup reciprocals that
 ops/ntt_ct_cuda.kernel_tables prepares recombine to the tables; the
 kernel's 32-bit reduction of the five byte diagonals equals % up to and
-past the stated bound (2^60); and a numpy emulation of the kernel's
-arithmetic on those tables (byte-plane products per diagonal, the
-reduction, the twiddle, the same index maps) equals the plain versions
-of ct_fwd, ct_fwd_digits and ct_inv on both lanes, up to m = 2^15.  The
-kernel itself runs only on a card (tests/test_torch_cuda.py,
-chip_smoke.py)."""
+past the stated bound (2^57, checked to 2^60); and a numpy emulation of
+the kernel's arithmetic on those tables (byte-plane products per
+diagonal, the reduction, the twiddle read as 16-byte pairs from the
+padded rows, the same index maps) equals the plain N-point transforms of
+ct_fwd, ct_fwd_digits and ct_inv on both lanes, up to m = 2^15, and on
+the mixed-radix splits, odd R among them, with the wrappers' pad, drop
+and fold around it.  The shape rule the wrappers check before a launch
+is in test_torch_context.py.  The kernel itself runs only on a card
+(tests/test_torch_cuda.py, chip_smoke.py)."""
 import numpy as np
 import pytest
 import torch
@@ -80,16 +83,11 @@ def test_reduction_equals_mod(q):
     assert got.tolist() == want
 
 
-@pytest.mark.parametrize("mp", CONFIGS)
-def test_kernel_tables_recombine(mp):
-    """Planes, twiddle pairs and constants give back the tables."""
-    m, p, bits = mp
-    ctx = FheContext(m=m, log_q=80, p=p, generator=3, prime_bits=bits)
-    meta, ct = ntt_ct.ct_tables(ctx.m, ctx.primes, ctx.roots)
-    ct = ntt_ct.with_crt_premultiplier(ct, ctx.fast_crt_tables['binv'])
-    kt = nc.kernel_tables(ct)
+def _check_recombine(ct, kt):
     q = ct['q'].astype(np.int64)
     for name in ('t1', 't2', 't1i', 't2i', 't2i_crt'):
+        if name not in ct:
+            continue
         planes = kt['k_' + name].astype(np.int64)
         M = ct[name].shape[-1]
         assert planes.shape[1:] == (3, -(-M // 16) * 16, -(-M // 32) * 32 + 16)
@@ -100,7 +98,9 @@ def test_kernel_tables_recombine(mp):
         tw = tw.astype(np.int64)
         pairs = kt[key].view(np.uint32).astype(np.int64)
         R = tw.shape[2]
-        assert pairs.shape == tw.shape[:2] + (2 * R + 16,)
+        # rows of whole 16-byte words, at least 16 words of zero padding
+        assert nc.tw_stride(R) % 4 == 0 and nc.tw_stride(R) >= 2 * R + 16
+        assert pairs.shape == tw.shape[:2] + (nc.tw_stride(R),)
         assert np.array_equal(pairs[..., 0:2 * R:2], tw)
         assert np.array_equal(pairs[..., 1:2 * R:2],
                               (tw << 32) // q[:, None, None])
@@ -111,6 +111,16 @@ def test_kernel_tables_recombine(mp):
     for d in range(1, 5):
         assert np.array_equal(c[:, 1 + d], pow(2, 8 * d) % q)
         assert np.array_equal(c[:, 5 + d], (c[:, 1 + d] << 32) // q)
+
+
+@pytest.mark.parametrize("mp", CONFIGS)
+def test_kernel_tables_recombine(mp):
+    """Planes, twiddle pairs and constants give back the tables."""
+    m, p, bits = mp
+    ctx = FheContext(m=m, log_q=80, p=p, generator=3, prime_bits=bits)
+    meta, ct = ntt_ct.ct_tables(ctx.m, ctx.primes, ctx.roots)
+    ct = ntt_ct.with_crt_premultiplier(ct, ctx.fast_crt_tables['binv'])
+    _check_recombine(ct, nc.kernel_tables(ct))
 
 
 def _planes_of(x):
@@ -135,6 +145,24 @@ def _stage(planes, B, consts, K):
     return reduce_diagonals(D.astype(np.uint64), consts).astype(np.int64)
 
 
+def _twiddle_loads(kt, key, l, S, R):
+    """The stage-1 epilogue's twiddle reads: for row m < S and even column
+    n < R, one 16-byte load of words m*tws + 2n .. + 3 past prime l's base
+    l*S*tws in the flat table, (w, w') of column n and of column n + 1
+    (column R, past an odd R, reads the row's padding).  Returns w, w'
+    [S, R rounded up to even]."""
+    flat = kt[key].view(np.uint32).reshape(-1).astype(np.uint64)
+    tws = nc.tw_stride(R)
+    assert kt[key].shape[1:] == (S, tws)
+    o = (l * S * tws + np.arange(S)[:, None] * tws
+         + 2 * np.arange(0, R, 2)[None, :])
+    assert not (o % 4).any()                   # every load 16-byte aligned
+    words = flat[o[..., None] + np.arange(4)]  # [S, pairs of columns, 4]
+    w = words[..., 0::2].reshape(S, -1)
+    wp = words[..., 1::2].reshape(S, -1)
+    return w, wp
+
+
 def emulate(kt, a1, a2, tw, rows, S, R):
     """ct_mma_kernel on rows [n_rows, L, S*R] (each row [S][R]) ->
     [n_rows, L, R*S] ([R][S] row-major)."""
@@ -143,42 +171,59 @@ def emulate(kt, a1, a2, tw, rows, S, R):
     for l in range(L):
         consts = kt['k_consts'][l]
         q = np.uint64(consts.view(np.uint32)[0])
-        pairs = kt[tw][l].view(np.uint32).astype(np.uint64)
-        w, wp = pairs[:, 0:2 * R:2], pairs[:, 1:2 * R:2]
+        w, wp = _twiddle_loads(kt, tw, l, S, R)
         for r in range(n_rows):
-            y = _stage(kt[a1][l], rows[r, l].reshape(S, R), consts, S)
+            # fetch() zeroes the input columns past R (to the 8-column tile)
+            x = np.zeros((S, w.shape[1]), np.int64)
+            x[:, :R] = rows[r, l].reshape(S, R)
+            y = _stage(kt[a1][l], x, consts, S)
             y = _csub(_shoup(y, w, wp, q), q).astype(np.int64)
-            out[r, l] = _stage(kt[a2][l], y.T, consts, R).reshape(-1)
+            # column R of an odd R lands in B2's K padding as zero
+            assert not y[:, R:].any()
+            out[r, l] = _stage(kt[a2][l], y[:, :R].T, consts, R).reshape(-1)
     return out
 
 
+def _i32(a):
+    return torch.as_tensor(np.asarray(a), dtype=torch.int32)
+
+
 def _emulate_fwd(kt, T, meta, res):
-    got = emulate(kt, 'k_t2', 'k_t1', 'k_tw', res, meta.N2, meta.N1)
-    want = ntt_ct.ct_fwd(T, torch.as_tensor(res, dtype=torch.int32), meta)
-    assert np.array_equal(got, want.numpy())
+    """res [rows, L, phim]: the kernel on the padded rows equals the plain
+    N-point transform, and with the wrapper's drop, the plain ct_fwd."""
+    x = ntt_ct.pad_to_N(_i32(res), meta)
+    got = emulate(kt, 'k_t2', 'k_t1', 'k_tw', x.numpy(), meta.N2, meta.N1)
+    assert np.array_equal(got, ntt_ct.ct_fwd_n(T, x, meta).numpy())
+    assert torch.equal(ntt_ct.drop_excluded(_i32(got), meta),
+                       ntt_ct.ct_fwd(T, _i32(res), meta))
 
 
 def _emulate_fwd_digits(kt, T, meta, digits):
     L = len(kt['q'])
+    d = ntt_ct.pad_to_N(_i32(digits), meta)
     got = emulate(kt, 'k_t2', 'k_t1', 'k_tw',
-                  np.repeat(digits[:, None], L, axis=1), meta.N2, meta.N1)
-    want = ntt_ct.ct_fwd_digits(T, torch.as_tensor(digits, dtype=torch.int32),
-                                meta, 24)
-    assert np.array_equal(got, want.numpy())
+                  np.repeat(d.numpy()[:, None], L, axis=1), meta.N2, meta.N1)
+    assert np.array_equal(got, ntt_ct.ct_fwd_digits_n(T, d, meta, 24).numpy())
+    assert torch.equal(ntt_ct.drop_excluded(_i32(got), meta),
+                       ntt_ct.ct_fwd_digits(T, _i32(digits), meta, 24))
 
 
 def _emulate_inv(kt, T, meta, ev, key):
-    got = emulate(kt, 'k_t1i', 'k_' + key, 'k_twi', ev, meta.N1, meta.N2)
-    want = ntt_ct.ct_inv(T, torch.as_tensor(ev, dtype=torch.int32), meta, key)
-    assert np.array_equal(got, want.numpy())
+    """ev [rows, L, phim]: with the wrapper's insert and fold."""
+    e = ntt_ct.insert_excluded(_i32(ev), meta)
+    got = emulate(kt, 'k_t1i', 'k_' + key, 'k_twi', e.numpy(), meta.N1,
+                  meta.N2)
+    assert np.array_equal(got, ntt_ct.ct_inv_n(T, e, meta, key).numpy())
+    assert torch.equal(ntt_ct.fold_mod_phim(_i32(got), T['q'], meta),
+                       ntt_ct.ct_inv(T, _i32(ev), meta, key))
 
 
-def _operands(rng, q, n_rows, N):
+def _operands(rng, q, n_rows, phim):
     """Residue rows (row 0 all at q - 1) and 24-bit digit rows (row 0
     with every byte at 255)."""
-    res = rng.integers(0, q[:, None], size=(n_rows, len(q), N))
+    res = rng.integers(0, q[:, None], size=(n_rows, len(q), phim))
     res[0] = q[:, None] - 1
-    digits = rng.integers(0, 1 << 24, size=(n_rows, N))
+    digits = rng.integers(0, 1 << 24, size=(n_rows, phim))
     digits[0] = (1 << 24) - 1
     return res, digits
 
@@ -191,27 +236,62 @@ def test_emulated_kernel_equals_plain(mp):
     meta, rng = dc.ct_meta, np.random.default_rng(m)
     for T in (dc.full['ct'], dc.ksw['ct']):
         kt = {k: v.numpy() for k, v in T.items()}
-        res, digits = _operands(rng, kt['q'].astype(np.int64), 3, meta.N)
+        res, digits = _operands(rng, kt['q'].astype(np.int64), 3, meta.phim)
         _emulate_fwd(kt, T, meta, res)
         _emulate_fwd_digits(kt, T, meta, digits)
         for key in ('t2i', 't2i_crt'):
             _emulate_inv(kt, T, meta, res, key)
 
 
-@pytest.mark.parametrize("transform", ["ct_fwd", "ct_fwd_digits", "ct_inv"])
-def test_emulated_kernel_equals_plain_m32768(transform):
-    """m = 2^15 (N1 = N2 = 128, K = 128 on both stages), the largest ring
-    the kernel takes, on one narrow and one wide prime."""
-    m, qs = 1 << 15, [786433, 8257537]    # 3 * 2^18 + 1, 63 * 2^17 + 1
+def _prime_tables(m, qs):
     meta, ct = ntt_ct.ct_tables(
         m, qs, [numbth.find_element_of_order(q, m) for q in qs])
     kt = dict(ct, **nc.kernel_tables(ct))
-    T = {k: torch.as_tensor(v) for k, v in kt.items()}
+    return meta, ct, kt, {k: torch.as_tensor(v) for k, v in kt.items()}
+
+
+@pytest.mark.parametrize("transform", ["ct_fwd", "ct_fwd_digits", "ct_inv"])
+def test_emulated_kernel_equals_plain_m32768(transform):
+    """m = 2^15 (N1 = N2 = 128, K = 128 on both stages), the largest
+    power of two the kernel takes, on one narrow and one wide prime."""
+    qs = [786433, 8257537]    # 3 * 2^18 + 1, 63 * 2^17 + 1
+    meta, ct, kt, T = _prime_tables(1 << 15, qs)
     res, digits = _operands(np.random.default_rng(15), ct['q'].astype(np.int64),
-                            2, meta.N)
+                            2, meta.phim)
     if transform == "ct_fwd":
         _emulate_fwd(kt, T, meta, res)
     elif transform == "ct_fwd_digits":
         _emulate_fwd_digits(kt, T, meta, digits)
     else:
         _emulate_inv(kt, T, meta, res, 't2i')
+
+
+# mixed-radix splits N1 x N2 (forward R = N1, inverse R = N2), on a narrow
+# prime and a wide one (below 2^23) with m | q - 1
+MIXED = [pytest.param((40, [1048361, 8387921]), id="m40-5x4"),
+         pytest.param((18, [1048573, 8388451]), id="m18-3x3"),
+         pytest.param((54, [1048573, 8388091]), id="m54-9x3"),
+         pytest.param((13122, [997273]), id="m13122-81x81"),
+         pytest.param((20480, [962561, 8273921]), id="m20480-128x80")]
+
+
+@pytest.mark.parametrize("mq", MIXED)
+def test_emulated_kernel_equals_plain_mixed_radix(mq):
+    """The mixed-radix splits, odd R (5, 3, 9, 81) among them: the
+    twiddle rows at the rounded stride, the kernel's arithmetic, and the
+    wrappers' pad, drop, insert and fold around it, against the plain
+    transforms; both inverse tables."""
+    m, qs = mq
+    meta, ct, _, _ = _prime_tables(m, qs)
+    binv = np.random.default_rng(m).integers(1, min(qs), size=len(qs))
+    ct = ntt_ct.with_crt_premultiplier(ct, binv)
+    kt = dict(ct, **nc.kernel_tables(ct))
+    _check_recombine(ct, kt)
+    T = {k: torch.as_tensor(v) for k, v in kt.items()}
+    assert meta.q_odd > 1 and meta.phim < meta.N
+    res, digits = _operands(np.random.default_rng(m),
+                            ct['q'].astype(np.int64), 2, meta.phim)
+    _emulate_fwd(kt, T, meta, res)
+    _emulate_fwd_digits(kt, T, meta, digits)
+    for key in ('t2i', 't2i_crt'):
+        _emulate_inv(kt, T, meta, res, key)

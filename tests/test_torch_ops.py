@@ -202,3 +202,47 @@ def test_crt_parity(dev, op, basis):
             n = T["fast_crt"]["B"].shape[-1]
             _eq(jcrt.crt_finish(*want, JT["fast_crt"], n),
                 tcrt.crt_finish(*got, T["fast_crt"], n))
+
+
+def _centered_values(rng, P, n):
+    vals = []
+    for _ in range(n):
+        v = int(rng.integers(0, 2 ** 63)) * int(rng.integers(0, 2 ** 63)) % P
+        vals.append(v - P if v > P // 2 else v)
+    return vals
+
+
+@pytest.mark.parametrize("case", ["roundtrip", "fast_equals_garner"])
+def test_garner_parity(dev, case):
+    """The Garner reconstruction (crt.residues_to_limbs) against the JAX
+    package's on the same residues, as tests/test_ops.py:117-158 use it:
+    the limbs -> residues -> limbs round trip over the whole chain
+    product, and equality with the single-pass reconstruction within its
+    budget |E| < P/2 of the CRT product."""
+    from fhe_si_tpu_torch.context import int_to_limbs, limbs_to_int
+    ctx = dev.ctx
+    rng = np.random.default_rng(4 if case == "roundtrip" else 7)
+    P = ctx.prime_product if case == "roundtrip" else ctx.crt_product
+    vals = _centered_values(rng, P, ctx.phim)
+    vals[0], vals[1], vals[2] = 0, P // 2 - 1, -(P // 2 - 1)
+    T = dev.full
+    G, JG = dev.garner, _as_jax(dev.garner)
+    if case == "roundtrip":
+        poly = np.stack([int_to_limbs(v, ctx.n_limbs) for v in vals])[None]
+        res = tcrt.limbs_to_residues(torch.from_numpy(poly), T["chunk_tbl"],
+                                     dev._wrap_const(T["primes_np"],
+                                                     ctx.n_limbs),
+                                     T["q"], T["qinv_f"])
+    else:
+        res = torch.as_tensor(np.array([[v % int(p) for v in vals]
+                                        for p in ctx.primes])[None],
+                              dtype=torch.int32)
+    got = tcrt.residues_to_limbs(res, G, T["q"], T["qinv_f"], ctx.n_limbs)
+    _eq(jcrt.residues_to_limbs(jnp.asarray(res.numpy()), JG,
+                               jnp.asarray(T["q"].numpy()),
+                               jnp.asarray(T["qinv_f"].numpy()), ctx.n_limbs),
+        got)
+    assert [limbs_to_int(got[0, j].numpy()) for j in range(ctx.phim)] == vals
+    if case == "fast_equals_garner":
+        assert torch.equal(got, tcrt.residues_to_limbs_fast(
+            res, T["fast_crt"], T["q"], T["qinv_f"], ctx.n_limbs))

@@ -196,10 +196,10 @@ def test_kernel_wrappers_refuse_what_the_kernels_cannot_take():
     meta = td.ct_meta
     T = dict(td.full["ct"])
     x = torch.zeros((1, T["q"].shape[0], meta.N), dtype=torch.int32)
-    ntt_ct_cuda._check("ct_fwd", x, tuple(x.shape[1:]), T, meta)
+    ntt_ct_cuda._check("ct_fwd", x, tuple(x.shape[1:]), T)
     T["q"] = T["q"].clone()
     T["q"][0] = (1 << 23) + 9
     with pytest.raises(ValueError, match="below 2\\^23"):
-        ntt_ct_cuda._check("ct_fwd", x, tuple(x.shape[1:]), T, meta)
+        ntt_ct_cuda._check("ct_fwd", x, tuple(x.shape[1:]), T)
     with pytest.raises(NotImplementedError, match="2\\^24"):
         tct.ct_fwd_digits(td.full["ct"], x[:, 0], meta, 25)

@@ -79,7 +79,31 @@ prints no result line):
      export/import of context, keys and ciphertexts from the m = 8192
      DeviceContext, decrypted right after import; the reference byte
      format (refcompat) round trip of keys and ciphertexts at m = 22 on a
-     synthetic reference chain.
+     synthetic reference chain;
+ 10. the sharded pipelines, the profiler and the native codec core:
+     a. an NCCL world of one rank in this process: ShardedPipelines
+        (dp = 1, limb = 1) and its block reduce on the main path's 64
+        pairs; the batch equal to DeviceContext.mul_relin bit for bit,
+        every decrypt to oracle.plaintext_mul and the block reduce to
+        their sum; all three kernels launched (on the shard's rows) and no
+        plain transform; the sharded and the unsharded step timed in turns
+        with CUDA events, and the unsharded step's kernels by name from a
+        torch.profiler trace;
+     b. worlds of fhe_si_tpu_torch.parallel.run_distributed at m = 8192,
+        batch 64, all started at once on the one card: one rank (NCCL),
+        two ranks over gloo as (dp = 1, limb = 2) and as (dp = 2,
+        limb = 1); each block reduce and batched output equal to the single
+        rank's, each batched output to the unsharded step; per-rank times
+        (ranks share the card: not a scaling figure);
+     c. a world of two ranks (gloo) as coeff = 2, batch 8, in the same
+        start: the output equal to the unsharded step, no kernel launched
+        (the coefficient-sharded transforms are plain PyTorch);
+     d. Test_Regression --trace at phase 6's config: MATCH, and the trace
+        names ct_mma_kernel among its kernels; the regression phase by
+        kernel name;
+     e. the native codec core (built with g++) against the pure-Python
+        codec on phase 9's reference-format keys and ciphertexts and an
+        m = 8192 ciphertext: the same bytes, both timed.
 Every phase prints its wall time.  The line before the last is the card's name and power limit; the last
 is {"ok": true, "device": {...}}.
 """
@@ -93,6 +117,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import NamedTuple
 
 import numpy as np
 
@@ -374,13 +399,24 @@ def check_launches(label, launches, expect, n_dense, n_plain):
                              "Cooley-Tukey transforms ran")
 
 
+class LeanRun(NamedTuple):
+    dc: object
+    ksw: object
+    pairs: list
+    out: list
+    launches: dict
+    sk: object
+    msgs: list
+
+
 def lean_path(dev, cfg, batch, label, expect=tuple(KERNELS), dc=None):
     """keygen, relinearization key, batched encrypt of `batch` pairs,
     batched multiply + relinearize and batched decrypt at FheContext(cfg)
     (or on the DeviceContext dc), with the kernel counts set to 0 just
     before and read just after.  Every decrypt must equal
     oracle.plaintext_mul, and the kernels in `expect` must have launched
-    and no other.  Returns (dc, ksw, pairs, out, launches)."""
+    and no other.  Returns a LeanRun (msgs: the 2 * batch messages, pair i
+    of msgs[2i], msgs[2i + 1])."""
     import torch
     from fhe_si_tpu_torch import DeviceContext, FheContext, sampling, scheme
     from fhe_si_tpu_torch.hostmath import oracle
@@ -418,7 +454,7 @@ def lean_path(dev, cfg, batch, label, expect=tuple(KERNELS), dc=None):
           f"Lk={len(ctx.ksw_rows)}, {ctx.ndigits} digits of "
           f"{ctx.digit_bits} bits, {'wide' if ctx.wide else 'narrow'} lane, "
           f"{'Cooley-Tukey' if ctx.use_ct else 'dense'} family)")
-    return dc, ksw, pairs, out, launches
+    return LeanRun(dc, ksw, pairs, out, launches, sk, msgs)
 
 
 def step_cases(dc, batch):
@@ -677,7 +713,7 @@ def phase_dense(dev, card):
 
     # b. mul+relin at bench_big, uncut
     dc, ksw, pairs, out, launches["dense_mul_relin"] = lean_path(
-        dev, BIG, BATCH, "dense path", expect=(), dc=dc)
+        dev, BIG, BATCH, "dense path", expect=(), dc=dc)[:5]
     a, b, *_ = time_step(card, dc, pairs, ksw, out, "dense path")
     time_stages(card, dc, a, b, ksw, "dense path")
     with dense_calls() as calls:
@@ -715,7 +751,7 @@ def phase_dense(dev, card):
     # residues through ct_fwd, no ct_fwd_digits
     dc, *_, launches["decomp4"] = lean_path(
         dev, DECOMP4, BATCH_DECOMP4, "decompSize 4",
-        expect=("ct_fwd", "ct_inv"))
+        expect=("ct_fwd", "ct_inv"))[:5]
     if dc.digit_bits != 32:
         raise AssertionError(f"decompSize 4: {dc.digit_bits}-bit digits")
     del dc
@@ -726,7 +762,7 @@ def phase_dense(dev, card):
     cfg = dict(m=LARGE_P["m"], log_q=LARGE_P["log_q"], p=p,
                generator=LARGE_P["generator"])
     dc, *_, launches["large_p"] = lean_path(dev, cfg, BATCH_LARGE_P,
-                                            f"large p={p}", expect=())
+                                            f"large p={p}", expect=())[:5]
     if dc.ctx.slot_degree != 1 or p < 1 << 20:
         raise AssertionError(f"p={p}: not a large p with slots of degree 1")
     del dc
@@ -800,7 +836,7 @@ def phase_mixed(dev, card):
     import torch
     t0 = time.perf_counter()
     dc, ksw, pairs, out, launches = lean_path(dev, MIXED, BATCH_MIXED,
-                                              "m=20480 path")
+                                              "m=20480 path")[:5]
     if tuple(dc.ct_meta) != (128, 80, 8192, 5) or dc.wide or dc.L != 12:
         raise AssertionError(f"m=20480: {dc.ct_meta}, L={dc.L}, "
                              f"wide={dc.wide}")
@@ -850,7 +886,9 @@ def time_mixed_helpers(card, dc, batch):
 def phase_objects(dev, big_ctx, main_dc):
     """Phase 9: DoubleCrt at p = 4007, m = 4006; an npz round trip from
     the m = 8192 DeviceContext; the reference byte format at m = 22.
-    Returns the kernel launches of the npz part."""
+    Returns the kernel launches of the npz part, and the keys, reference
+    context and ciphertexts of the reference-format part with an m = 8192
+    ciphertext (phase 10e's inputs)."""
     import torch
     from fhe_si_tpu_torch import (DeviceContext, FheContext, refcompat,
                                   refserial, sampling, scheme,
@@ -951,6 +989,8 @@ def phase_objects(dev, big_ctx, main_dc):
           f"{launches}")
     t0 = part("b (npz)")
 
+    ct8192 = cts[0]
+
     # c. the reference byte format at m = 22 on a synthetic reference chain
     ctx = FheContext(**REF_CANONICAL)
     dc = DeviceContext(ctx, dev)
@@ -990,6 +1030,295 @@ def phase_objects(dev, big_ctx, main_dc):
           "keyswitch keys re-based through an 8-prime reference chain and "
           "back equal, the ciphertext equal, the product decrypts right")
     part("c (refcompat)")
+    return launches, dict(ref=ref, sk=sk, pk=pk, ksw=ksw, cts=cts,
+                          ct8192=ct8192)
+
+
+def free_ports(n: int) -> list[int]:
+    """n distinct free TCP ports of localhost (all held while picking)."""
+    import socket
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def trace_kernels(log_dir: str) -> list[tuple[str, str, float, float]]:
+    """The card's kernels in the one torch.profiler trace of log_dir
+    (profiling.device_trace): (kernel name, the innermost aten op that
+    launched it or the kernel name when none did, start us, duration
+    us).  A kernel is tied to its op through the trace's External id,
+    on the kernel itself or on its launch (by correlation)."""
+    files = [f for f in os.listdir(log_dir) if f.endswith(".pt.trace.json")]
+    if len(files) != 1:
+        raise AssertionError(f"{log_dir}: expected one trace, found {files}")
+    with open(os.path.join(log_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    op_of, ext_of = {}, {}
+    for e in events:
+        args = e.get("args") or {}
+        if e.get("cat") == "cpu_op" and "External id" in args:
+            op_of[args["External id"]] = e["name"]
+        elif e.get("cat") == "cuda_runtime" and "correlation" in args:
+            ext_of[args["correlation"]] = args.get("External id")
+    out = []
+    for e in events:
+        if e.get("cat") != "kernel" or "dur" not in e:
+            continue
+        args = e.get("args") or {}
+        ext = args.get("External id") or ext_of.get(args.get("correlation"))
+        out.append((e["name"], op_of.get(ext, e["name"]), float(e["ts"]),
+                    float(e["dur"])))
+    return out
+
+
+def print_breakdown(card, label, kernels, steps=1, top=14):
+    """Device time by launching op (the kernel name where no aten op
+    launched it) over the traced window, per step when it held `steps`
+    steps, and the device's busy share of the window."""
+    if not kernels:
+        raise AssertionError(f"{label}: the trace holds no CUDA kernel")
+    by: dict = {}
+    for _, op, _, dur in kernels:
+        t, n = by.get(op, (0.0, 0))
+        by[op] = (t + dur, n + 1)
+    busy, end = 0.0, float("-inf")
+    for *_, ts, dur in sorted(kernels, key=lambda k: k[2]):
+        busy += max(0.0, ts + dur - max(ts, end))
+        end = max(end, ts + dur)
+    window = end - min(k[2] for k in kernels)
+    per = " per step" if steps > 1 else ""
+    print(f"[{card}] {label}: {len(kernels) / steps:.0f} kernels{per}, "
+          f"device busy {busy / steps / 1e3:.3f} ms{per} of a "
+          f"{window / steps / 1e3:.3f} ms window ({100 * busy / window:.1f}%)")
+    total = sum(t for t, _ in by.values())
+    for name, (t, n) in sorted(by.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"[{card}]   {t / steps / 1e3:8.3f} ms {100 * t / total:5.1f}% "
+              f"x{n / steps:.0f}  {name[:100]}")
+    return by
+
+
+def run_worlds(dev, specs, timeout=400) -> dict:
+    """Every rank of every world of `specs` (label, ranks, backend, extra
+    arguments of fhe_si_tpu_torch.parallel.run_distributed) started at
+    once on the card; each rank's line echoed; returns rank 0's JSON per
+    label.  Any rank that fails fails the phase; no rank outlives it."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            for (label, world, backend, extra), port in zip(
+                    specs, free_ports(len(specs))):
+                for rank in range(world):
+                    cmd = [sys.executable, "-m",
+                           "fhe_si_tpu_torch.parallel.run_distributed",
+                           str(rank), str(world), "--port", str(port),
+                           "--m", str(MAIN["m"]), "--device", str(dev),
+                           "--backend", backend, *extra]
+                    if rank == 0:
+                        cmd += ["--out", os.path.join(tmp, f"{label}.json")]
+                    procs.append((label, rank, subprocess.Popen(
+                        cmd, cwd=root, stdout=subprocess.PIPE,
+                        stderr=subprocess.STDOUT, text=True)))
+            deadline = time.monotonic() + timeout
+            for label, rank, p in procs:
+                log, _ = p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))
+                if p.returncode:
+                    raise AssertionError(f"world {label} rank {rank} exited "
+                                         f"{p.returncode}:\n{log[-4000:]}")
+                print(f"world {label}: " + next(
+                    ln for ln in log.splitlines() if ln.startswith("rank ")))
+        finally:
+            for *_, p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        out = {}
+        for label, *_ in specs:
+            with open(os.path.join(tmp, f"{label}.json")) as f:
+                out[label] = json.load(f)
+    return out
+
+
+def phase_sharded(dev, card, main_run, codec):
+    """Phase 10: the sharded pipelines, the profiler and the native codec
+    core.  Returns the kernel launches of the sharded path (10a)."""
+    import torch
+    import torch.distributed as dist
+    from fhe_si_tpu_torch import refcompat, refserial, scheme
+    from fhe_si_tpu_torch.cli import test_regression
+    from fhe_si_tpu_torch.cli.gen_data import generate
+    from fhe_si_tpu_torch.hostmath import oracle
+    from fhe_si_tpu_torch.ops import ntt_ct_cuda
+    from fhe_si_tpu_torch.parallel import (ShardedPipelines, make_mesh,
+                                           shard_matrix)
+    from fhe_si_tpu_torch.profiling import annotate, device_trace
+    t0 = time.perf_counter()
+
+    def part(name):
+        print(f"phase 10{name} wall time: {time.perf_counter() - t0:.2f} s")
+        return time.perf_counter()
+
+    # a. NCCL, world size 1: ShardedPipelines (dp = 1, limb = 1) at the
+    # main path's width, against the unsharded step
+    dc, ksw, pairs, out, _, sk, msgs = main_run
+    ctx = dc.ctx
+    a = torch.stack([x.parts for x, _ in pairs])
+    b = torch.stack([y.parts for _, y in pairs])
+    ref = torch.stack([c.parts for c in out])
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", world_size=1, rank=0,
+                            init_method=f"tcp://localhost:{free_ports(1)[0]}")
+    try:
+        mesh = make_mesh(1, 1, dev)
+        sp = ShardedPipelines(ctx, mesh)
+        mat = shard_matrix(mesh, ksw.matrix_evals)
+        ntt_ct_cuda.reset_launches()
+        with dense_calls() as dense, plain_ct_calls() as plain:
+            got = sp.batched_mul_relin(a, b, mat)
+            red = sp.mul_relin_block_reduce(a, b, mat)
+            torch.cuda.synchronize()
+        launches = dict(ntt_ct_cuda.LAUNCHES)
+        check_launches("sharded path (NCCL, world 1)", launches,
+                       tuple(KERNELS), len(dense), len(plain))
+        if not torch.equal(got, ref):
+            raise AssertionError("sharded mul+relin != DeviceContext.mul_relin")
+        dec = sk.decrypt_batch([scheme.Ciphertext(dc, parts=p) for p in got])
+        want_sum = np.zeros(ctx.phim, dtype=np.int64)
+        for i in range(len(pairs)):
+            want = oracle.plaintext_mul(ctx, msgs[2 * i], msgs[2 * i + 1])
+            if not np.array_equal(dec[i].message, want):
+                raise AssertionError(f"sharded pair {i}: decrypt != product")
+            want_sum = (want_sum + want) % ctx.p
+        if not np.array_equal(sk.decrypt(scheme.Ciphertext(
+                dc, parts=red)).message, want_sum):
+            raise AssertionError("sharded block reduce: decrypt != the sum "
+                                 "of the products")
+        print(f"sharded path (NCCL, world 1) at m={ctx.m} B={len(pairs)}: "
+              f"== DeviceContext.mul_relin bit for bit, {len(pairs)}/"
+              f"{len(pairs)} decrypts == oracle.plaintext_mul, the block "
+              "reduce decrypts to their sum")
+        steps = {"unsharded": lambda: dc.mul_relin(a, b, ksw.matrix_evals),
+                 "sharded": lambda: sp.batched_mul_relin(a, b, mat)}
+        for fn in steps.values():
+            fn()
+            fn()
+        ms = {k: [] for k in steps}
+        for k in ("unsharded", "sharded", "sharded", "unsharded"):
+            ms[k].append(cuda_ms(steps[k], 10))
+        print(f"[{card}] mul+relin B={len(pairs)} m={ctx.m}, in turns: "
+              f"unsharded {ms['unsharded'][0]:.3f} / {ms['unsharded'][1]:.3f}"
+              f" ms/step, sharded (NCCL world 1, limb 1) {ms['sharded'][0]:.3f}"
+              f" / {ms['sharded'][1]:.3f} ms/step")
+    finally:
+        dist.destroy_process_group()
+    # the unsharded step by kernel name, from a torch.profiler trace
+    with tempfile.TemporaryDirectory() as tdir:
+        with device_trace(tdir):
+            for _ in range(3):
+                with annotate("mul_relin"):
+                    steps["unsharded"]()
+            torch.cuda.synchronize()
+        print_breakdown(card, f"mul+relin B={len(pairs)} m={ctx.m} step "
+                        "(torch.profiler, 3 steps)", trace_kernels(tdir),
+                        steps=3)
+    t0 = part("a (NCCL world 1)")
+
+    # b, c. worlds of run_distributed on the one card, all at once: a
+    # single rank (NCCL), two ranks over gloo as limb = 2 and as dp = 2,
+    # and two ranks as coeff = 2 (the coefficient path launches no kernel)
+    worlds = run_worlds(dev, [
+        ("single", 1, "nccl", ["--batch", str(BATCH)]),
+        ("limb2", 2, "gloo", ["--batch", str(BATCH), "--n-limb", "2"]),
+        ("dp2", 2, "gloo", ["--batch", str(BATCH)]),
+        ("coeff2", 2, "gloo", ["--batch", "8", "--n-coeff", "2"])])
+    one = worlds["single"]
+    for label in ("limb2", "dp2"):
+        w = worlds[label]
+        if w["sha256"] != one["sha256"] or w["reduce_result"] != \
+                one["reduce_result"]:
+            raise AssertionError(f"world {label}: block reduce != single rank")
+        if w["batched_sha256"] != one["batched_sha256"]:
+            raise AssertionError(f"world {label}: batched output != single")
+        if not all(w["launches"].values()):
+            raise AssertionError(f"world {label}: launches {w['launches']}")
+    for label, w in worlds.items():
+        if w["batched_sha256"] != w["unsharded_sha256"]:
+            raise AssertionError(f"world {label}: batched output != "
+                                 "DeviceContext.mul_relin")
+        print(f"[{card}] world {label} {w['mesh']} ({w['backend']}, B="
+              f"{w['batch']}): step {w['step_s'] * 1e3:.3f} ms, first call "
+              f"{w['first_call_s']:.3f} s, launches {w['launches']} (ranks "
+              "share one card and run at once: not a scaling figure)")
+    if any(worlds["coeff2"]["launches"].values()):
+        raise AssertionError("the coeff path launched a kernel")
+    print("worlds: limb = 2 and dp = 2 over gloo == the single rank (NCCL), "
+          "block reduce and batched output; coeff = 2 == the unsharded "
+          "step, no kernel launched there (plain transforms, as the JAX "
+          "package's XLA einsums)")
+    t0 = part("b-c (worlds)")
+
+    # d. Test_Regression --trace at phase 6's config
+    with tempfile.TemporaryDirectory() as tmp:
+        data, tdir = os.path.join(tmp, "data.txt"), os.path.join(tmp, "trace")
+        generate(data, APP["dim"], APP["n"], seed=SEED)
+        rc, text, err, _ = run_cli(
+            dev, test_regression,
+            ["chip_smoke", data, str(APP["p"]), str(APP["generator"]),
+             str(SEED), f"--device={dev}", f"--m={APP['m']}", "--trace",
+             tdir], "regression --trace", tuple(KERNELS))
+        if rc != 0 or text.rstrip().splitlines()[-1] != "MATCH":
+            raise AssertionError(f"regression --trace: no MATCH (rc {rc})\n"
+                                 f"{err}")
+        kernels = trace_kernels(tdir)
+    if not any("ct_mma_kernel" in name for name, *_ in kernels):
+        raise AssertionError("the --trace trace names no ct_mma_kernel")
+    print_breakdown(card, f"regression phase m={APP['m']} (--trace)", kernels)
+    t0 = part("d (--trace)")
+
+    # e. the native codec core against the pure-Python path
+    if not refserial.native_available():
+        raise AssertionError("the native codec core did not build")
+    parts8192 = codec["ct8192"].to_python_parts()
+    ref = codec["ref"]
+    cases = {
+        "secret key": lambda: refcompat.export_secret_key(codec["sk"], ref),
+        "public key": lambda: refcompat.export_public_key(codec["pk"], ref),
+        "keyswitch": lambda: refcompat.export_keyswitch(codec["ksw"], ref),
+        "ciphertexts m=22": lambda: [refcompat.export_ciphertext(c)
+                                     for c in codec["cts"]],
+        f"write ciphertext m={MAIN['m']}": lambda: refserial.write_ciphertext(
+            parts8192),
+    }
+    buf8192 = refserial.write_ciphertext(parts8192)
+    cases[f"read ciphertext m={MAIN['m']}"] = lambda: \
+        refserial.read_ciphertext(buf8192)
+    get_lib = refserial.native.get_lib
+    for name, fn in cases.items():
+        t1 = time.perf_counter()
+        nat = fn()
+        t_nat = time.perf_counter() - t1
+        refserial.native.get_lib = lambda: None
+        try:
+            t1 = time.perf_counter()
+            py = fn()
+            t_py = time.perf_counter() - t1
+        finally:
+            refserial.native.get_lib = get_lib
+        if nat != py:
+            raise AssertionError(f"native codec: {name} differs from the "
+                                 "pure-Python path")
+        print(f"native codec == pure Python: {name}: {1e3 * t_nat:.3f} ms "
+              f"native, {1e3 * t_py:.3f} ms Python (host)")
+    if refserial.read_ciphertext(buf8192) != parts8192:
+        raise AssertionError(f"native codec: m={MAIN['m']} ciphertext round "
+                             "trip")
+    part("e (native codec)")
     return launches
 
 
@@ -1027,12 +1356,13 @@ def main() -> int:
 
     # 4. the main path
     oracle_check_small(dev)
-    dc, ksw, pairs, out, launches = lean_path(dev, MAIN, BATCH, "main path")
+    main_run = lean_path(dev, MAIN, BATCH, "main path")
+    dc, ksw, pairs, out, launches = main_run[:5]
 
     # 4b. the same path at m = 2^15
     t0 = time.perf_counter()
     dc15, ksw15, pairs15, out15, launches15 = lean_path(
-        dev, M15, BATCH15, "m=32768 path")
+        dev, M15, BATCH15, "m=32768 path")[:5]
     print(f"m=32768 path wall time: {time.perf_counter() - t0:.2f} s "
           f"(setup, keys, encrypt, mul+relin, decrypt)")
 
@@ -1072,14 +1402,20 @@ def main() -> int:
 
     # 9. the object API and the serializers
     t0 = time.perf_counter()
-    npz_launches = phase_objects(dev, big_ctx, dc)
+    npz_launches, codec_objects = phase_objects(dev, big_ctx, dc)
     print(f"phase 9 wall time: {time.perf_counter() - t0:.2f} s")
+
+    # 10. the sharded pipelines, the profiler, the native codec core
+    t0 = time.perf_counter()
+    sharded_launches = phase_sharded(dev, card, main_run, codec_objects)
+    print(f"phase 10 wall time: {time.perf_counter() - t0:.2f} s")
     kernels = []
     for name in KERNELS:
         by_path = dict(mul_relin=launches[name],
                        mul_relin_m32768=launches15[name],
                        mul_relin_m20480=mixed_launches[name],
                        npz_m8192=npz_launches[name],
+                       mul_relin_sharded=sharded_launches[name],
                        **{path: n[name] for path, n in
                           (app_launches | dense_launches).items()})
         _, k_ms, p_ms, b_ms, b_by = narrow_ms[name][0]

@@ -1,9 +1,7 @@
-"""What the port's CLIs share: the app CLIs' arguments, the device
-choice and phase timing that waits for the card."""
+"""What the port's CLIs share: the app CLIs' arguments and the device
+choice."""
 from __future__ import annotations
 
-import contextlib
-import json
 import sys
 import time
 from typing import NamedTuple
@@ -18,16 +16,21 @@ class Args(NamedTuple):
     seed: int
     m: int | None
     device: torch.device
+    trace: str | None
 
 
 def parse(argv, name: str) -> Args | None:
     """datafile p generator [seed] [--m=M] [--device=D] [--trace DIR].
     Prints the reason and returns None when the run cannot start."""
     argv = list(argv)
+    trace = None
     if "--trace" in argv:
-        print(f"{name}: --trace is not ported yet (ROADMAP item 10)",
-              file=sys.stderr)
-        return None
+        i = argv.index("--trace")
+        if i + 1 == len(argv):
+            print(f"{name}: --trace needs a directory", file=sys.stderr)
+            return None
+        trace = argv[i + 1]
+        del argv[i:i + 2]
     m, device = None, "cuda:0"
     for a in list(argv):
         if a.startswith("--m="):
@@ -38,13 +41,13 @@ def parse(argv, name: str) -> Args | None:
             argv.remove(a)
     if len(argv) < 4:
         print(f"usage: {name} datafile p generator [seed] [--m=M] "
-              "[--device=cuda:0|cpu]")
+              "[--device=cuda:0|cpu] [--trace DIR]")
         return None
     device = pick_device(device, name)
     if device is None:
         return None
     seed = int(argv[4]) if len(argv) > 4 else int(time.time())
-    return Args(argv[1], int(argv[2]), int(argv[3]), seed, m, device)
+    return Args(argv[1], int(argv[2]), int(argv[3]), seed, m, device, trace)
 
 
 def pick_device(spec: str, name: str) -> torch.device | None:
@@ -60,35 +63,6 @@ def pick_device(spec: str, name: str) -> torch.device | None:
         print(f"{name}: no kernels for device {device}", file=sys.stderr)
         return None
     return device
-
-
-class Profiler:
-    """Phase wall times under the reference's phase names (the
-    PhaseProfiler of fhe_si_tpu/profiling.py).  A phase ends only when the
-    card's queued work has finished, so a phase time on CUDA is not a
-    launch time."""
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.times: dict[str, float] = {}
-        self._t0 = time.perf_counter()
-
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        start = time.perf_counter()
-        try:
-            yield
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-        finally:
-            self.times[name] = self.times.get(name, 0.0) + (
-                time.perf_counter() - start)
-
-    def total(self) -> float:
-        return time.perf_counter() - self._t0
-
-    def as_json(self) -> str:
-        return json.dumps(dict(self.times, total=self.total()))
 
 
 def describe(ctx, device: torch.device) -> str:

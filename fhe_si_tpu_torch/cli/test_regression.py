@@ -2,19 +2,23 @@
 port.
 
 usage: python -m fhe_si_tpu_torch.cli.test_regression datafile p generator
-           [seed] [--m=M] [--device=cuda:0|cpu]
+           [seed] [--m=M] [--device=cuda:0|cpu] [--trace DIR]
 
 --m=M overrides the ring index (default m = p-1, the reference's only
 mode); the port runs power-of-two m.  --device defaults to cuda:0 and
 the run refuses to start without CUDA unless --device=cpu is given.
+--trace DIR writes a torch.profiler trace of the regression phase into DIR
+(profiling.device_trace; the card's kernels by name when it runs on CUDA).
 Prints MATCH and exits 0 when every decrypted value equals the
 plaintext oracle mod p, else MISMATCH and 1.
 """
+import contextlib
 import sys
 
 from .. import DeviceContext, FheContext, sampling
 from ..apps import regression as reg
-from .common import Profiler, describe, parse
+from ..profiling import PhaseProfiler, device_trace
+from .common import describe, parse
 
 
 def main(argv):
@@ -37,7 +41,7 @@ def main(argv):
         print(f"  theta[{i}] = {t % p}")
     print(f"  Determinant: {det_pt % p}\n")
 
-    prof = Profiler(args.device)
+    prof = PhaseProfiler(args.device)
     with prof.phase("setup"):
         ctx = FheContext(m=args.m or p - 1, log_q=log_q, p=p,
                          generator=args.g, xi=xi)
@@ -54,7 +58,8 @@ def main(argv):
         model.add_data(ptxt_data, ptxt_labels)
     print(f"Encryption time: {prof.times['encryption']:.2f}")
 
-    with prof.phase("regression"):
+    tr = device_trace(args.trace) if args.trace else contextlib.nullcontext()
+    with prof.phase("regression"), tr:
         theta_enc, det_enc = model.regress()
     print(f"Regression time: {prof.times['regression']:.2f}")
 

@@ -2,17 +2,19 @@
 port.
 
 usage: python -m fhe_si_tpu_torch.cli.test_statistics datafile p generator
-           [seed] [--m=M] [--device=cuda:0|cpu]
+           [seed] [--m=M] [--device=cuda:0|cpu] [--trace DIR]
 
 Arguments as in test_regression.py.  Prints MATCH and exits 0 when the
 decrypted mean, N, covariance and N^2 equal the plaintext oracle mod p,
 else MISMATCH and 1.
 """
+import contextlib
 import sys
 
 from .. import DeviceContext, FheContext, sampling
 from ..apps import statistics as st
-from .common import Profiler, describe, parse
+from ..profiling import PhaseProfiler, device_trace
+from .common import describe, parse
 
 
 def main(argv):
@@ -41,7 +43,7 @@ def main(argv):
                               for j in range(cov_pt.num_cols())))
     print(f"  N^2: {(n_rows % p) ** 2 % p}\n")
 
-    prof = Profiler(args.device)
+    prof = PhaseProfiler(args.device)
     with prof.phase("setup"):
         ctx = FheContext(m=args.m or p - 1, log_q=log_q, p=p,
                          generator=args.g, xi=xi)
@@ -58,7 +60,8 @@ def main(argv):
         stats.add_data(blocks, block_sizes)
     print(f"Encryption time: {prof.times['encryption']:.2f}")
 
-    with prof.phase("computation"):
+    tr = device_trace(args.trace) if args.trace else contextlib.nullcontext()
+    with prof.phase("computation"), tr:
         cov_enc, mu_enc, n_enc, n2_enc = stats.compute_covariance()
     print(f"Computation time: {prof.times['computation']:.2f}")
 

@@ -41,12 +41,26 @@ from .context import MAX_KSW_PARTS, FheContext, int_to_limbs
 from .ops import crt, limbs as lb, modular, ntt, ntt_ct, ntt_ct_cuda
 
 
+# fast_crt table entries with one row per chain prime; the rest (P_limbs,
+# P_limbs_sh10, mr, Pinv_r, n_rec) belong to the whole basis
+CRT_ROW_KEYS = ("binv", "Bmodr", "B", "Bh", "er_mask")
+
+
 class DeviceContext:
-    def __init__(self, ctx: FheContext, device):
+    def __init__(self, ctx: FheContext, device, rows=None):
+        """The tables of ctx on `device`.  rows (chain-row indices, None =
+        all) makes a shard context for parallel.ShardedPipelines: only
+        those rows' tables go to the device, with the full chain's CRT
+        premultiplier and reconstruction rows sliced onto them, and every
+        basis (full, ksw, lin) is that block.  Its transforms and residue
+        arithmetic are the full context's restricted to the rows; a
+        reconstruction needs the CRT partials of every shard
+        (ShardedPipelines._to_poly_psum), so its own to_poly, decrypt and
+        the key set-up are not those of ctx."""
         self.ctx = ctx
         self.device = torch.device(device)
         self.phim = ctx.phim
-        self.L = ctx.num_primes
+        self.L = ctx.num_primes if rows is None else len(rows)
         self.n = ctx.n_limbs
         self.n_ct = ctx.n_limbs_ct      # persistent ciphertext-part width
         self.log_q = ctx.log_q
@@ -91,24 +105,34 @@ class DeviceContext:
                                            fast_crt_np['binv'])
             return T
 
-        # Subset bases (context.ksw_value_primes / lin_value_primes): the
-        # pipelines whose exact-integer bound is smaller than the tensor
-        # product's run over only the rows whose product covers it.
-        self.full = subset_tables(None, ctx.fast_crt_tables)
-        self.ksw = (subset_tables(ctx.ksw_rows, ctx.ksw_fast_crt_tables)
-                    if len(ctx.ksw_rows) < self.L else self.full)
-        if np.array_equal(ctx.lin_rows, ctx.ksw_rows):
-            self.lin = self.ksw
-        elif len(ctx.lin_rows) < self.L:
-            self.lin = subset_tables(ctx.lin_rows, ctx.lin_fast_crt_tables)
+        if rows is not None:
+            rows = np.asarray(rows, dtype=np.int64)
+            self.full = subset_tables(rows, {
+                k: v[rows] if k in CRT_ROW_KEYS else v
+                for k, v in ctx.fast_crt_tables.items()})
+            self.ksw = self.lin = self.full
         else:
-            self.lin = self.full
+            # Subset bases (context.ksw_value_primes / lin_value_primes):
+            # the pipelines whose exact-integer bound is smaller than the
+            # tensor product's run over only the rows whose product
+            # covers it.
+            self.full = subset_tables(None, ctx.fast_crt_tables)
+            self.ksw = (subset_tables(ctx.ksw_rows, ctx.ksw_fast_crt_tables)
+                        if len(ctx.ksw_rows) < self.L else self.full)
+            if np.array_equal(ctx.lin_rows, ctx.ksw_rows):
+                self.lin = self.ksw
+            elif len(ctx.lin_rows) < self.L:
+                self.lin = subset_tables(ctx.lin_rows,
+                                         ctx.lin_fast_crt_tables)
+            else:
+                self.lin = self.full
+            rows = np.arange(self.L)
         if not self.use_ct:
             # the raw inverse, for ntt_inv (the CT tables keep raw t2i)
-            self.full['inv'] = self._dense(dense_inv, np.arange(self.L))
+            self.full['inv'] = self._dense(dense_inv, rows)
         self.q = self.full['q']
         self.qinv_f = self.full['qinv_f']
-        self.p_mod_q = self._i32((ctx.p % ctx.primes)[:, None])
+        self.p_mod_q = self._i32((ctx.p % ctx.primes[rows])[:, None])
         self.q_limbs = self._i32(int_to_limbs(ctx.q, ctx.n_limbs))
         self.q_over_p = self._i32(ctx.q_over_p_limbs)
         self.q_over_p_sh10 = self._i32(
@@ -366,15 +390,21 @@ class DeviceContext:
     def _tensor_mul(self, a_parts, b_parts):
         """Ciphertext::operator*= : parts [..., k, phim, n] -> tensored
         evaluations [..., ka+kb-1, L, phim]."""
-        na, nb = a_parts.shape[-3], b_parts.shape[-3]
+        na = a_parts.shape[-3]
         if a_parts.shape[-1] == b_parts.shape[-1]:
-            # one lift for both operands, then scale the a-side by p
+            # one lift for both operands
             ev = self.from_poly(torch.cat([a_parts, b_parts], dim=-3))
-            a_ev = self._mul(ev[..., :na, :, :], self.p_mod_q)
-            b_ev = ev[..., na:, :, :]
-        else:
-            a_ev = self._mul(self.from_poly(a_parts), self.p_mod_q)
-            b_ev = self.from_poly(b_parts)
+            return self._tensor_product(ev[..., :na, :, :],
+                                        ev[..., na:, :, :])
+        return self._tensor_product(self.from_poly(a_parts),
+                                    self.from_poly(b_parts))
+
+    def _tensor_product(self, a_ev, b_ev):
+        """The evaluation-domain half of _tensor_mul: p * a tensored with
+        b, [..., ka, L, phim] x [..., kb, L, phim] -> [..., ka+kb-1, L,
+        phim]."""
+        na, nb = a_ev.shape[-3], b_ev.shape[-3]
+        a_ev = self._mul(a_ev, self.p_mod_q)
         out = [None] * (na + nb - 1)
         for i in range(na):
             for j in range(nb):
@@ -386,7 +416,10 @@ class DeviceContext:
 
     def _scale_down(self, tprod_evals):
         """Ciphertext::ScaleDown: floor((2x + q) / 2q), reduced signed."""
-        x = self.to_poly(tprod_evals)
+        return self._round_down(self.to_poly(tprod_evals))
+
+    def _round_down(self, x):
+        """The limb tail of ScaleDown on the reconstructed limbs x."""
         y = lb.shift_left(x, 1)
         y = lb.add(y, self.q_limbs.expand(y.shape))
         y = lb.arith_shift_right(y, self.log_q + 1)

@@ -231,10 +231,14 @@ def _dot(tab, y):
                         y.to(torch.float64)).to(torch.int64)
 
 
-def _stage(tab, y, q, y_max: int):
+def _stage(tab, y, q, y_max: int, n_terms: int | None = None):
     """(tab @ y) mod q per prime, exact (module header).  tab [L, o, k]
-    int32 residues, y [..., L or 1, k, f] in [0, y_max] -> int64."""
-    if tab.shape[-1] * y_max * Q_MAX < 1 << 53:
+    int32 residues, y [..., L or 1, k, f] in [0, y_max] -> int64.
+    n_terms (default k) is the length of the whole contraction, whose
+    bound picks one matmul or the split: a coefficient shard
+    (parallel/shard.py) passes the full length, so it splits as the
+    whole transform does."""
+    if (n_terms or tab.shape[-1]) * y_max * Q_MAX < 1 << 53:
         return _dot(tab, y) % q
     hi = _dot(tab >> 12, y) % q
     return (hi * 4096 + _dot(tab & 4095, y)) % q

@@ -18,9 +18,10 @@ fhe_si_tpu or by this package read in any of them, byte for byte
               u32 count | count x (raw long q, raw long root)
               (FHEContext.cpp:45-60)
 
-The JAX package runs the ZZX loops through an optional g++ core
-(fhe_si_tpu/native); the port takes the pure-Python path it falls back
-to, which writes and reads the same bytes.
+The ZZX loops run through the native C++ codec core (native/, built with
+g++ at first use and loaded with ctypes) where it builds; this module is
+the complete pure-Python implementation and the fallback, which writes
+and reads the same bytes.  native_available() says which path runs.
 """
 from __future__ import annotations
 
@@ -28,6 +29,15 @@ import struct
 from dataclasses import dataclass, field
 
 import numpy as np
+
+from . import native
+
+STRIDE = 64  # bytes per coefficient on the native path: up to 512 bits
+
+
+def native_available() -> bool:
+    """True when the ZZX loops run on the native core (g++ built it)."""
+    return native.get_lib() is not None
 
 
 class Reader:
@@ -61,7 +71,24 @@ class Reader:
         degree = self.i32()
         if degree == -1:
             return []
-        return [self.zz() for _ in range(degree + 1)]
+        n = degree + 1
+        lib = native.get_lib()
+        if lib is not None:
+            out = np.empty((n, STRIDE), dtype=np.uint8)
+            signs = np.empty(n, dtype=np.int8)
+            new_off = lib.fsi_scan_zz_array(
+                self.buf, len(self.buf), self.off, n, STRIDE,
+                out.ctypes.data, signs.ctypes.data)
+            if new_off == -1:
+                raise EOFError("truncated reference stream")
+            if new_off > 0:
+                self.off = new_off
+                return [-int.from_bytes(out[i].tobytes(), "little")
+                        if signs[i] else
+                        int.from_bytes(out[i].tobytes(), "little")
+                        for i in range(n)]
+            # new_off == -2: a record wider than STRIDE, the Python path
+        return [self.zz() for _ in range(n)]
 
     def vec_long(self) -> np.ndarray:
         n = self.u32()
@@ -107,6 +134,18 @@ class Writer:
         while coeffs and coeffs[-1] == 0:
             coeffs.pop()
         self.i32(len(coeffs) - 1)
+        lib = native.get_lib()
+        if lib is not None and all(-1 << 512 < c < 1 << 512 for c in coeffs):
+            n = len(coeffs)
+            mags = np.frombuffer(
+                b"".join(abs(c).to_bytes(STRIDE, "little") for c in coeffs),
+                dtype=np.uint8).reshape(n, STRIDE)
+            signs = np.array([c < 0 for c in coeffs], dtype=np.int8)
+            out = np.empty(n * (5 + STRIDE), dtype=np.uint8)
+            w = lib.fsi_emit_zz_array(mags.ctypes.data, n, STRIDE,
+                                      signs.ctypes.data, out.ctypes.data)
+            self.raw(out[:w].tobytes())
+            return
         for c in coeffs:
             self.zz(c)
 

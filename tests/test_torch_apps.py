@@ -135,7 +135,7 @@ def test_host_helpers_equal_jax(apps):
 
 @pytest.mark.parametrize("cli", [treg_cli, tst_cli], ids=["regression",
                                                            "statistics"])
-def test_cli_matches_on_cpu(apps, cli, capsys):
+def test_cli_matches_on_cpu(apps, cli, capsys, tmp_path):
     argv = ["x", apps["path"], str(P), str(G), "7", f"--m={M}"]
     assert cli.main(argv + ["--device=cpu"]) == 0
     out = capsys.readouterr()
@@ -144,5 +144,7 @@ def test_cli_matches_on_cpu(apps, cli, capsys):
     if not torch.cuda.is_available():
         assert cli.main(argv) == 1               # --device=cuda:0 by default
         assert "pass --device=cpu" in capsys.readouterr().err
-    assert cli.main(argv + ["--device=cpu", "--trace", "t"]) == 1
-    assert "not ported yet (ROADMAP item 10)" in capsys.readouterr().err
+    trace = tmp_path / "trace"             # the app phase, traced
+    assert cli.main(argv + ["--device=cpu", "--trace", str(trace)]) == 0
+    assert capsys.readouterr().out.rstrip().endswith("MATCH")
+    assert len(list(trace.glob("*.pt.trace.json"))) == 1

@@ -1,9 +1,10 @@
 """The port's own host layer against the JAX package's: the port keeps
 copies of fhe_si_tpu's JAX-free modules (sampling, hostmath, context,
-cli/gen_data, apps/matrix, indexmap, the pure-Python codec of refserial)
+cli/gen_data, apps/matrix, indexmap, refserial and its native codec core)
 and imports nothing of fhe_si_tpu.  Here the copies give the same draws,
 tables, bounds, bytes and results as the originals, and no module of the
-port imports fhe_si_tpu, jax or the JAX package's native codec core."""
+port imports fhe_si_tpu or jax, or names the JAX package's native codec
+core."""
 import ast
 import os
 from pathlib import Path
@@ -194,10 +195,9 @@ def test_indexmap_copy_equals_original():
         _body_dump(REPO / "fhe_si_tpu" / "indexmap.py")
 
 
-def test_refserial_bytes_equal_reference():
-    """Every writer of the port's pure-Python codec gives the JAX
-    package's bytes (whichever path its codec takes), and each package's
-    readers give back what the other wrote."""
+def _codec_cases():
+    """(writer, reader, object of a codec module) of every reference
+    object, coefficients past the native core's 512 bits included."""
     rng = np.random.default_rng(5)
     big = [int(v) for v in rng.integers(-2 ** 62, 2 ** 62, 40)] + [
         0, 2 ** 300, -(2 ** 70), 7]
@@ -211,7 +211,14 @@ def test_refserial_bytes_equal_reference():
         ("write_keyswitch", "read_keyswitch", lambda m: [[rows] * 3] * 2),
         ("write_ciphertext_matrix", "read_ciphertext_matrix",
          lambda m: [[[big[:3], big[3:9]]] * 2] * 3)]
-    for write, read, obj in cases:
+    return cases
+
+
+def test_refserial_bytes_equal_reference():
+    """Every writer of the port's codec (the native core where g++ builds
+    it) gives the JAX package's bytes (whichever path its codec takes),
+    and each package's readers give back what the other wrote."""
+    for write, read, obj in _codec_cases():
         buf = getattr(refserial, write)(obj(refserial))
         assert buf == getattr(jrefserial, write)(obj(jrefserial)), write
         for a, b in ((refserial, jrefserial), (jrefserial, refserial)):
@@ -219,6 +226,35 @@ def test_refserial_bytes_equal_reference():
             if read == "read_context":
                 got, want = vars(got), vars(want)
             _same(got, want, read)
+
+
+def test_native_codec_equals_python_path(monkeypatch):
+    """The port's native codec core is built and taken, and writes and
+    reads what its pure-Python path does, byte for byte."""
+    assert refserial.native_available()
+    built = {}
+    for write, read, obj in _codec_cases():
+        buf = getattr(refserial, write)(obj(refserial))
+        built[write] = (buf, getattr(refserial, read)(buf))
+    monkeypatch.setattr(refserial.native, "get_lib", lambda: None)
+    assert not refserial.native_available()
+    for write, read, obj in _codec_cases():
+        buf = getattr(refserial, write)(obj(refserial))
+        assert buf == built[write][0], write
+        got, want = getattr(refserial, read)(buf), built[write][1]
+        if read == "read_context":
+            got, want = vars(got), vars(want)
+        _same(got, want, read)
+
+
+def test_native_core_copy_equals_original():
+    """The port's refserial_core.cpp is the JAX package's below its
+    comments."""
+    def code(path):
+        return [ln for ln in path.read_text().splitlines()
+                if not ln.lstrip().startswith("//")]
+    assert code(REPO / "fhe_si_tpu_torch" / "native" / "refserial_core.cpp") \
+        == code(REPO / "fhe_si_tpu" / "native" / "refserial_core.cpp")
 
 
 def _port_files():
@@ -233,7 +269,9 @@ def test_port_imports_nothing_of_jax_package():
     assert len(files) > 20
     mods = {os.path.relpath(f, REPO / "fhe_si_tpu_torch") for f in files}
     assert {"doublecrt.py", "indexmap.py", "serialization.py",
-            "refserial.py", "refcompat.py"} <= mods
+            "refserial.py", "refcompat.py", "profiling.py",
+            "native/__init__.py", "parallel/__init__.py", "parallel/mesh.py",
+            "parallel/shard.py", "parallel/run_distributed.py"} <= mods
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -246,8 +284,21 @@ def test_port_imports_nothing_of_jax_package():
             else:
                 continue
             for name in names:
-                if name.split(".")[0] in ("fhe_si_tpu", "jax", "jaxlib") \
-                        or "native" in name.split("."):
+                if name.split(".")[0] in ("fhe_si_tpu", "jax", "jaxlib"):
                     bad.append(f"{os.path.relpath(path, REPO)}:{node.lineno} "
                                f"{name}")
+    assert not bad, bad
+
+
+def test_port_names_no_jax_package_native_core():
+    """No file of the port names the JAX package's codec core or its
+    library: the port builds and loads its own (native/)."""
+    pkg = REPO / "fhe_si_tpu_torch"
+    files = [f for f in pkg.rglob("*") if f.is_file()
+             and f.suffix in (".py", ".cpp", ".cu")] + [REPO / "chip_smoke.py"]
+    assert pkg / "native" / "refserial_core.cpp" in files
+    bad = [os.path.relpath(f, REPO) for f in files
+           if any(s in f.read_text() for s in ("fhe_si_tpu/native",
+                                               "fhe_si_tpu.native",
+                                               "libfsi_native"))]
     assert not bad, bad

@@ -183,7 +183,9 @@ def test_scheme_api_and_state_round_trip(run):
 
 def test_runs_without_jax():
     """The port imports neither JAX nor the JAX package: with `jax` and
-    `fhe_si_tpu` blocked, the m = 256 slice runs on the CPU and decrypts
+    `fhe_si_tpu` blocked, the port's modules import (the sharded
+    pipelines, the profiler and the codec among them), the m = 256 slice
+    runs on the CPU and decrypts
     to the plaintext product, and the regression CLI reaches MATCH at
     m = 32 on --device=cpu."""
     code = textwrap.dedent("""
@@ -192,6 +194,7 @@ def test_runs_without_jax():
         sys.modules['fhe_si_tpu'] = None
         import numpy as np
         from fhe_si_tpu_torch import DeviceContext, FheContext, sampling, scheme
+        from fhe_si_tpu_torch import parallel, profiling, refserial
         from fhe_si_tpu_torch.hostmath import oracle
         ctx = FheContext(m=256, log_q=80, p=257, generator=3)
         dev = DeviceContext(ctx, 'cpu')

@@ -9,7 +9,9 @@ prints no result line):
      and power limit as nvidia-smi reports them;
   2. build: compiles the CUDA kernels from fhe_si_tpu_torch/csrc and
      prints ptxas's report for each kernel (registers, shared memory,
-     spills);
+     spills); checks that the card allows at least the shared memory per
+     block that DeviceContext's choice of transform route assumes
+     (ntt_ct_cuda.SMEM_MAX);
   3. each kernel against its plain PyTorch version on the card, at the
      narrow tables of m = 8192, 256 and 32 and the wide (23-bit prime)
      tables of the regression context (m = 8192, logQ 213) and of
@@ -103,7 +105,28 @@ prints no result line):
         kernel name;
      e. the native codec core (built with g++) against the pure-Python
         codec on phase 9's reference-format keys and ciphertexts and an
-        m = 8192 ciphertext: the same bytes, both timed.
+        m = 8192 ciphertext: the same bytes, both timed;
+ 11. the matmul route (ops/ntt_ct_matmul.py: exact float64 stage
+     products), which DeviceContext picks for the Cooley-Tukey splits
+     the kernel cannot take, each part with its wall time:
+     a. at the reference's ring p = 8147 (m = 8146, logQ 170, g = 3:
+        4073 x 1, L = 21 narrow): ct_route printed, no kernel table
+        built, the route's transforms on the card against the same
+        functions on the CPU, bit for bit (forward, raw and prescaled
+        inverse, 24-bit digits) on the full chain and both subsets;
+     b. mul+relin there at batch 64: every decrypt equal to
+        oracle.plaintext_mul (computed on a pool of processes), no kernel
+        launched, no plain Cooley-Tukey transform, the route's counts
+        moved; then the step and its four stages timed with CUDA events
+        and the route's stage products at the step's shapes against
+        their FP64 bound; peak device memory;
+     c. Test_Statistics at p = 8147 (MATCH) and Test_AddMul 170 8147 3
+        --trials 10, the latter in a child process
+        (chip_smoke.py --route-cli) started when the phase starts, both
+        on the route with no kernel launched;
+     d. m = 2^16 (logQ 120, 256 x 128, L = 14 wide): the route on the
+        card against the CPU on its full chain and both subsets, and
+        mul+relin on 4 pairs, every decrypt right.
 Every phase prints its wall time.  The line before the last is the card's name and power limit; the last
 is {"ok": true, "device": {...}}.
 """
@@ -149,6 +172,15 @@ BATCH_MIXED = 16
 MIXED_TABLES = [(40, 2, 0), (96, 2, 0), (160, 2, 0), (18, 2, 0), (54, 2, 0),
                 (13122, 1, 0), (20480, 1, 1)]
 REF_CANONICAL = dict(m=22, log_q=80, p=23, generator=7)
+# the matmul route (splits the tensor-core kernel cannot take): the
+# reference's ring m = p - 1 next in size to p = 4007, N = 4073 prime
+# (4073 x 1), and m = 2^16 (256 x 128) at the largest logQ its prime
+# window admits
+ROUTE = dict(m=8146, log_q=170, p=8147, generator=3)
+ROUTE_APP = dict(p=8147, generator=3, m=None, dim=4, n=256)
+M16 = dict(m=65536, log_q=120, p=65537, generator=3)
+BATCH16 = 4
+ORACLE_WORKERS = 5      # processes for oracle.plaintext_mul at phim 4072
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 peak bandwidth
 INT8_OPS_PER_S = 1979e12        # dense int8 tensor-core rate, H100 SXM
 F64_OPS_PER_S = 67e12           # FP64 tensor-core rate, H100 SXM
@@ -321,6 +353,29 @@ def phase_kernels(dev):
     return err
 
 
+def _plaintext_mul_job(phim, phim_x, p, a, b):
+    """oracle.plaintext_mul in a worker process: the product reads only
+    the ring's phim, Phi_m and p."""
+    from types import SimpleNamespace
+    from fhe_si_tpu_torch.hostmath import oracle
+    return oracle.plaintext_mul(SimpleNamespace(phim=phim, phim_x=phim_x,
+                                                p=p), a, b)
+
+
+def oracle_products(ctx, msgs, pool=None) -> list:
+    """oracle.plaintext_mul(ctx, msgs[2i], msgs[2i + 1]) for every pair,
+    as thunks: submitted to `pool` now (the reduction mod a dense Phi_m
+    is seconds of Python per product at phim 4072), or computed in this
+    process when a thunk is called."""
+    from fhe_si_tpu_torch.hostmath import oracle
+    pairs = list(zip(msgs[0::2], msgs[1::2]))
+    if pool is None:
+        return [lambda a=a, b=b: oracle.plaintext_mul(ctx, a, b)
+                for a, b in pairs]
+    return [pool.submit(_plaintext_mul_job, ctx.phim, ctx.phim_x, ctx.p,
+                        a, b).result for a, b in pairs]
+
+
 def primes_below(m: int, bound: int, count: int) -> list[int]:
     """The largest `count` primes q < bound with m | q - 1 (at least
     2^20 when bound is 2^23: primes of the wide lane)."""
@@ -385,18 +440,50 @@ def plain_ct_calls():
             setattr(ntt_ct, n, plain[n])
 
 
-def check_launches(label, launches, expect, n_dense, n_plain):
+class PathCounts(NamedTuple):
+    """What a block ran besides the kernels (transform_calls)."""
+    dense: list      # ops/ntt.modmatmul calls: the dense family's
+    #                  transforms, or the matmul route's stage products
+    plain: list      # plain Cooley-Tukey transforms (ops/ntt_ct.py)
+    route: dict      # ops/ntt_ct_matmul.CALLS, filled when the block ends
+
+
+@contextlib.contextmanager
+def transform_calls():
+    """dense_calls, plain_ct_calls and the matmul route's counts (set to
+    0 on entry) of the block."""
+    from fhe_si_tpu_torch.ops import ntt_ct_matmul
+    ntt_ct_matmul.reset_calls()
+    route: dict = {}
+    with dense_calls() as dense, plain_ct_calls() as plain:
+        yield PathCounts(dense, plain, route)
+    route.update(ntt_ct_matmul.CALLS)
+
+
+def check_launches(label, launches, expect, calls: PathCounts,
+                   route: bool = False):
     """The kernels in `expect` launched and no other, and no plain
-    Cooley-Tukey transform ran; a run that launched no kernel must have
-    gone through the dense transform, and one that did, not."""
-    print(f"{label} launches: {launches}, dense transforms: {n_dense}, "
-          f"plain Cooley-Tukey transforms: {n_plain}")
+    Cooley-Tukey transform ran.  With route, the block must have run
+    the matmul route (ops/ntt_ct_matmul.py, whose stage products are
+    modmatmul calls) and launched no kernel; without, it must not have
+    touched the route, and a run that launched no kernel must have gone
+    through the dense transform, and one that did, not."""
+    n_dense, n_plain = len(calls.dense), len(calls.plain)
+    n_route = sum(calls.route.values())
+    print(f"{label} launches: {launches}, modmatmul calls: {n_dense}, "
+          f"plain Cooley-Tukey transforms: {n_plain}, matmul-route "
+          f"transforms: {calls.route}")
     for name, n in launches.items():
         if (n > 0) != (name in expect):
             raise AssertionError(f"{label}: {name} launched {n} times")
-    if n_plain or (bool(expect) == bool(n_dense)):
-        raise AssertionError(f"{label}: {n_dense} dense and {n_plain} plain "
-                             "Cooley-Tukey transforms ran")
+    if route:
+        bad = bool(expect) or not n_route or not n_dense
+    else:
+        bad = bool(n_route) or bool(expect) == bool(n_dense)
+    if n_plain or bad:
+        raise AssertionError(f"{label}: {n_dense} modmatmul calls, {n_plain} "
+                             f"plain Cooley-Tukey and {n_route} matmul-route "
+                             "transforms ran")
 
 
 class LeanRun(NamedTuple):
@@ -409,17 +496,19 @@ class LeanRun(NamedTuple):
     msgs: list
 
 
-def lean_path(dev, cfg, batch, label, expect=tuple(KERNELS), dc=None):
+def lean_path(dev, cfg, batch, label, expect=tuple(KERNELS), dc=None,
+              route=False, pool=None):
     """keygen, relinearization key, batched encrypt of `batch` pairs,
     batched multiply + relinearize and batched decrypt at FheContext(cfg)
     (or on the DeviceContext dc), with the kernel counts set to 0 just
     before and read just after.  Every decrypt must equal
-    oracle.plaintext_mul, and the kernels in `expect` must have launched
-    and no other.  Returns a LeanRun (msgs: the 2 * batch messages, pair i
-    of msgs[2i], msgs[2i + 1])."""
+    oracle.plaintext_mul (computed on `pool`, a process pool, while the
+    card works, when given), and the kernels in `expect` must have
+    launched and no other (check_launches; route: the matmul route ran
+    instead).  Returns a LeanRun (msgs: the 2 * batch messages, pair i of
+    msgs[2i], msgs[2i + 1])."""
     import torch
     from fhe_si_tpu_torch import DeviceContext, FheContext, sampling, scheme
-    from fhe_si_tpu_torch.hostmath import oracle
     from fhe_si_tpu_torch.ops import ntt_ct_cuda
     t0 = time.perf_counter()
     if dc is None:
@@ -431,22 +520,22 @@ def lean_path(dev, cfg, batch, label, expect=tuple(KERNELS), dc=None):
                                    ctx.ndigits)
     print(f"setup {ctx} on {dev}: {time.perf_counter() - t0:.2f} s")
     ntt_ct_cuda.reset_launches()
-    with dense_calls() as dense, plain_ct_calls() as plain:
+    with transform_calls() as calls:
         sk, pk = scheme.keygen(dc, kg)
         ksw = scheme.KeySwitch.for_relinearization(sk, kr)
         msgs, pairs = encrypt_pairs(scheme, ctx, pk, src, batch)
+        wants = oracle_products(ctx, msgs, pool)
         out = scheme.relin_batch(scheme.mul_batch(pairs), ksw)
         dec = sk.decrypt_batch(out)
         torch.cuda.synchronize()
     launches = dict(ntt_ct_cuda.LAUNCHES)
-    check_launches(label, launches, expect, len(dense), len(plain))
+    check_launches(label, launches, expect, calls, route)
     for c in out:
         if c.parts.shape != (2, ctx.phim, ctx.n_limbs_ct) \
                 or c.parts.dtype != torch.int32:
             raise AssertionError(f"bad output part {tuple(c.parts.shape)}")
-    for i in range(batch):
-        want = oracle.plaintext_mul(ctx, msgs[2 * i], msgs[2 * i + 1])
-        if not np.array_equal(dec[i].message, want):
+    for i, want in enumerate(wants):
+        if not np.array_equal(dec[i].message, want()):
             raise AssertionError(f"{label} pair {i}: decrypt != plaintext "
                                  "product")
     print(f"{label}: {batch}/{batch} decrypted products == plaintext "
@@ -628,7 +717,7 @@ def check_dense(dc):
     torch.cuda.synchronize()
 
 
-def time_dense(card, calls, label):
+def time_dense(card, calls, label, what="dense transform"):
     """The dense transform (ops/ntt.modmatmul: float64 torch.matmul, then
     mod q) at the shapes of `calls`, the modmatmul calls of one step: each
     distinct (table, input shape) timed on random residues with CUDA
@@ -658,13 +747,13 @@ def time_dense(card, calls, label):
         t_bytes = ((8 * L * n_out * n_in * len(tab) + 4 * rows * L
                     * (n_in + n_out)) / HBM_BYTES_PER_S * 1e3)
         bound, by = max((t_ops, "operations"), (t_bytes, "bytes"))
-        print(f"[{card}] dense transform {label} {tuple(shape)} -> "
+        print(f"[{card}] {what} {label} {tuple(shape)} -> "
               f"L={L} n_out={n_out}, {len(tab)} matmul(s): {ms:.4f} ms, "
               f"bound {bound:.4f} ms ({by}), share of bound "
               f"{100 * bound / ms:.1f}%, calls per step {n}")
         tot_ms += n * ms
         tot_bound += n * bound
-    print(f"[{card}] dense transform {label}: {len(calls)} calls per step, "
+    print(f"[{card}] {what} {label}: {len(calls)} calls per step, "
           f"{tot_ms:.3f} ms per step against a bound of {tot_bound:.3f} ms")
     return len(calls), tot_ms, tot_bound
 
@@ -771,7 +860,7 @@ def phase_dense(dev, card):
     return launches, dense_step, big_ctx
 
 
-def run_cli(dev, cli, argv, label, expect):
+def run_cli(dev, cli, argv, label, expect, route=False):
     """One port CLI's main(argv) on the card, its output captured and
     echoed, with the kernel counts set to 0 just before and read just
     after; the kernels in `expect` must have launched and no other.
@@ -782,20 +871,21 @@ def run_cli(dev, cli, argv, label, expect):
     torch.cuda.reset_peak_memory_stats(dev)
     out, err = io.StringIO(), io.StringIO()
     ntt_ct_cuda.reset_launches()
-    with dense_calls() as dense, plain_ct_calls() as plain, \
+    with transform_calls() as calls, \
             contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = cli.main(argv)
         torch.cuda.synchronize()
     launches = dict(ntt_ct_cuda.LAUNCHES)
     print(out.getvalue(), end="")
-    check_launches(label, launches, expect, len(dense), len(plain))
+    check_launches(label, launches, expect, calls, route)
     return rc, out.getvalue(), err.getvalue(), launches
 
 
-def phase_apps(dev, card, app, lane, suffix="", expect=tuple(KERNELS)):
-    """The port's app CLIs at `app` on the card, each on the `lane`
-    residue lane; m None runs the CLIs' default ring m = p - 1.  Returns
-    each app's kernel launch counts, keyed by app name + suffix."""
+def phase_apps(dev, card, app, lane, suffix="", expect=tuple(KERNELS),
+               route=False, names=("regression", "statistics")):
+    """The port's app CLIs `names` at `app` on the card, each on the
+    `lane` residue lane; m None runs the CLIs' default ring m = p - 1.
+    Returns each app's kernel launch counts, keyed by app name + suffix."""
     import torch
     from fhe_si_tpu_torch.cli.gen_data import generate
     from fhe_si_tpu_torch.cli import test_regression, test_statistics
@@ -805,12 +895,14 @@ def phase_apps(dev, card, app, lane, suffix="", expect=tuple(KERNELS)):
         generate(path, app["dim"], app["n"], seed=SEED)
         for name, cli in (("regression", test_regression),
                           ("statistics", test_statistics)):
+            if name not in names:
+                continue
             argv = ["chip_smoke", path, str(app["p"]), str(app["generator"]),
                     str(SEED), f"--device={dev}"]
             if app["m"] is not None:
                 argv.append(f"--m={app['m']}")
             rc, text, err, launches[name + suffix] = run_cli(
-                dev, cli, argv, name + suffix, expect)
+                dev, cli, argv, name + suffix, expect, route)
             if rc != 0 or text.rstrip().splitlines()[-1] != "MATCH":
                 raise AssertionError(f"{name}{suffix}: no MATCH (rc {rc})\n"
                                      f"{err}")
@@ -1102,6 +1194,28 @@ def print_breakdown(card, label, kernels, steps=1, top=14):
     return by
 
 
+def coeff_step_bound(dc, batch: int) -> tuple[float, float]:
+    """The float64 stage products of one coefficient-sharded mul+relin
+    step of `batch` pairs on dc's ring (m = 2^k, every transform on the
+    full chain, as parallel/shard.py runs them), counted from the shapes:
+    per transformed row and prime 2 N (N1 + N2) operations, doubled in a
+    stage whose table _stage splits.  Rows: 4 parts lifted, 3 tensored
+    parts back, 2 x ndigits digit rows, 2 keyswitched parts back.
+    Returns (GFLOP, FP64 bound in ms)."""
+    from fhe_si_tpu_torch.ops import ntt, ntt_ct
+    meta, L = dc.ct_meta, dc.ctx.num_primes
+    N1, N2 = meta.N1, meta.N2
+
+    def per_row(y_max):
+        return 2 * meta.N * sum(
+            n * (1 + ntt.needs_split(n, ntt_ct.Q_MAX + 1, y_max))
+            for n in (N1, N2))
+    flops = L * (batch * (4 + 3 + 2) * per_row(ntt_ct.Q_MAX)
+                 + batch * 2 * dc.ndigits * per_row(
+                     (1 << ntt_ct.MAX_DIGIT_BITS) - 1))
+    return flops / 1e9, flops / F64_OPS_PER_S * 1e3
+
+
 def run_worlds(dev, specs, timeout=400) -> dict:
     """Every rank of every world of `specs` (label, ranks, backend, extra
     arguments of fhe_si_tpu_torch.parallel.run_distributed) started at
@@ -1179,13 +1293,13 @@ def phase_sharded(dev, card, main_run, codec):
         sp = ShardedPipelines(ctx, mesh)
         mat = shard_matrix(mesh, ksw.matrix_evals)
         ntt_ct_cuda.reset_launches()
-        with dense_calls() as dense, plain_ct_calls() as plain:
+        with transform_calls() as calls:
             got = sp.batched_mul_relin(a, b, mat)
             red = sp.mul_relin_block_reduce(a, b, mat)
             torch.cuda.synchronize()
         launches = dict(ntt_ct_cuda.LAUNCHES)
         check_launches("sharded path (NCCL, world 1)", launches,
-                       tuple(KERNELS), len(dense), len(plain))
+                       tuple(KERNELS), calls)
         if not torch.equal(got, ref):
             raise AssertionError("sharded mul+relin != DeviceContext.mul_relin")
         dec = sk.decrypt_batch([scheme.Ciphertext(dc, parts=p) for p in got])
@@ -1261,6 +1375,11 @@ def phase_sharded(dev, card, main_run, codec):
           "block reduce and batched output; coeff = 2 == the unsharded "
           "step, no kernel launched there (plain transforms, as the JAX "
           "package's XLA einsums)")
+    gflop, bound = coeff_step_bound(dc, 8)
+    w = worlds["coeff2"]
+    print(f"[{card}] coeff-sharded transforms of one B=8 step: {gflop:.3f} "
+          f"GFLOP of float64 stage products, bound {bound:.4f} ms "
+          f"(operations, FP64) against a {w['step_s'] * 1e3:.3f} ms step")
     t0 = part("b-c (worlds)")
 
     # d. Test_Regression --trace at phase 6's config
@@ -1322,6 +1441,162 @@ def phase_sharded(dev, card, main_run, codec):
     return launches
 
 
+def _route_cpu(T):
+    """A route operand dict (ntt_ct_matmul.stage_operands) on the CPU."""
+    return {k: tuple(t.cpu() for t in v) if isinstance(v, tuple) else v.cpu()
+            for k, v in T.items()}
+
+
+def check_route(dc, lead_shapes):
+    """The matmul route's transforms of every basis of dc on the card
+    against the same functions on the CPU, on the same operands copied
+    there, bit for bit: forward, raw and prescaled inverse and the digit
+    transform (24-bit digits), then the round trip on the card."""
+    import torch
+    from fhe_si_tpu_torch.ops import ntt_ct_matmul as route
+    ctx, meta = dc.ctx, dc.ct_meta
+    label = f"m={ctx.m} logQ {ctx.log_q} {'wide' if ctx.wide else 'narrow'}"
+    rng = np.random.default_rng(SEED)
+    seen = set()
+    for basis in ("full", "ksw", "lin"):
+        T = getattr(dc, basis)
+        if id(T) in seen:
+            continue
+        seen.add(id(T))
+        tab, q_np = T['ct'], T['primes_np']
+        tab_cpu = _route_cpu(tab)
+        for lead in lead_shapes:
+            x = rng.integers(0, q_np[:, None], size=lead + (
+                len(q_np), meta.phim)).astype(np.int32)
+            d = rng.integers(0, 1 << 24, size=lead + (meta.phim,)).astype(
+                np.int32)
+            xc, dcpu = torch.as_tensor(x), torch.as_tensor(d)
+            xg, dg = xc.to(dc.device), dcpu.to(dc.device)
+            ev = route.ct_fwd(tab, xg, meta)
+            ev_cpu = route.ct_fwd(tab_cpu, xc, meta)
+            same = [torch.equal(ev.cpu(), ev_cpu)]
+            for key in ("t2i", "t2i_crt"):
+                same.append(torch.equal(route.ct_inv(tab, ev, meta, key).cpu(),
+                                        route.ct_inv(tab_cpu, ev_cpu, meta,
+                                                     key)))
+            same.append(torch.equal(
+                route.ct_fwd_digits(tab, dg, meta, 24).cpu(),
+                route.ct_fwd_digits(tab_cpu, dcpu, meta, 24)))
+            same.append(torch.equal(route.ct_inv(tab, ev, meta), xg))
+            if not all(same):
+                raise AssertionError(f"matmul route {label} basis={basis} "
+                                     f"lead={lead}: card != CPU "
+                                     "(fwd, inv, inv_crt, digits, round "
+                                     f"trip: {same})")
+        del tab_cpu
+        print(f"matmul route on the card == CPU: {label} basis={basis} "
+              f"L={len(q_np)} N1xN2={meta.N1}x{meta.N2}, stages of "
+              f"{len(tab['t1'])} + {len(tab['t2'])} matmul(s) (forward), "
+              f"{len(tab['t2_digits'])} for the digit stage")
+    torch.cuda.synchronize()
+
+
+def cli_child(dev, argv) -> int:
+    """`chip_smoke.py --route-cli NAME ARGS...`: the port's CLI NAME run
+    by run_cli on the matmul route (no kernel may launch), its output
+    echoed.  Phase 11 runs Test_AddMul so, beside its other parts: its
+    oracle products are minutes of host Python."""
+    import importlib
+    cli = importlib.import_module(f"fhe_si_tpu_torch.cli.{argv[0]}")
+    rc, _, err, _ = run_cli(dev, cli, list(argv), argv[0], (), route=True)
+    sys.stderr.write(err)
+    return rc
+
+
+def phase_route(dev, card):
+    """Phase 11: the rings on the matmul route (ops/ntt_ct_matmul.py).
+    Returns the route's calls and times per p = 8147 step (time_dense)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    import torch
+    from fhe_si_tpu_torch import DeviceContext, FheContext
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def part(name):
+        print(f"phase 11{name} wall time: {time.perf_counter() - t0:.2f} s")
+        return time.perf_counter()
+
+    # c (started first). Test_AddMul 170 8147 3 --trials 10 in a process
+    # of its own: ten trials of three dependent oracle products
+    root = os.path.dirname(os.path.abspath(__file__))
+    addmul = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--route-cli",
+         "test_addmul", str(ROUTE["log_q"]), str(ROUTE["p"]),
+         str(ROUTE["generator"]), "--trials", "10", f"--device={dev}"],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    try:
+        with ProcessPoolExecutor(ORACLE_WORKERS, mp_context=multiprocessing
+                                 .get_context("spawn")) as pool:
+            # a. the route on the card against the CPU, p = 8147
+            t1 = time.perf_counter()
+            dc = DeviceContext(FheContext(**ROUTE), dev)
+            print(f"route context {dc.ctx}: {time.perf_counter() - t1:.2f} s "
+                  f"(host tables included), ct_route {dc.ct_route}")
+            if dc.ct_route != "matmul" or dc.ct_meta.N2 != 1 or dc.wide:
+                raise AssertionError(f"p={ROUTE['p']}: route {dc.ct_route}, "
+                                     f"{dc.ct_meta}, wide={dc.wide}")
+            if any(k.startswith("k_") for k in dc.full['ct']):
+                raise AssertionError("p=8147: kernel tables were built")
+            check_route(dc, ((RAGGED_ROWS,), (2, 3)))
+            t0 = part(f"a (p={ROUTE['p']})")
+
+            # b. mul+relin at p = 8147, batch 64, the oracle on the pool
+            label = f"p={ROUTE['p']} route path"
+            run = lean_path(dev, ROUTE, BATCH, label, expect=(), dc=dc,
+                            route=True, pool=pool)
+            print(f"peak device memory (phase 11a-b): "
+                  f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+            t0 = part(f"b (p={ROUTE['p']} mul+relin, {BATCH} pairs)")
+
+            # d. m = 2^16: the route on the card against the CPU, then
+            # mul+relin on 4 pairs
+            dc16 = DeviceContext(FheContext(**M16), dev)
+            print(f"route context {dc16.ctx}: ct_route {dc16.ct_route}")
+            if dc16.ct_route != "matmul" or not dc16.wide:
+                raise AssertionError(f"m={M16['m']}: route {dc16.ct_route}, "
+                                     f"wide={dc16.wide}")
+            check_route(dc16, ((3,),))
+            lean_path(dev, M16, BATCH16, f"m={M16['m']} route path", expect=(),
+                      dc=dc16, route=True)
+            del dc16
+            torch.cuda.empty_cache()
+            t0 = part(f"d (m={M16['m']})")
+
+        # c. Test_Statistics at p = 8147 (m = p - 1)
+        phase_apps(dev, card, ROUTE_APP, "narrow", f"_p{ROUTE['p']}",
+                   expect=(), route=True, names=("statistics",))
+        t0 = part("c (Test_Statistics)")
+        log, _ = addmul.communicate(timeout=600)
+    finally:
+        if addmul.poll() is None:
+            addmul.kill()
+            addmul.wait()
+    print(log, end="")
+    if addmul.returncode or "\nAll tests SUCCEEDED!\n" not in log:
+        raise AssertionError(f"Test_AddMul at p={ROUTE['p']} failed (rc "
+                             f"{addmul.returncode})")
+    t0 = part("c (Test_AddMul, waited for)")
+
+    # b, timed: the step, its stages and the route's matmuls per step
+    dc, ksw, pairs, out = run[:4]
+    a, b, *_ = time_step(card, dc, pairs, ksw, out, label)
+    time_stages(card, dc, a, b, ksw, label)
+    with dense_calls() as calls:
+        dc.mul_relin(a, b, ksw.matrix_evals)
+        torch.cuda.synchronize()
+    step = time_dense(card, calls, f"m={dc.ctx.m} B={BATCH}",
+                      what="matmul route stage product")
+    part("b (timing)")
+    return step
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1333,6 +1608,8 @@ def main() -> int:
 
     # 1. device
     dev = torch.device("cuda:0")
+    if sys.argv[1:2] == ["--route-cli"]:
+        return cli_child(dev, sys.argv[2:])
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1347,6 +1624,14 @@ def main() -> int:
         raise AssertionError(f"no ptxas report in the build log:\n{log}")
     for line in report:
         print(f"ptxas {line}")
+    # DeviceContext picks the transform route on the host, against
+    # ntt_ct_cuda.SMEM_MAX: the card must allow at least that much
+    optin = ntt_ct_cuda._smem_limit(dev)
+    print(f"shared memory per block (opt-in): {optin} bytes, the route "
+          f"rule assumes {ntt_ct_cuda.SMEM_MAX}")
+    if optin < ntt_ct_cuda.SMEM_MAX:
+        raise AssertionError("the card allows less shared memory per block "
+                             "than ntt_ct_cuda.kernel_takes assumes")
 
     # 3. kernels against their plain versions
     probe_semantics(dev)
@@ -1409,6 +1694,11 @@ def main() -> int:
     t0 = time.perf_counter()
     sharded_launches = phase_sharded(dev, card, main_run, codec_objects)
     print(f"phase 10 wall time: {time.perf_counter() - t0:.2f} s")
+
+    # 11. the matmul route: the splits the kernel cannot take
+    t0 = time.perf_counter()
+    n_route, route_ms, route_bound = phase_route(dev, card)
+    print(f"phase 11 wall time: {time.perf_counter() - t0:.2f} s")
     kernels = []
     for name in KERNELS:
         by_path = dict(mul_relin=launches[name],
@@ -1438,6 +1728,15 @@ def main() -> int:
         source="fhe_si_tpu_torch/ops/ntt.py", calls_per_step=n_dense,
         ms_per_step=dense_ms, bound_ms_per_step=dense_bound,
         bound_by_config=f"m={BIG['m']} B={BATCH}")}))
+    # nor is the matmul route: the XLA stage products of the JAX package
+    # (fhe_si_tpu/ops/ntt_ct.py ct_fwd, ct_fwd_digits, ct_inv) as float64
+    # torch.matmul, on the splits the tensor-core kernel cannot take
+    print(json.dumps({"matmul_route": dict(
+        source="fhe_si_tpu_torch/ops/ntt_ct_matmul.py",
+        replaces="fhe_si_tpu/ops/ntt_ct.py:327-380 (XLA, not Pallas)",
+        matmuls_per_step=n_route, ms_per_step=route_ms,
+        bound_ms_per_step=route_bound,
+        library="torch.matmul", bound_by_config=f"m={ROUTE['m']} B={BATCH}")}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -5,11 +5,16 @@ Counterpart of fhe_si_tpu/device.py on both transform families and both
 residue lanes (narrow: primes < 2^20; wide: primes < 2^23, wherever the
 narrow chain runs out), for any p below 2^30 and any decompSize:
   - power-of-two m, and m = 2^a * q^b past the dense threshold
-    (context.CT_PHIM_THRESHOLD, e.g. m = 20480), ride the Cooley-Tukey
-    family: the three transforms go through ops/ntt_ct_cuda.py, the
-    Hopper kernel for CUDA tensors and the plain versions for CPU
-    tensors, phim wide in and out (the pad, drop and fold of a mixed
-    radix ring happen inside them);
+    (context.CT_PHIM_THRESHOLD, e.g. m = 20480, and m = p - 1 for every
+    safe prime p >= 4127), ride the Cooley-Tukey family, phim wide in
+    and out (the pad, drop and fold of a mixed radix ring happen inside
+    the transforms).  ct_route, fixed from the split alone
+    (ntt_ct_cuda.kernel_takes), picks how they run: "kernel" through
+    ops/ntt_ct_cuda.py, the Hopper kernel for CUDA tensors and the plain
+    versions for CPU tensors; "matmul" (the splits the kernel cannot
+    take: N x 1 for N prime, m = 2^16) through ops/ntt_ct_matmul.py,
+    exact float64 stage products on either device, as the JAX package
+    runs those splits on XLA;
   - every other ring with phim <= 4096 (m = p - 1 of the reference,
     m = 22, 46, 31, ...) rides the dense family: one phim x phim table
     per prime and direction (FheContext.ntt_tables), run as exact
@@ -38,7 +43,8 @@ import numpy as np
 import torch
 
 from .context import MAX_KSW_PARTS, FheContext, int_to_limbs
-from .ops import crt, limbs as lb, modular, ntt, ntt_ct, ntt_ct_cuda
+from .ops import (crt, limbs as lb, modular, ntt, ntt_ct, ntt_ct_cuda,
+                  ntt_ct_matmul)
 
 
 # fast_crt table entries with one row per chain prime; the rest (P_limbs,
@@ -74,8 +80,13 @@ class DeviceContext:
         if self.use_ct:
             self.ct_meta, ct_full = ntt_ct.ct_tables(ctx.m, ctx.primes,
                                                      ctx.roots)
+            self.ct_route = ("kernel" if ntt_ct_cuda.kernel_takes(
+                self.ct_meta) else "matmul")
+            self._ct_ops = (ntt_ct_cuda if self.ct_route == "kernel"
+                            else ntt_ct_matmul)
+            q_max = int(ctx.primes.max())
         else:
-            self.ct_meta = None
+            self.ct_meta = self.ct_route = None
             dense_fwd, dense_inv = ctx.ntt_tables
 
         def subset_tables(rows, fast_crt_np):
@@ -94,10 +105,13 @@ class DeviceContext:
                 fast_crt=self._fast_crt(fast_crt_np),
                 primes_np=q_np)
             if self.use_ct:
-                ct = ct_full if rows is None else {
-                    k: v[rows] for k, v in ct_full.items()}
-                T['ct'] = self._ct(ntt_ct.with_crt_premultiplier(
-                    ct, fast_crt_np['binv']))
+                ct = ntt_ct.with_crt_premultiplier(
+                    ct_full if rows is None else {
+                        k: v[rows] for k, v in ct_full.items()},
+                    fast_crt_np['binv'])
+                T['ct'] = (self._ct(ct) if self.ct_route == "kernel" else
+                           ntt_ct_matmul.stage_operands(ct, q_max,
+                                                        self.device))
             else:
                 rows = np.arange(self.L) if rows is None else rows
                 T['fwd'] = self._dense(dense_fwd, rows)
@@ -163,21 +177,12 @@ class DeviceContext:
         time, so the host holds one slab and the device one float64 copy
         of each operand."""
         q_np = self.ctx.primes[rows]
-        q_max = int(q_np.max())
-        out = None
-        for i, r in enumerate(rows):
-            slab = tab_np[r:r + 1]
-            if binv is not None:
-                slab = ntt.with_crt_premultiplier(slab, binv[i:i + 1],
-                                                  q_np[i:i + 1])
-            ops = ntt.operands(slab, q_max)
-            if out is None:
-                out = tuple(torch.empty((len(rows),) + op.shape[1:],
-                                        dtype=op.dtype, device=self.device)
-                            for op in ops)
-            for o, op in zip(out, ops):
-                o[i] = op[0]
-        return out
+        slabs = (tab_np[r:r + 1] if binv is None else
+                 ntt.with_crt_premultiplier(tab_np[r:r + 1], binv[i:i + 1],
+                                            q_np[i:i + 1])
+                 for i, r in enumerate(rows))
+        return ntt.device_operands(slabs, len(rows), int(q_np.max()),
+                                   self.device)
 
     def _f32(self, q_np):
         """1/q rounded to float32 by the same numpy expression as the JAX
@@ -210,15 +215,15 @@ class DeviceContext:
         """Forward transform over the rows of basis T, on the context's
         transform family."""
         if self.use_ct:
-            return ntt_ct_cuda.ct_fwd(T['ct'], x, self.ct_meta)
+            return self._ct_ops.ct_fwd(T['ct'], x, self.ct_meta)
         return ntt.modmatmul(T['fwd'], x, T['q'])
 
     def _inv_crt_t(self, T, x):
         """Inverse transform with the basis binv folded in (feeds the
         single-pass CRT reconstruction with prescaled=True)."""
         if self.use_ct:
-            return ntt_ct_cuda.ct_inv(T['ct'], x, self.ct_meta,
-                                      t2i_key='t2i_crt')
+            return self._ct_ops.ct_inv(T['ct'], x, self.ct_meta,
+                                       t2i_key='t2i_crt')
         return ntt.modmatmul(T['inv_crt'], x, T['q'])
 
     def ntt_fwd(self, x):
@@ -229,7 +234,7 @@ class DeviceContext:
     def ntt_inv(self, x):
         """Raw full-chain inverse, no CRT premultiplier (Cmodulus::iFFT)."""
         if self.use_ct:
-            return ntt_ct_cuda.ct_inv(self.full['ct'], x, self.ct_meta)
+            return self._ct_ops.ct_inv(self.full['ct'], x, self.ct_meta)
         return ntt.modmatmul(self.full['inv'], x, self.q)
 
     def _from_poly_sub(self, T, poly_limbs):
@@ -453,8 +458,8 @@ class DeviceContext:
             digs = digs.movedim(-1, -2)               # [..., k, nd, phim]
             digs = digs.reshape(lead + (rows, self.phim))
             if self.use_ct:
-                return ntt_ct_cuda.ct_fwd_digits(K['ct'], digs, self.ct_meta,
-                                                 self.digit_bits)
+                return self._ct_ops.ct_fwd_digits(K['ct'], digs, self.ct_meta,
+                                                  self.digit_bits)
             res = digs[..., None, :] % K['q']         # [..., rows, Lk, phim]
         else:
             planes = lb.byte_decomp_planes(parts_limbs, self.log_q,

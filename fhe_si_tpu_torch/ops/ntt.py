@@ -14,7 +14,9 @@ bit).  The digit-plane helpers of the JAX package (chunk_matrix,
 chunk_x*, karatsuba_groups, horner_combine, digit_cross_groups) are the
 MXU's encoding of these residues and have no counterpart here.
 
-A product sums n_in terms below (q_max - 1)^2:
+A product sums n_in terms below (q_max - 1)^2 (below (q_max - 1) * y_max
+for inputs in [0, y_max], as the Cooley-Tukey route's digit stage has,
+ops/ntt_ct_matmul.py):
   narrow lane (q < 2^20): n_in * 2^40 < 2^53 for n_in <= 8192, and the
     dense family stops at phim = 4096 (context.py), so one matmul;
   wide lane (q < 2^23): one matmul only below n_in = 128.  Past it the
@@ -22,7 +24,8 @@ A product sums n_in terms below (q_max - 1)^2:
     and n_in * 2^12 * 2^23 stay below 2^53 for n_in < 2^18), joined mod q
     as ops/ntt_ct._stage does.
 `operands` makes the float64 operands of a table once (DeviceContext
-keeps them on the device); `modmatmul` runs them.
+keeps them on the device, built by `device_operands`); `modmatmul` runs
+them.
 """
 from __future__ import annotations
 
@@ -34,21 +37,41 @@ SPLIT_BITS = 12
 SPLIT_MASK = (1 << SPLIT_BITS) - 1
 
 
-def needs_split(n_in: int, q_max: int) -> bool:
-    """True when one float64 matmul of n_in terms below q_max^2 could
-    leave the exact range (the module header's lane bounds)."""
-    return n_in * (q_max - 1) ** 2 >= F64_EXACT
+def needs_split(n_in: int, q_max: int, y_max: int | None = None) -> bool:
+    """True when one float64 matmul of n_in terms, each a table entry
+    below q_max times an input in [0, y_max] (default q_max - 1: a
+    residue), could leave the exact range (the module header's lane
+    bounds)."""
+    y_max = q_max - 1 if y_max is None else y_max
+    return n_in * y_max * (q_max - 1) >= F64_EXACT
 
 
-def operands(tab, q_max: int) -> tuple:
+def operands(tab, q_max: int, y_max: int | None = None) -> tuple:
     """Integer table [L, n_out, n_in] (entries in [0, q)) -> the float64
-    operands of modmatmul: (tab,) when one matmul is exact, else the
-    12-bit split (tab >> 12, tab & 4095)."""
+    operands of modmatmul for inputs in [0, y_max] (default residues):
+    (tab,) when one matmul is exact, else the 12-bit split (tab >> 12,
+    tab & 4095)."""
     tab = torch.as_tensor(np.asarray(tab, dtype=np.int64))
-    if needs_split(tab.shape[-1], q_max):
+    if needs_split(tab.shape[-1], q_max, y_max):
         return ((tab >> SPLIT_BITS).to(torch.float64),
                 (tab & SPLIT_MASK).to(torch.float64))
     return (tab.to(torch.float64),)
+
+
+def device_operands(slabs, count: int, q_max: int, device,
+                    y_max: int | None = None) -> tuple:
+    """The operands of a table of `count` primes on `device`, made from
+    its integer slabs [1, n_out, n_in] one prime at a time, so the host
+    holds one float64 slab and the device one copy of each operand."""
+    out = None
+    for l, slab in enumerate(slabs):
+        ops = operands(slab, q_max, y_max)
+        if out is None:
+            out = tuple(torch.empty((count,) + op.shape[1:], dtype=op.dtype,
+                                    device=device) for op in ops)
+        for o, op in zip(out, ops):
+            o[l] = op[0]
+    return out
 
 
 def with_crt_premultiplier(tab: np.ndarray, binv, q) -> np.ndarray:

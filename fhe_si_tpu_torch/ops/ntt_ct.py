@@ -133,12 +133,18 @@ def ct_tables(m: int, primes, roots) -> tuple[CtMeta, dict]:
     primes = np.asarray(primes, dtype=np.int64)
     roots = np.asarray(roots, dtype=np.int64)
     L = len(primes)
-    tabs = {k: np.empty((L,) + s, dtype=np.int64) for k, s in (
-        ('t1', (N1, N1)), ('t2', (N2, N2)), ('t1i', (N1, N1)),
-        ('t2i', (N2, N2)), ('tw', (N1, N2)), ('twi', (N1, N2)))}
     j1 = np.arange(N1, dtype=np.int64)
     j2 = np.arange(N2, dtype=np.int64)
     c1, c2 = j1, j2
+    # exponents of w, the same for every prime: each table is one gather
+    # from that prime's powers of w
+    expo = {'t1': 2 * N2 * np.outer(j1, j1) % m,
+            't2': N1 * c2[None, :] * (2 * j2[:, None] + 1) % m,
+            't2i': N1 * c2[:, None] * (2 * j2[None, :] + 1) % m,
+            'tw': c1[:, None] * (2 * j2[None, :] + 1) % m}
+    expo['t1i'], expo['twi'] = expo['t1'], expo['tw']
+    tabs = {k: np.empty((L,) + expo[k].shape, dtype=np.int32)
+            for k in ('t1', 't2', 't1i', 't2i', 'tw', 'twi')}
     for l in range(L):
         q, w = int(primes[l]), int(roots[l])
         if pow(w, m, q) != 1 or pow(w, m // 2, q) != q - 1:
@@ -150,14 +156,13 @@ def ct_tables(m: int, primes, roots) -> tuple[CtMeta, dict]:
             pw[i], pwi[i] = acc, acci
             acc = acc * w % q
             acci = acci * winv % q
-        tabs['t1'][l] = pw[(2 * N2 * np.outer(j1, j1)) % m]
-        tabs['t1i'][l] = pwi[(2 * N2 * np.outer(j1, j1)) % m]
-        tabs['t2'][l] = pw[(N1 * c2[None, :] * (2 * j2[:, None] + 1)) % m]
-        tabs['t2i'][l] = (pwi[(N1 * c2[:, None] * (2 * j2[None, :] + 1)) % m]
+        pw, pwi = pw.astype(np.int32), pwi.astype(np.int32)
+        for k in ('t1', 't2', 'tw'):
+            np.take(pw, expo[k], out=tabs[k][l])
+        for k in ('t1i', 'twi'):
+            np.take(pwi, expo[k], out=tabs[k][l])
+        tabs['t2i'][l] = (pwi[expo['t2i']].astype(np.int64)
                           * numbth.modinv(N, q) % q)
-        tabs['tw'][l] = pw[(c1[:, None] * (2 * j2[None, :] + 1)) % m]
-        tabs['twi'][l] = pwi[(c1[:, None] * (2 * j2[None, :] + 1)) % m]
-    tabs = {k: v.astype(np.int32) for k, v in tabs.items()}
     tabs['q'] = primes.astype(np.int32)
     return CtMeta(N1, N2, phim, q_odd), tabs
 

@@ -19,7 +19,11 @@ prepares here on the host and DeviceContext keeps beside the tables
 
 Dispatch: a tensor on the CPU takes the plain version of ops/ntt_ct.py;
 a tensor on a CUDA device launches the kernel, or raises.  There is no
-fallback from a failed launch or a split the kernel cannot take.
+fallback from a failed launch or a split the kernel cannot take: the
+splits it cannot take (N x 1 for N prime, as every reference ring
+m = p - 1 past p = 4079 gives, and m = 2^16) never reach these wrappers
+from DeviceContext, which sends them to ops/ntt_ct_matmul.py, chosen by
+kernel_takes before any launch.
 LAUNCHES counts the kernel launches of each wrapper (the plain path does
 not count).
 
@@ -203,6 +207,10 @@ def kernel_smem(S: int, R: int) -> int:
     return planes + tw if planes + tw <= SMEM_MAX else planes
 
 
+def _fits(S: int, R: int, limit: int) -> bool:
+    return min(S, R) >= 2 and kernel_smem(S, R) <= limit
+
+
 def check_kernel_shape(name: str, shape, S: int, R: int,
                        limit: int = SMEM_MAX):
     """Raise ValueError, with the input's shape, unless ct_mma_kernel
@@ -212,14 +220,25 @@ def check_kernel_shape(name: str, shape, S: int, R: int,
     limits (sides up to 224 of its 1024, at most 16 input tiles per warp).
     The wrappers call it before every launch; the plain versions take
     every split."""
+    if _fits(S, R, limit):
+        return
     split = f"input {tuple(shape)} (N1 x N2 = {max(S, R)} x {min(S, R)})"
     if min(S, R) < 2:
         raise ValueError(f"{name}: {split}: the tensor-core kernel needs "
                          "N1, N2 >= 2")
-    need = kernel_smem(S, R)
-    if need > limit:
-        raise ValueError(f"{name}: {split} needs {need} bytes of shared "
-                         f"memory per block; the card allows {limit}")
+    raise ValueError(f"{name}: {split} needs {kernel_smem(S, R)} bytes of "
+                     f"shared memory per block; the card allows {limit}")
+
+
+def kernel_takes(meta: CtMeta, limit: int = SMEM_MAX) -> bool:
+    """True when ct_mma_kernel takes the split of `meta` in both
+    orientations (forward S = N2, R = N1; inverse S = N1, R = N2), by
+    check_kernel_shape's rule against `limit` bytes of shared memory.
+    Reads no device: DeviceContext picks its transform route with it
+    (chip_smoke.py checks that the card's opt-in limit is at least
+    SMEM_MAX)."""
+    return (_fits(meta.N2, meta.N1, limit)
+            and _fits(meta.N1, meta.N2, limit))
 
 
 def _launch(name: str, fn, inp, tabs, out, rows, L, meta: CtMeta):
@@ -262,12 +281,14 @@ def _smem_limit(device: torch.device) -> int:
 
 def _mma_tables(name, x, T: dict, keys, S: int, R: int):
     """The tensor-core kernel's tables, after checking that it takes the
-    split (check_kernel_shape, against the card's shared memory)."""
+    split (check_kernel_shape, against the card's shared memory) and
+    before looking for them: a split the kernel cannot take raises with
+    its shape whatever tables it was handed."""
+    check_kernel_shape(name, x.shape, S, R, _smem_limit(x.device))
     missing = [k for k in keys if k not in T]
     if missing:
         raise ValueError(f"{name}: the tables lack {missing}; build them "
                          "with ntt_ct_cuda.kernel_tables (DeviceContext does)")
-    check_kernel_shape(name, x.shape, S, R, _smem_limit(x.device))
     return tuple(T[k] for k in keys)
 
 

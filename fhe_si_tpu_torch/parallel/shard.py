@@ -12,7 +12,8 @@ ShardedPipelines: the CRT prime axis over 'limb', the batch over 'dp'.
     (DeviceContext(ctx, device, rows)): the transforms, the tensor
     product, the digit transform and the keyswitch dot are per prime, so
     on a Cooley-Tukey ring on CUDA the three kernels run on the rank's
-    rows (ops/ntt_ct_cuda.py), on a dense ring ops/ntt.modmatmul.
+    rows (ops/ntt_ct_cuda.py; the matmul route, ops/ntt_ct_matmul.py, on
+    a split the kernel cannot take), on a dense ring ops/ntt.modmatmul.
   - The only collectives: one all-reduce over 'limb' of the three CRT
     partials (ops/crt.crt_partials) at each reconstruction, the
     ScaleDown and the keyswitch output, then crt_finish and the limb
@@ -245,6 +246,20 @@ def coeff_sharded_ntt(dev, mesh, forward: bool = True):
     return lambda x: _dense_sharded(tab, x, dev.q, mesh, "coeff")
 
 
+def _ct_int_tables(dev) -> dict:
+    """The full chain's integer Cooley-Tukey tables, which the plain
+    stage products read: dev.full['ct'] on the kernel route; on the
+    matmul route (m = 2^16 among the rings a coefficient mesh takes),
+    whose tables are float64 stage operands, rebuilt on the host and put
+    on dev's device."""
+    if dev.ct_route == "kernel":
+        return dev.full['ct']
+    ctx = dev.ctx
+    _, ct = ntt_ct.ct_tables(ctx.m, ctx.primes, ctx.roots)
+    ct = ntt_ct.with_crt_premultiplier(ct, ctx.fast_crt_tables['binv'])
+    return {k: torch.as_tensor(v, device=dev.device) for k, v in ct.items()}
+
+
 def ct_coeff_sharded_ntt(dev, mesh, forward: bool = True):
     """Two-level Cooley-Tukey transform with phi(m) sharded over 'coeff'
     (m = 2^k): returns fn(x [..., L, N/S], this rank's block) -> its
@@ -253,7 +268,7 @@ def ct_coeff_sharded_ntt(dev, mesh, forward: bool = True):
     if not dev.use_ct:
         raise ValueError("ct_coeff_sharded_ntt takes a Cooley-Tukey ring")
     _check_coeff(dev, mesh.shape["coeff"])
-    T, meta = dev.full['ct'], dev.ct_meta
+    T, meta = _ct_int_tables(dev), dev.ct_meta
     if forward:
         return lambda x: ct_sharded_fwd_local(T, x, meta, mesh)
     return lambda e: ct_sharded_inv_local(T, e, meta, mesh)
@@ -276,7 +291,7 @@ class CoeffShardedPipelines:
         self.dev = dev
         T = dev.full
         if dev.use_ct:
-            ct, meta = T['ct'], dev.ct_meta
+            ct, meta = _ct_int_tables(dev), dev.ct_meta
             self._fwd = lambda x: ct_sharded_fwd_local(ct, x, meta, mesh,
                                                        coeff)
             self._inv_crt = lambda e: ct_sharded_inv_local(

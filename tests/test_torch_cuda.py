@@ -1,7 +1,8 @@
 """The port on a CUDA card: the three kernels against their plain PyTorch
 versions on both residue lanes, on power-of-two and mixed-radix rings
-(odd N1 among them), the splits the kernel refuses, the dense transform family against the
-same function on the CPU, the multiply + relinearize slice (on the
+(odd N1 among them), the splits the kernel refuses and the matmul route
+that takes them, the dense transform family against the same function on
+the CPU, the multiply + relinearize slice (on the
 Cooley-Tukey rings, decompSize 4 included, and on dense rings) and the
 two applications on the card against the same runs on the CPU (which
 test_torch_slice.py, test_torch_dense*.py and test_torch_apps*.py hold
@@ -193,6 +194,54 @@ def test_split_with_a_side_of_one_raises(cuda):
     with pytest.raises(ValueError, match=r"\(2, 10\) \(N1 x N2 = 11 x 1\)"):
         ntt_ct_cuda.ct_fwd_digits(dc.ksw["ct"], x[:, 0], meta, 24)
     assert not any(ntt_ct_cuda.LAUNCHES.values())
+
+
+# rings whose split the kernel cannot take (N x 1): the matmul route
+ROUTE_RINGS = [pytest.param((dict(m=22, log_q=80, p=23, generator=7), True),
+                            id="m22-forced"),
+               pytest.param((dict(m=4126, log_q=80, p=4127, generator=5),
+                             False), id="m4126")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ring", ROUTE_RINGS)
+def test_matmul_route_on_card_equals_cpu(cuda, ring):
+    """m = 22 with use_ct forced (11 x 1) and the reference's m = 4126
+    (2063 x 1) ride the matmul route: its transforms of every basis and
+    the mul+relin round on the card equal the CPU's, and no kernel
+    launches."""
+    from fhe_si_tpu_torch.ops import ntt_ct_matmul
+    kw, force = ring
+    ctx = FheContext(**kw)
+    ctx.use_ct = ctx.use_ct or force
+    gpu, cpu = DeviceContext(ctx, cuda), DeviceContext(ctx, "cpu")
+    assert gpu.ct_route == cpu.ct_route == "matmul"
+    meta = gpu.ct_meta
+    rng = np.random.default_rng(ctx.m)
+    ntt_ct_cuda.reset_launches()
+    ntt_ct_matmul.reset_calls()
+    for basis in ("full", "ksw", "lin"):
+        Tg, Tc = getattr(gpu, basis), getattr(cpu, basis)
+        q = Tc["primes_np"]
+        x = torch.as_tensor(rng.integers(0, q[:, None], size=(
+            RAGGED, len(q), meta.phim)).astype(np.int32))
+        d = torch.as_tensor(rng.integers(0, 1 << 24, size=(
+            RAGGED, meta.phim)).astype(np.int32))
+        ev = gpu._fwd_t(Tg, x.to(cuda))
+        assert torch.equal(ev.cpu(), cpu._fwd_t(Tc, x))
+        assert torch.equal(gpu._inv_crt_t(Tg, ev).cpu(),
+                           cpu._inv_crt_t(Tc, ev.cpu()))
+        assert torch.equal(
+            ntt_ct_matmul.ct_fwd_digits(Tg["ct"], d.to(cuda), meta, 24).cpu(),
+            ntt_ct_matmul.ct_fwd_digits(Tc["ct"], d, meta, 24))
+    x = torch.as_tensor(rng.integers(0, ctx.primes[:, None], size=(
+        RAGGED, gpu.L, meta.phim)).astype(np.int32), device=cuda)
+    assert torch.equal(gpu.ntt_inv(gpu.ntt_fwd(x)), x)
+    (cpu_parts, _, _), (parts, _, launched) = (_slice_round(ctx, "cpu"),
+                                               _slice_round(ctx, cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(cpu_parts, parts)
+    assert not any(launched.values()) and all(ntt_ct_matmul.CALLS.values())
 
 
 @pytest.mark.cuda

@@ -7,14 +7,15 @@ Phases, each of which raises on failure (any failure exits nonzero and
 prints no result line):
   1. device check: refuses to run without CUDA; prints the card's name
      and power limit as nvidia-smi reports them;
-  2. build: compiles the CUDA kernels from fhe_si_tpu_torch/csrc and
-     prints ptxas's report for each kernel (registers, shared memory,
-     spills); checks that the card allows at least the shared memory per
-     block that DeviceContext's choice of transform route assumes
+  2. build: compiles the CUDA kernels from fhe_si_tpu_torch/csrc
+     (ct_ntt.cu and crt.cu, one nvcc each, started together) and prints
+     ptxas's report for each kernel (registers, shared memory, spills);
+     checks that the card allows at least the shared memory per block
+     that DeviceContext's choice of transform route assumes
      (ntt_ct_cuda.SMEM_MAX);
   3. each kernel against its plain PyTorch version on the card, at the
      narrow tables of m = 8192, 256 and 32 and the wide (23-bit prime)
-     tables of the regression context (m = 8192, logQ 213) and of
+     tables of both apps' contexts (m = 8192, logQ 213 and 132) and of
      m = 256 and 32, on the full chain and both subset bases, and on
      tables of a narrow and a wide prime at m = 2^14 and 2^15, with a
      ragged row count, a [2, 3] lead shape, the forward/inverse round
@@ -24,19 +25,32 @@ prints no result line):
      18 and 54 on narrow primes (odd N1 among them), m = 13122 (81 x 81)
      on one narrow prime and m = 20480 (128 x 80) on a narrow and a
      23-bit prime; plus the int32 semantics the port relies on
-     (wraparound, round half to even, arithmetic >>);
+     (wraparound, round half to even, arithmetic >>).  The two limb/CRT
+     kernels (ops/crt_cuda.py: crt_to_limbs as partials, finish and in
+     one pass, each without a tail, with ScaleDown's and with the signed
+     reduction; limbs_to_residues at the ciphertext and reconstruction
+     widths) against their plain versions on every basis of the same
+     contexts, on random inputs with a worst-case row (every residue
+     q - 1, every limb 0xFFFF, negative values), bit for bit; later
+     phases do the same on every other context they build (m = 2^15,
+     the dense rings, m = 20480, the 'limb' shard's tables, p = 8147 and
+     m = 2^16 on the route);
   4. the main path at FheContext(m=8192, log_q=80, p=40961, g=3):
      keygen, relinearization key, batched encrypt of 64 pairs, batched
      multiply + relinearize, batched decrypt; every decrypt must equal
-     the plaintext product, and every kernel must have launched.  At
-     m = 256 the ciphertext parts must also equal hostmath/oracle.py;
+     the plaintext product, every kernel must have launched, and no
+     plain function that the limb/CRT kernels replace may have run on a
+     CUDA tensor (on any path below either).  At m = 256 the ciphertext
+     parts must also equal hostmath/oracle.py;
   4b. the same path at the JAX package's m = 2^15 config,
      FheContext(m=32768, log_q=170, p=65537, g=3) (wide lane), on 4
      pairs; prints its wall time;
-  5. timing with CUDA events: mul+relin at batch 64 and each kernel
-     against its plain version and its bound (the larger of its int32
-     bytes over the HBM rate and its int8 byte products over the int8
-     tensor-core rate) at the main path's shapes, at the regression
+  5. timing with CUDA events: mul+relin at batch 64, its four stages,
+     and each kernel against its plain version and its bound (the
+     larger of its int32 bytes over the HBM rate and its int8 byte
+     products over the int8 tensor-core rate for the transforms, its
+     int32 operations over the INT32 rate for the limb/CRT kernels) at
+     the main path's shapes, at the regression
      app's wide shapes and at the m = 2^15 path's shapes (with 4 pairs:
      its mul+relin step too); at the main path's and the m = 2^15 path's
      shapes also with its launches per mul+relin step;
@@ -57,7 +71,8 @@ prints no result line):
         m = 4006, logQ 170, g = 5), batch 64: every decrypt must equal
         oracle.plaintext_mul; the step and its four stages timed with
         CUDA events, the dense transform at the path's shapes against its
-        bound, and its calls per step;
+        bound, and its calls per step, the limb/CRT kernels at the step's
+        shapes;
      c. Test_Regression and Test_Statistics at p = 4007, g = 5, m = 4006
         (logQ as derive_log_q gives it) on the d = 4, n = 256 dataset:
         both must print MATCH;
@@ -87,8 +102,10 @@ prints no result line):
         (dp = 1, limb = 1) and its block reduce on the main path's 64
         pairs; the batch equal to DeviceContext.mul_relin bit for bit,
         every decrypt to oracle.plaintext_mul and the block reduce to
-        their sum; all three kernels launched (on the shard's rows) and no
-        plain transform; the sharded and the unsharded step timed in turns
+        their sum; every kernel launched (on the shard's rows) and no
+        plain transform; the limb/CRT kernels against their plain versions
+        on the shard tables of this world and of both halves of a
+        limb = 2 world; the sharded and the unsharded step timed in turns
         with CUDA events, and the unsharded step's kernels by name from a
         torch.profiler trace;
      b. worlds of fhe_si_tpu_torch.parallel.run_distributed at m = 8192,
@@ -98,8 +115,9 @@ prints no result line):
         rank's, each batched output to the unsharded step; per-rank times
         (ranks share the card: not a scaling figure);
      c. a world of two ranks (gloo) as coeff = 2, batch 8, in the same
-        start: the output equal to the unsharded step, no kernel launched
-        (the coefficient-sharded transforms are plain PyTorch);
+        start: the output equal to the unsharded step, no transform
+        kernel launched (the coefficient-sharded transforms are plain
+        PyTorch), both limb/CRT kernels launched;
      d. Test_Regression --trace at phase 6's config: MATCH, and the trace
         names ct_mma_kernel among its kernels; the regression phase by
         kernel name;
@@ -119,7 +137,8 @@ prints no result line):
         launched, no plain Cooley-Tukey transform, the route's counts
         moved; then the step and its four stages timed with CUDA events
         and the route's stage products at the step's shapes against
-        their FP64 bound; peak device memory;
+        their FP64 bound, the limb/CRT kernels at the step's shapes;
+        peak device memory;
      c. Test_Statistics at p = 8147 (MATCH) and Test_AddMul 170 8147 3
         --trials 10, the latter in a child process
         (chip_smoke.py --route-cli) started when the phase starts, both
@@ -184,12 +203,25 @@ ORACLE_WORKERS = 5      # processes for oracle.plaintext_mul at phim 4072
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 peak bandwidth
 INT8_OPS_PER_S = 1979e12        # dense int8 tensor-core rate, H100 SXM
 F64_OPS_PER_S = 67e12           # FP64 tensor-core rate, H100 SXM
+# int32 on the CUDA cores: 132 SMs x 64 INT32 lanes x 1.98 GHz, a
+# multiply-add or a three-input add counted as two operations (as the
+# FP32 rate of 67 TFLOP/s counts a fused multiply-add)
+INT32_OPS_PER_S = 33.5e12
 PALLAS = "fhe_si_tpu/ops/ntt_ct_pallas.py"
-KERNELS = {   # wrapper -> Pallas kernel body it replaces
-    "ct_fwd": f"{PALLAS}:148",
-    "ct_fwd_digits": f"{PALLAS}:137",
-    "ct_inv": f"{PALLAS}:158",
+NTT = ("ct_fwd", "ct_fwd_digits", "ct_inv")
+CRT = ("crt_to_limbs", "limbs_to_residues")
+KERNELS = {   # wrapper -> (source, the TPU code it replaces)
+    "ct_fwd": ("fhe_si_tpu_torch/csrc/ct_ntt.cu", f"{PALLAS}:148"),
+    "ct_fwd_digits": ("fhe_si_tpu_torch/csrc/ct_ntt.cu", f"{PALLAS}:137"),
+    "ct_inv": ("fhe_si_tpu_torch/csrc/ct_ntt.cu", f"{PALLAS}:158"),
+    # not Pallas kernels: jnp code that XLA fuses on the TPU
+    "crt_to_limbs": ("fhe_si_tpu_torch/csrc/crt.cu",
+                     "fhe_si_tpu/ops/crt.py:234 (XLA-fused jnp, not Pallas)"),
+    "limbs_to_residues": ("fhe_si_tpu_torch/csrc/crt.cu",
+                          "fhe_si_tpu/ops/crt.py:38 (XLA-fused jnp, not "
+                          "Pallas)"),
 }
+MAX_ERR = dict.fromkeys(KERNELS, 0)     # kernel vs plain, over phase 3 on
 
 
 def card_line() -> str:
@@ -209,6 +241,44 @@ def cuda_ms(fn, iters: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def reset_launches():
+    """Every kernel's launch count to 0."""
+    from fhe_si_tpu_torch.ops import crt_cuda, ntt_ct_cuda
+    ntt_ct_cuda.reset_launches()
+    crt_cuda.reset_launches()
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch count since reset_launches."""
+    from fhe_si_tpu_torch.ops import crt_cuda, ntt_ct_cuda
+    return dict(ntt_ct_cuda.LAUNCHES, **crt_cuda.LAUNCHES)
+
+
+def crt_bound(name: str, rows: int, L: int, n: int, width: int,
+              phim: int) -> tuple[float, str]:
+    """Least time (ms) the card could take for one limb/CRT kernel call and
+    what sets it: its int32 input and output moved once each over the HBM
+    rate, or the int32 operations the function needs over the INT32 rate,
+    a multiply-add counted as 2 (also one of 64-bit width, IMAD.WIDE).
+    crt_to_limbs (L residues -> width limbs), per coefficient: for each
+    residue row n multiply-adds of its residue into the limb sums, and 2
+    for its m_r and er terms; then 12 for the wrap count (two reductions
+    mod m_r and the product with P^-1), a multiply-add per limb for its
+    subtraction and 3 per limb for the carry chain (the tail not
+    counted).  limbs_to_residues (n limbs -> L residues): per coefficient
+    and prime n multiply-adds and 12 for the reduction."""
+    coeffs = rows * phim
+    if name == "crt_to_limbs":
+        nbytes = 4 * coeffs * (L + width)
+        ops = coeffs * (L * (2 * n + 4) + 5 * n + 12)
+    else:
+        nbytes = 4 * coeffs * (n + L)
+        ops = coeffs * L * (2 * n + 12)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def kernel_bound(name: str, rows: int, L: int, meta) -> tuple[float, str]:
@@ -284,14 +354,8 @@ def phase_kernels(dev):
     from fhe_si_tpu_torch import DeviceContext, FheContext
     from fhe_si_tpu_torch.hostmath import numbth
     from fhe_si_tpu_torch.ops import ntt_ct, ntt_ct_cuda
-    err = dict.fromkeys(KERNELS, 0)
     rng = np.random.default_rng(SEED)
-
-    def check(name, got, want):
-        d = (got.to(torch.int64) - want.to(torch.int64)).abs().max().item()
-        err[name] = max(err[name], d)
-        if d:
-            raise AssertionError(f"{name}: kernel differs from plain by {d}")
+    check = check_equal
 
     def check_tables(tab, q_np, meta, label, t2i_keys=("t2i", "t2i_crt")):
         L, N = len(q_np), meta.phim
@@ -316,7 +380,7 @@ def phase_kernels(dev):
         print(f"kernels == plain: {label} N1xN2={meta.N1}x{meta.N2} "
               f"phim={meta.phim} L={L}")
 
-    wide = [app_contexts()["regression"]] + [
+    wide = list(app_contexts().values()) + [
         dict(cfg, prime_bits=23) for cfg in SMALL]
     for cfg, want_wide in ([(c, False) for c in [MAIN] + SMALL]
                            + [(c, True) for c in wide]):
@@ -328,6 +392,7 @@ def phase_kernels(dev):
             check_tables(T['ct'], T['primes_np'], dc.ct_meta,
                          f"m={cfg['m']} logQ={cfg['log_q']} "
                          f"{'wide' if ctx.wide else 'narrow'} basis={basis}")
+        check_crt(dc, f"m={cfg['m']} logQ={cfg['log_q']}")
     # the largest rings, on tables of one narrow and one wide prime
     # (m = 2^15: the twiddle read from global memory, 16 tiles per warp)
     for m in (1 << 14, 1 << 15):
@@ -350,7 +415,63 @@ def phase_kernels(dev):
         check_tables(tab, np.asarray(qs, np.int64), meta,
                      f"m={m} primes={qs}")
     torch.cuda.synchronize()
-    return err
+
+
+def check_equal(name, got, want):
+    """Kernel output == plain output, bit for bit; the largest difference
+    seen is kept in MAX_ERR."""
+    import torch
+    d = (got.to(torch.int64) - want.to(torch.int64)).abs().max().item()
+    MAX_ERR[name] = max(MAX_ERR[name], d)
+    if d:
+        raise AssertionError(f"{name}: kernel differs from plain by {d}")
+
+
+def check_crt(dc, label, rows=RAGGED_ROWS, bases=("full", "ksw", "lin")):
+    """Both limb/CRT kernels in every mode against their plain versions on
+    the card, on each basis of dc, bit for bit: crt_to_limbs as partials,
+    as finish (on the partials) and in one pass, each without a tail,
+    with ScaleDown's rounding and with the signed reduction; the lift at
+    the ciphertext and the reconstruction widths.  Inputs are random
+    with a worst-case row: every residue q - 1, every limb 0xFFFF (the
+    value -1), and negative values."""
+    import torch
+    from fhe_si_tpu_torch.ops import crt, crt_cuda
+    rng = np.random.default_rng(SEED)
+    seen = set()
+    for basis in bases:
+        T = getattr(dc, basis)
+        if id(T) in seen:
+            continue
+        seen.add(id(T))
+        q, fc = T['primes_np'], T['fast_crt']
+        res = rng.integers(0, q[:, None], size=(rows, len(q), dc.phim))
+        res[0] = q[:, None] - 1
+        res = torch.as_tensor(res.astype(np.int32), device=dc.device)
+        part = crt_cuda.crt_partials(res, fc, dc.wide)
+        for got, want in zip(part, crt_cuda.crt_partials_plain(res, fc,
+                                                               dc.wide)):
+            check_equal("crt_to_limbs", got, want)
+        for tail in (None, dc.tail("round_down"), dc.tail("reduce_signed")):
+            want = crt_cuda.crt_to_limbs_plain(res, fc, dc.wide, tail)
+            check_equal("crt_to_limbs",
+                        crt_cuda.crt_to_limbs(res, fc, dc.wide, tail), want)
+            check_equal("crt_to_limbs",
+                        crt_cuda.crt_finish(*part, fc, dc.wide, tail), want)
+        n = fc['B'].shape[-1]
+        for width in (dc.n_ct, n):
+            poly = rng.integers(0, 1 << 16, size=(rows, dc.phim, width))
+            poly[0] = 0xFFFF
+            poly[1, :, -1] |= 0x8000
+            args = (torch.as_tensor(poly.astype(np.int32), device=dc.device),
+                    T['chunk_tbl'], dc._wrap_const(q, width), T['q'],
+                    T['qinv_f'], dc.wide)
+            check_equal("limbs_to_residues", crt_cuda.limbs_to_residues(*args),
+                        crt.limbs_to_residues(*args))
+        print(f"crt kernels == plain: {label} "
+              f"{'wide' if dc.wide else 'narrow'} basis={basis} "
+              f"rows={len(q)} n={n} n_ct={dc.n_ct} phim={dc.phim}")
+    torch.cuda.synchronize()
 
 
 def _plaintext_mul_job(phim, phim_x, p, a, b):
@@ -440,50 +561,92 @@ def plain_ct_calls():
             setattr(ntt_ct, n, plain[n])
 
 
+# the plain functions that the two limb/CRT kernels replace: ops/crt.py's
+# and crt_cuda.tail_plain (the limb tails).  The decrypt tail
+# (crt.limbs_to_mod_small) and the Garner cross-check
+# (crt.residues_to_limbs) stay plain and are not counted.
+PLAIN_CRT = {"crt": ("limbs_to_residues", "crt_partials", "crt_finish",
+                     "residues_to_limbs_fast"),
+             "crt_cuda": ("tail_plain",)}
+
+
+@contextlib.contextmanager
+def plain_crt_calls():
+    """Counts the calls, on CUDA tensors, of the plain functions of
+    PLAIN_CRT made while the block runs: the wrappers of ops/crt_cuda.py
+    reach them only for CPU tensors, so a path on the card must make
+    none."""
+    from fhe_si_tpu_torch.ops import crt, crt_cuda
+    mods = {"crt": crt, "crt_cuda": crt_cuda}
+    calls = []
+    plain = {(m, n): getattr(mods[m], n)
+             for m, names in PLAIN_CRT.items() for n in names}
+
+    def counted(key):
+        def call(x, *args, **kw):
+            if x.is_cuda:
+                calls.append(key[1])
+            return plain[key](x, *args, **kw)
+        return call
+    for key in plain:
+        setattr(mods[key[0]], key[1], counted(key))
+    try:
+        yield calls
+    finally:
+        for key, fn in plain.items():
+            setattr(mods[key[0]], key[1], fn)
+
+
 class PathCounts(NamedTuple):
     """What a block ran besides the kernels (transform_calls)."""
     dense: list      # ops/ntt.modmatmul calls: the dense family's
     #                  transforms, or the matmul route's stage products
     plain: list      # plain Cooley-Tukey transforms (ops/ntt_ct.py)
     route: dict      # ops/ntt_ct_matmul.CALLS, filled when the block ends
+    plain_crt: list  # plain limb/CRT functions on CUDA tensors (PLAIN_CRT)
 
 
 @contextlib.contextmanager
 def transform_calls():
-    """dense_calls, plain_ct_calls and the matmul route's counts (set to
-    0 on entry) of the block."""
+    """dense_calls, plain_ct_calls, plain_crt_calls and the matmul route's
+    counts (set to 0 on entry) of the block."""
     from fhe_si_tpu_torch.ops import ntt_ct_matmul
     ntt_ct_matmul.reset_calls()
     route: dict = {}
-    with dense_calls() as dense, plain_ct_calls() as plain:
-        yield PathCounts(dense, plain, route)
+    with dense_calls() as dense, plain_ct_calls() as plain, \
+            plain_crt_calls() as plain_crt:
+        yield PathCounts(dense, plain, route, plain_crt)
     route.update(ntt_ct_matmul.CALLS)
 
 
 def check_launches(label, launches, expect, calls: PathCounts,
                    route: bool = False):
     """The kernels in `expect` launched and no other, and no plain
-    Cooley-Tukey transform ran.  With route, the block must have run
-    the matmul route (ops/ntt_ct_matmul.py, whose stage products are
-    modmatmul calls) and launched no kernel; without, it must not have
-    touched the route, and a run that launched no kernel must have gone
-    through the dense transform, and one that did, not."""
+    Cooley-Tukey transform and no plain limb/CRT function (PLAIN_CRT) ran
+    on a CUDA tensor.  With route, the block must have run the matmul
+    route (ops/ntt_ct_matmul.py, whose stage products are modmatmul
+    calls) and launched no transform kernel; without, it must not have
+    touched the route, and a run that launched no transform kernel must
+    have gone through the dense transform, and one that did, not."""
     n_dense, n_plain = len(calls.dense), len(calls.plain)
+    n_crt = len(calls.plain_crt)
     n_route = sum(calls.route.values())
     print(f"{label} launches: {launches}, modmatmul calls: {n_dense}, "
-          f"plain Cooley-Tukey transforms: {n_plain}, matmul-route "
-          f"transforms: {calls.route}")
+          f"plain Cooley-Tukey transforms: {n_plain}, plain limb/CRT calls "
+          f"on the card: {n_crt}, matmul-route transforms: {calls.route}")
     for name, n in launches.items():
         if (n > 0) != (name in expect):
             raise AssertionError(f"{label}: {name} launched {n} times")
+    ntt = any(name in NTT for name in expect)
     if route:
-        bad = bool(expect) or not n_route or not n_dense
+        bad = ntt or not n_route or not n_dense
     else:
-        bad = bool(n_route) or bool(expect) == bool(n_dense)
-    if n_plain or bad:
+        bad = bool(n_route) or ntt == bool(n_dense)
+    if n_plain or n_crt or bad:
         raise AssertionError(f"{label}: {n_dense} modmatmul calls, {n_plain} "
-                             f"plain Cooley-Tukey and {n_route} matmul-route "
-                             "transforms ran")
+                             f"plain Cooley-Tukey transforms, {n_crt} plain "
+                             f"limb/CRT calls ({sorted(set(calls.plain_crt))}) "
+                             f"and {n_route} matmul-route transforms ran")
 
 
 class LeanRun(NamedTuple):
@@ -509,7 +672,6 @@ def lean_path(dev, cfg, batch, label, expect=tuple(KERNELS), dc=None,
     msgs[2i], msgs[2i + 1])."""
     import torch
     from fhe_si_tpu_torch import DeviceContext, FheContext, sampling, scheme
-    from fhe_si_tpu_torch.ops import ntt_ct_cuda
     t0 = time.perf_counter()
     if dc is None:
         dc = DeviceContext(FheContext(**cfg), dev)
@@ -519,7 +681,7 @@ def lean_path(dev, cfg, batch, label, expect=tuple(KERNELS), dc=None,
     kr = sampling.sample_keyswitch(src, ctx.phim, ctx.stdev, ctx.log_q, 3,
                                    ctx.ndigits)
     print(f"setup {ctx} on {dev}: {time.perf_counter() - t0:.2f} s")
-    ntt_ct_cuda.reset_launches()
+    reset_launches()
     with transform_calls() as calls:
         sk, pk = scheme.keygen(dc, kg)
         ksw = scheme.KeySwitch.for_relinearization(sk, kr)
@@ -528,7 +690,7 @@ def lean_path(dev, cfg, batch, label, expect=tuple(KERNELS), dc=None,
         out = scheme.relin_batch(scheme.mul_batch(pairs), ksw)
         dec = sk.decrypt_batch(out)
         torch.cuda.synchronize()
-    launches = dict(ntt_ct_cuda.LAUNCHES)
+    launches = launch_counts()
     check_launches(label, launches, expect, calls, route)
     for c in out:
         if c.parts.shape != (2, ctx.phim, ctx.n_limbs_ct) \
@@ -546,20 +708,28 @@ def lean_path(dev, cfg, batch, label, expect=tuple(KERNELS), dc=None,
     return LeanRun(dc, ksw, pairs, out, launches, sk, msgs)
 
 
-def step_cases(dc, batch):
-    """The kernel calls of one mul+relin step on `batch` pairs: 4 parts
-    lifted, 3 tensored parts back, 3 x ndigits digit rows transformed
-    and 2 keyswitched parts back on the ksw basis."""
-    return [("ct_fwd", "full", batch * 4), ("ct_inv", "full", batch * 3),
-            ("ct_inv", "ksw", batch * 2),
-            ("ct_fwd_digits", "ksw", batch * 3 * dc.ndigits)]
+def step_cases(dc, batch, ntt=True):
+    """The kernel calls of one mul+relin step on `batch` pairs, as (kernel,
+    basis, rows, tail): 4 parts lifted (limbs_to_residues, ct_fwd), 3
+    tensored parts back (ct_inv, then crt_to_limbs with ScaleDown's
+    tail), 3 x ndigits digit rows transformed, and 2 keyswitched parts
+    back on the ksw basis (ct_inv, crt_to_limbs with the signed
+    reduction).  ntt=False: the limb/CRT kernels only (the dense family
+    and the matmul route launch no transform kernel)."""
+    cases = [("ct_fwd", "full", batch * 4, None),
+             ("ct_inv", "full", batch * 3, None),
+             ("ct_inv", "ksw", batch * 2, None),
+             ("ct_fwd_digits", "ksw", batch * 3 * dc.ndigits, None)]
+    crt = [("crt_to_limbs", "full", batch * 3, "round_down"),
+           ("crt_to_limbs", "ksw", batch * 2, "reduce_signed"),
+           ("limbs_to_residues", "full", batch * 4, None)]
+    return (cases if ntt else []) + crt
 
 
 def time_step(card, dc, pairs, ksw, out, label):
     """mul+relin over the stacked pairs, held equal to `out` and timed;
     returns (a, b, ms per step, launches of one step)."""
     import torch
-    from fhe_si_tpu_torch.ops import ntt_ct_cuda
     a = torch.stack([x.parts for x, _ in pairs])
     b = torch.stack([y.parts for _, y in pairs])
     ref = torch.stack([c.parts for c in out])
@@ -571,9 +741,9 @@ def time_step(card, dc, pairs, ksw, out, label):
         raise AssertionError(f"{label}: timed mul+relin output changed")
     print(f"[{card}] {label} mul+relin B={len(pairs)} m={dc.ctx.m}: "
           f"{ms:.3f} ms/step, {len(pairs) * 1000.0 / ms:.1f} mults/s")
-    ntt_ct_cuda.reset_launches()
+    reset_launches()
     step()
-    return a, b, ms, dict(ntt_ct_cuda.LAUNCHES)
+    return a, b, ms, launch_counts()
 
 
 def time_stages(card, dc, a, b, ksw, label):
@@ -628,43 +798,71 @@ def oracle_check_small(dev):
           "decrypt)")
 
 
-def time_kernels(card, dev, dc, cases, per_step=None):
-    """Each (kernel, basis, rows) case against its plain version on random
-    operands: held equal, then timed plain, kernel, kernel, plain, and
-    set against its bound.  With per_step, also the kernel's launches per
-    mul+relin step.  Returns {kernel: [(shape, kernel ms, plain ms, bound
-    ms, bound_by), ...]} in case order."""
+def _case(dc, name, basis, rows, tail, rng):
+    """One timed case: (its input, run(kernel: bool), bound ms, bound_by).
+    The transforms' run takes the wrapper of ops/ntt_ct_cuda.py or the
+    plain ops/ntt_ct.py, the limb/CRT kernels' the wrapper of
+    ops/crt_cuda.py or its plain version."""
     import torch
-    from fhe_si_tpu_torch.ops import ntt_ct, ntt_ct_cuda
-    rng = np.random.default_rng(SEED)
-    meta = dc.ct_meta
-    lane = "wide" if dc.wide else "narrow"
-    out = {}
-    for name, basis, rows in cases:
-        T = getattr(dc, basis)
-        tab, q_np = T['ct'], T['primes_np']
+    from fhe_si_tpu_torch.ops import crt, crt_cuda, ntt_ct, ntt_ct_cuda
+    T = getattr(dc, basis)
+    q_np, meta = T['primes_np'], dc.ct_meta
+    if name in NTT:
+        tab = T['ct']
         if name == "ct_fwd_digits":
             x = rng.integers(0, 1 << dc.digit_bits, size=(rows, meta.phim))
-            run = lambda m, x: m.ct_fwd_digits(  # noqa: E731
+            fn = lambda m, x: m.ct_fwd_digits(  # noqa: E731
                 tab, x, meta, dc.digit_bits)
         else:
             x = rng.integers(0, q_np[:, None],
                              size=(rows, len(q_np), meta.phim))
-            run = (lambda m, x: m.ct_fwd(tab, x, meta)) if name == "ct_fwd" \
+            fn = (lambda m, x: m.ct_fwd(tab, x, meta)) if name == "ct_fwd" \
                 else (lambda m, x: m.ct_inv(tab, x, meta, 't2i_crt'))
-        x = torch.as_tensor(x.astype(np.int32), device=dev)
-        if not torch.equal(run(ntt_ct_cuda, x), run(ntt_ct, x)):
+        x = torch.as_tensor(x.astype(np.int32), device=dc.device)
+        return (x, lambda k: fn(ntt_ct_cuda if k else ntt_ct, x),
+                *kernel_bound(name, rows, len(q_np), meta))
+    fc, n = T['fast_crt'], T['fast_crt']['B'].shape[-1]
+    if name == "crt_to_limbs":
+        t = dc.tail(tail) if tail else None
+        x = torch.as_tensor(rng.integers(0, q_np[:, None], size=(
+            rows, len(q_np), dc.phim)).astype(np.int32), device=dc.device)
+        return (x, lambda k: (crt_cuda.crt_to_limbs if k else
+                              crt_cuda.crt_to_limbs_plain)(x, fc, dc.wide, t),
+                *crt_bound(name, rows, len(q_np), n, t.width if t else n,
+                           dc.phim))
+    x = torch.as_tensor(rng.integers(0, 1 << 16, size=(
+        rows, dc.phim, dc.n_ct)).astype(np.int32), device=dc.device)
+    args = (x, T['chunk_tbl'], dc._wrap_const(q_np, dc.n_ct), T['q'],
+            T['qinv_f'], dc.wide)
+    return (x, lambda k: (crt_cuda.limbs_to_residues if k else
+                          crt.limbs_to_residues)(*args),
+            *crt_bound(name, rows, len(q_np), dc.n_ct, dc.n_ct, dc.phim))
+
+
+def time_kernels(card, dev, dc, cases, per_step=None):
+    """Each (kernel, basis, rows, tail) case against its plain version on
+    random operands: held equal, then timed plain, kernel, kernel, plain,
+    and set against its bound.  With per_step, also the kernel's launches
+    per mul+relin step.  Returns {kernel: [(shape, kernel ms, plain ms,
+    bound ms, bound_by), ...]} in case order."""
+    import torch
+    rng = np.random.default_rng(SEED)
+    lane = "wide" if dc.wide else "narrow"
+    out = {}
+    for name, basis, rows, tail in cases:
+        x, run, b_ms, b_by = _case(dc, name, basis, rows, tail, rng)
+        if not torch.equal(run(True), run(False)):
             raise AssertionError(f"{name}: kernel != plain at {tuple(x.shape)}")
         for _ in range(2):
-            run(ntt_ct_cuda, x)
-            run(ntt_ct, x)
-        p1 = cuda_ms(lambda: run(ntt_ct, x), 5)
-        k1 = cuda_ms(lambda: run(ntt_ct_cuda, x), 5)
-        k2 = cuda_ms(lambda: run(ntt_ct_cuda, x), 5)
-        p2 = cuda_ms(lambda: run(ntt_ct, x), 5)
+            run(True)
+            run(False)
+        p1 = cuda_ms(lambda: run(False), 5)
+        k1 = cuda_ms(lambda: run(True), 5)
+        k2 = cuda_ms(lambda: run(True), 5)
+        p2 = cuda_ms(lambda: run(False), 5)
         k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
-        b_ms, b_by = kernel_bound(name, rows, len(q_np), meta)
-        line = (f"[{card}] {name} {lane} m={dc.ctx.m} {basis} "
+        what = f"{name}{' + ' + tail if tail else ''}"
+        line = (f"[{card}] {what} {lane} m={dc.ctx.m} {basis} "
                 f"{tuple(x.shape)}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms"
                 f", bound {b_ms * 1e3:.1f} us ({b_by}), share of bound "
                 f"{100 * b_ms / k_ms:.1f}%")
@@ -792,19 +990,22 @@ def phase_dense(dev, card):
         raise AssertionError("p=4007 logQ 170: expected dense, narrow, "
                              "one matmul per transform")
     check_dense(dc)
+    check_crt(dc, f"p={BIG['p']} m={BIG['m']} logQ={BIG['log_q']} dense")
     wdc = DeviceContext(FheContext(**DENSE_WIDE), dev)
     if wdc.use_ct or not wdc.wide or len(wdc.full['fwd']) != 2:
         raise AssertionError("p=2027 prime_bits=23: expected dense, wide, "
                              "the 12-bit split")
     check_dense(wdc)
+    check_crt(wdc, f"p={DENSE_WIDE['p']} m={DENSE_WIDE['m']} dense")
     del wdc
     t0 = part("a")
 
     # b. mul+relin at bench_big, uncut
     dc, ksw, pairs, out, launches["dense_mul_relin"] = lean_path(
-        dev, BIG, BATCH, "dense path", expect=(), dc=dc)[:5]
-    a, b, *_ = time_step(card, dc, pairs, ksw, out, "dense path")
+        dev, BIG, BATCH, "dense path", expect=CRT, dc=dc)[:5]
+    a, b, _, per_step = time_step(card, dc, pairs, ksw, out, "dense path")
     time_stages(card, dc, a, b, ksw, "dense path")
+    time_kernels(card, dev, dc, step_cases(dc, BATCH, ntt=False), per_step)
     with dense_calls() as calls:
         dc.mul_relin(a, b, ksw.matrix_evals)
         torch.cuda.synchronize()
@@ -817,21 +1018,21 @@ def phase_dense(dev, card):
 
     # c. the apps at the reference's regression ring
     launches.update(phase_apps(dev, card, APP_REF, "narrow", "_m4006",
-                               expect=()))
+                               expect=CRT))
     t0 = part("c")
 
     # d. Test_General at its defaults, Test_AddMul at bench_big's ring
     rc, text, *_, launches["general"] = run_cli(
         dev, test_general, ["test_general", str(GENERAL["p"]),
                             str(GENERAL["generator"]), str(GENERAL["log_q"]),
-                            str(SEED), f"--device={dev}"], "general", ())
+                            str(SEED), f"--device={dev}"], "general", CRT)
     if rc != 0 or text.strip() != "All tests finished.":
         raise AssertionError(f"Test_General failed (rc {rc})")
     t0 = part("d (Test_General)")
     rc, text, *_, launches["addmul"] = run_cli(
         dev, test_addmul, ["test_addmul", str(BIG["log_q"]), str(BIG["p"]),
                            str(BIG["generator"]), "--trials", "10",
-                           f"--device={dev}"], "addmul", ())
+                           f"--device={dev}"], "addmul", CRT)
     if rc != 0 or not text.rstrip().endswith("All tests SUCCEEDED!"):
         raise AssertionError(f"Test_AddMul failed (rc {rc})")
     t0 = part("d (Test_AddMul)")
@@ -840,7 +1041,7 @@ def phase_dense(dev, card):
     # residues through ct_fwd, no ct_fwd_digits
     dc, *_, launches["decomp4"] = lean_path(
         dev, DECOMP4, BATCH_DECOMP4, "decompSize 4",
-        expect=("ct_fwd", "ct_inv"))[:5]
+        expect=("ct_fwd", "ct_inv") + CRT)[:5]
     if dc.digit_bits != 32:
         raise AssertionError(f"decompSize 4: {dc.digit_bits}-bit digits")
     del dc
@@ -851,7 +1052,7 @@ def phase_dense(dev, card):
     cfg = dict(m=LARGE_P["m"], log_q=LARGE_P["log_q"], p=p,
                generator=LARGE_P["generator"])
     dc, *_, launches["large_p"] = lean_path(dev, cfg, BATCH_LARGE_P,
-                                            f"large p={p}", expect=())[:5]
+                                            f"large p={p}", expect=CRT)[:5]
     if dc.ctx.slot_degree != 1 or p < 1 << 20:
         raise AssertionError(f"p={p}: not a large p with slots of degree 1")
     del dc
@@ -866,16 +1067,15 @@ def run_cli(dev, cli, argv, label, expect, route=False):
     after; the kernels in `expect` must have launched and no other.
     Returns (rc, stdout, stderr, launches)."""
     import torch
-    from fhe_si_tpu_torch.ops import ntt_ct_cuda
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     out, err = io.StringIO(), io.StringIO()
-    ntt_ct_cuda.reset_launches()
+    reset_launches()
     with transform_calls() as calls, \
             contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = cli.main(argv)
         torch.cuda.synchronize()
-    launches = dict(ntt_ct_cuda.LAUNCHES)
+    launches = launch_counts()
     print(out.getvalue(), end="")
     check_launches(label, launches, expect, calls, route)
     return rc, out.getvalue(), err.getvalue(), launches
@@ -932,6 +1132,7 @@ def phase_mixed(dev, card):
     if tuple(dc.ct_meta) != (128, 80, 8192, 5) or dc.wide or dc.L != 12:
         raise AssertionError(f"m=20480: {dc.ct_meta}, L={dc.L}, "
                              f"wide={dc.wide}")
+    check_crt(dc, f"m={MIXED['m']} logQ={MIXED['log_q']}", rows=9)
     print(f"m=20480 path wall time: {time.perf_counter() - t0:.2f} s "
           "(setup, keys, encrypt, mul+relin, decrypt)")
     a, b, _, per_step = time_step(card, dc, pairs, ksw, out, "m=20480 path")
@@ -957,7 +1158,7 @@ def time_mixed_helpers(card, dc, batch):
     def rand(*shape):
         return torch.as_tensor(rng.integers(0, 40961, size=shape).astype(
             np.int32), device=dc.device)
-    for name, basis, rows in step_cases(dc, batch):
+    for name, basis, rows, _ in step_cases(dc, batch)[:4]:
         T = getattr(dc, basis)['ct']
         L = T['q'].shape[0]
         full = rand(rows, L, meta.N)
@@ -988,7 +1189,6 @@ def phase_objects(dev, big_ctx, main_dc):
     from fhe_si_tpu_torch.doublecrt import DoubleCrt
     from fhe_si_tpu_torch.hostmath import numbth, oracle
     from fhe_si_tpu_torch.indexmap import IndexSet
-    from fhe_si_tpu_torch.ops import ntt_ct_cuda
     t0 = time.perf_counter()
 
     def part(name):
@@ -1043,7 +1243,7 @@ def phase_objects(dev, big_ctx, main_dc):
     # b. npz export and import from the m = 8192 DeviceContext
     ctx = main_dc.ctx
     src = sampling.RandomSource(SEED)
-    ntt_ct_cuda.reset_launches()
+    reset_launches()
     sk, pk = scheme.keygen(main_dc, src)
     ksw = scheme.KeySwitch.for_relinearization(sk, src)
     msgs = [src.uniform_mod_p(ctx.phim, ctx.p) for _ in range(2)]
@@ -1075,7 +1275,7 @@ def phase_objects(dev, big_ctx, main_dc):
     if list(sk2.decrypt(ct3).message) != list(msgs[1] % ctx.p):
         raise AssertionError("encrypt with an imported key")
     torch.cuda.synchronize()
-    launches = dict(ntt_ct_cuda.LAUNCHES)
+    launches = launch_counts()
     print(f"npz round trip at m={ctx.m} on {dev}: context, keys and "
           f"ciphertexts equal after import, decrypts right; launches "
           f"{launches}")
@@ -1264,11 +1464,10 @@ def phase_sharded(dev, card, main_run, codec):
     core.  Returns the kernel launches of the sharded path (10a)."""
     import torch
     import torch.distributed as dist
-    from fhe_si_tpu_torch import refcompat, refserial, scheme
+    from fhe_si_tpu_torch import DeviceContext, refcompat, refserial, scheme
     from fhe_si_tpu_torch.cli import test_regression
     from fhe_si_tpu_torch.cli.gen_data import generate
     from fhe_si_tpu_torch.hostmath import oracle
-    from fhe_si_tpu_torch.ops import ntt_ct_cuda
     from fhe_si_tpu_torch.parallel import (ShardedPipelines, make_mesh,
                                            shard_matrix)
     from fhe_si_tpu_torch.profiling import annotate, device_trace
@@ -1291,13 +1490,20 @@ def phase_sharded(dev, card, main_run, codec):
     try:
         mesh = make_mesh(1, 1, dev)
         sp = ShardedPipelines(ctx, mesh)
+        # the shard contexts' own basis tables (their rows' slices): this
+        # world's, and both halves of a limb = 2 world's (the first
+        # without the redundant row)
+        half = ctx.num_primes // 2
+        for rows in (None, np.arange(half), np.arange(half, 2 * half)):
+            shard = sp.local if rows is None else DeviceContext(ctx, dev, rows)
+            check_crt(shard, f"limb shard rows {rows}", bases=("full",))
         mat = shard_matrix(mesh, ksw.matrix_evals)
-        ntt_ct_cuda.reset_launches()
+        reset_launches()
         with transform_calls() as calls:
             got = sp.batched_mul_relin(a, b, mat)
             red = sp.mul_relin_block_reduce(a, b, mat)
             torch.cuda.synchronize()
-        launches = dict(ntt_ct_cuda.LAUNCHES)
+        launches = launch_counts()
         check_launches("sharded path (NCCL, world 1)", launches,
                        tuple(KERNELS), calls)
         if not torch.equal(got, ref):
@@ -1369,12 +1575,14 @@ def phase_sharded(dev, card, main_run, codec):
               f"{w['batch']}): step {w['step_s'] * 1e3:.3f} ms, first call "
               f"{w['first_call_s']:.3f} s, launches {w['launches']} (ranks "
               "share one card and run at once: not a scaling figure)")
-    if any(worlds["coeff2"]["launches"].values()):
-        raise AssertionError("the coeff path launched a kernel")
+    coeff = worlds["coeff2"]["launches"]
+    if any(coeff[k] for k in NTT) or not all(coeff[k] for k in CRT):
+        raise AssertionError(f"the coeff path launched {coeff}")
     print("worlds: limb = 2 and dp = 2 over gloo == the single rank (NCCL), "
           "block reduce and batched output; coeff = 2 == the unsharded "
-          "step, no kernel launched there (plain transforms, as the JAX "
-          "package's XLA einsums)")
+          "step, no transform kernel launched there (plain transforms, as "
+          "the JAX package's XLA einsums), both limb/CRT kernels on the "
+          "rank's block")
     gflop, bound = coeff_step_bound(dc, 8)
     w = worlds["coeff2"]
     print(f"[{card}] coeff-sharded transforms of one B=8 step: {gflop:.3f} "
@@ -1503,14 +1711,15 @@ def cli_child(dev, argv) -> int:
     oracle products are minutes of host Python."""
     import importlib
     cli = importlib.import_module(f"fhe_si_tpu_torch.cli.{argv[0]}")
-    rc, _, err, _ = run_cli(dev, cli, list(argv), argv[0], (), route=True)
+    rc, _, err, _ = run_cli(dev, cli, list(argv), argv[0], CRT, route=True)
     sys.stderr.write(err)
     return rc
 
 
 def phase_route(dev, card):
     """Phase 11: the rings on the matmul route (ops/ntt_ct_matmul.py).
-    Returns the route's calls and times per p = 8147 step (time_dense)."""
+    Returns the route's calls and times per p = 8147 step (time_dense),
+    and the kernel launches of each path, keyed by path."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
     import torch
@@ -1545,11 +1754,13 @@ def phase_route(dev, card):
             if any(k.startswith("k_") for k in dc.full['ct']):
                 raise AssertionError("p=8147: kernel tables were built")
             check_route(dc, ((RAGGED_ROWS,), (2, 3)))
+            check_crt(dc, f"p={ROUTE['p']} m={ROUTE['m']} logQ="
+                      f"{ROUTE['log_q']} route")
             t0 = part(f"a (p={ROUTE['p']})")
 
             # b. mul+relin at p = 8147, batch 64, the oracle on the pool
             label = f"p={ROUTE['p']} route path"
-            run = lean_path(dev, ROUTE, BATCH, label, expect=(), dc=dc,
+            run = lean_path(dev, ROUTE, BATCH, label, expect=CRT, dc=dc,
                             route=True, pool=pool)
             print(f"peak device memory (phase 11a-b): "
                   f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
@@ -1563,15 +1774,19 @@ def phase_route(dev, card):
                 raise AssertionError(f"m={M16['m']}: route {dc16.ct_route}, "
                                      f"wide={dc16.wide}")
             check_route(dc16, ((3,),))
-            lean_path(dev, M16, BATCH16, f"m={M16['m']} route path", expect=(),
-                      dc=dc16, route=True)
+            check_crt(dc16, f"m={M16['m']} logQ={M16['log_q']} route", rows=3)
+            launches = {"route_mul_relin": run.launches,
+                        "route_mul_relin_m65536": lean_path(
+                            dev, M16, BATCH16, f"m={M16['m']} route path",
+                            expect=CRT, dc=dc16, route=True).launches}
             del dc16
             torch.cuda.empty_cache()
             t0 = part(f"d (m={M16['m']})")
 
         # c. Test_Statistics at p = 8147 (m = p - 1)
-        phase_apps(dev, card, ROUTE_APP, "narrow", f"_p{ROUTE['p']}",
-                   expect=(), route=True, names=("statistics",))
+        launches.update(phase_apps(dev, card, ROUTE_APP, "narrow",
+                                   f"_p{ROUTE['p']}", expect=CRT, route=True,
+                                   names=("statistics",)))
         t0 = part("c (Test_Statistics)")
         log, _ = addmul.communicate(timeout=600)
     finally:
@@ -1586,15 +1801,16 @@ def phase_route(dev, card):
 
     # b, timed: the step, its stages and the route's matmuls per step
     dc, ksw, pairs, out = run[:4]
-    a, b, *_ = time_step(card, dc, pairs, ksw, out, label)
+    a, b, _, per_step = time_step(card, dc, pairs, ksw, out, label)
     time_stages(card, dc, a, b, ksw, label)
+    time_kernels(card, dev, dc, step_cases(dc, BATCH, ntt=False), per_step)
     with dense_calls() as calls:
         dc.mul_relin(a, b, ksw.matrix_evals)
         torch.cuda.synchronize()
     step = time_dense(card, calls, f"m={dc.ctx.m} B={BATCH}",
                       what="matmul route stage product")
     part("b (timing)")
-    return step
+    return step, launches
 
 
 def main() -> int:
@@ -1604,7 +1820,7 @@ def main() -> int:
               "kernels run only on a CUDA card", file=sys.stderr)
         return 1
     from fhe_si_tpu_torch import DeviceContext, FheContext
-    from fhe_si_tpu_torch.ops import ntt_ct_cuda
+    from fhe_si_tpu_torch.ops import cuda_build, ntt_ct_cuda
 
     # 1. device
     dev = torch.device("cuda:0")
@@ -1617,7 +1833,7 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    log = ntt_ct_cuda.build()
+    log = cuda_build.build()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a)")
     report = ptxas_report(log)
     if not report:
@@ -1637,7 +1853,7 @@ def main() -> int:
     probe_semantics(dev)
     print("int32 wraparound, round-half-even, arithmetic >>, int32 sums, "
           "barrett: as on the CPU")
-    max_err = phase_kernels(dev)
+    phase_kernels(dev)
 
     # 4. the main path
     oracle_check_small(dev)
@@ -1648,6 +1864,7 @@ def main() -> int:
     t0 = time.perf_counter()
     dc15, ksw15, pairs15, out15, launches15 = lean_path(
         dev, M15, BATCH15, "m=32768 path")[:5]
+    check_crt(dc15, f"m={M15['m']} logQ={M15['log_q']}", rows=5)
     print(f"m=32768 path wall time: {time.perf_counter() - t0:.2f} s "
           f"(setup, keys, encrypt, mul+relin, decrypt)")
 
@@ -1661,9 +1878,12 @@ def main() -> int:
     # keyswitched (digits on the ksw basis, the dot's result back on it)
     rdc = DeviceContext(FheContext(**app_contexts()["regression"]), dev)
     wide_ms = time_kernels(card, dev, rdc, [
-        ("ct_fwd", "full", 14 * 4), ("ct_inv", "full", 14 * 3),
-        ("ct_inv", "ksw", 20 * 2),
-        ("ct_fwd_digits", "ksw", 20 * 2 * rdc.ndigits)])
+        ("ct_fwd", "full", 14 * 4, None), ("ct_inv", "full", 14 * 3, None),
+        ("ct_inv", "ksw", 20 * 2, None),
+        ("ct_fwd_digits", "ksw", 20 * 2 * rdc.ndigits, None),
+        ("crt_to_limbs", "full", 14 * 3, "round_down"),
+        ("crt_to_limbs", "ksw", 20 * 2, "reduce_signed"),
+        ("limbs_to_residues", "full", 14 * 4, None)])
     del rdc
     *_, per_step15 = time_step(card, dc15, pairs15, ksw15, out15,
                                "m=32768 path")
@@ -1697,25 +1917,27 @@ def main() -> int:
 
     # 11. the matmul route: the splits the kernel cannot take
     t0 = time.perf_counter()
-    n_route, route_ms, route_bound = phase_route(dev, card)
+    (n_route, route_ms, route_bound), route_launches = phase_route(dev, card)
     print(f"phase 11 wall time: {time.perf_counter() - t0:.2f} s")
     kernels = []
-    for name in KERNELS:
+    for name, (source, replaces) in KERNELS.items():
         by_path = dict(mul_relin=launches[name],
                        mul_relin_m32768=launches15[name],
                        mul_relin_m20480=mixed_launches[name],
                        npz_m8192=npz_launches[name],
                        mul_relin_sharded=sharded_launches[name],
                        **{path: n[name] for path, n in
-                          (app_launches | dense_launches).items()})
+                          (app_launches | dense_launches
+                           | route_launches).items()})
         _, k_ms, p_ms, b_ms, b_by = narrow_ms[name][0]
         kernels.append(dict(
-            name=name, route="cuda", source="fhe_si_tpu_torch/csrc/ct_ntt.cu",
-            replaces=KERNELS[name],
+            name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,
-            max_abs_err=max_err[name], ms=k_ms, plain_ms=p_ms,
+            max_abs_err=MAX_ERR[name], ms=k_ms, plain_ms=p_ms,
             bound_ms=b_ms, bound_by=b_by,
-            library_ms=None,     # no PyTorch call computes a transform mod q
+            # no PyTorch call computes a transform mod q, a CRT
+            # reconstruction into limbs or a lift of limbs to residues
+            library_ms=None,
             wide_ms=wide_ms[name][0][1], wide_plain_ms=wide_ms[name][0][2],
             m32768_ms=m15_ms[name][0][1], m32768_plain_ms=m15_ms[name][0][2],
             m32768_bound_ms=m15_ms[name][0][3],

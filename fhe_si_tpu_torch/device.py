@@ -22,7 +22,12 @@ narrow chain runs out), for any p below 2^30 and any decompSize:
 The tables of the JAX DeviceContext live here as torch tensors on
 `device`; every function is a plain eager function of tensors (no jit,
 no vmap), rank-generic with a native batch axis in front (the JAX
-package vmaps its dense batched ops; the tensors are the same).
+package vmaps its dense batched ops; the tensors are the same).  On
+both families the conversions between limbs and residues (from_poly's
+lift, to_poly's CRT reconstruction with the limb tails of ScaleDown and
+of the signed reduction fused in) go through ops/crt_cuda.py: the
+Hopper kernels of csrc/crt.cu for CUDA tensors, the plain ops/crt.py and
+ops/limbs.py for CPU tensors.
 
 Pipeline map to the reference (file:line into the dwu4/fhe-si sources):
   from_poly   = Cmodulus::FFT per prime        CModulus.cpp:89-107
@@ -43,8 +48,8 @@ import numpy as np
 import torch
 
 from .context import MAX_KSW_PARTS, FheContext, int_to_limbs
-from .ops import (crt, limbs as lb, modular, ntt, ntt_ct, ntt_ct_cuda,
-                  ntt_ct_matmul)
+from .ops import (crt, crt_cuda, limbs as lb, modular, ntt, ntt_ct,
+                  ntt_ct_cuda, ntt_ct_matmul)
 
 
 # fast_crt table entries with one row per chain prime; the rest (P_limbs,
@@ -144,6 +149,15 @@ class DeviceContext:
         if not self.use_ct:
             # the raw inverse, for ntt_inv (the CT tables keep raw t2i)
             self.full['inv'] = self._dense(dense_inv, rows)
+        if self.device.type == "cuda":
+            # the limb/CRT kernels' shapes and primes, before any path
+            # reaches them
+            for T in (self.full, self.ksw, self.lin):
+                B = T['fast_crt']['B']
+                crt_cuda.check_shape("crt_to_limbs", B.shape, *B.shape,
+                                     T['primes_np'])
+            crt_cuda.check_shape("limbs_to_residues", (self.L, self.n),
+                                 self.L, self.n)
         self.q = self.full['q']
         self.qinv_f = self.full['qinv_f']
         self.p_mod_q = self._i32((ctx.p % ctx.primes[rows])[:, None])
@@ -160,7 +174,9 @@ class DeviceContext:
 
     # ------------------------------------------------------------- tables
     def _i32(self, a):
-        return torch.as_tensor(np.asarray(a, dtype=np.int32),
+        # C order: a row gather of a table (chunk_tbl[:, rows]) is not,
+        # and the CRT kernels read their tables as contiguous arrays
+        return torch.as_tensor(np.array(a, dtype=np.int32, order="C"),
                                device=self.device)
 
     def _ct(self, ct_np: dict) -> dict:
@@ -200,7 +216,8 @@ class DeviceContext:
             mr=self._i32(t['mr']),
             mrinv_f=torch.as_tensor(np.float32(1.0 / t['mr']),
                                     device=self.device),
-            Pinv_r=self._i32(t['Pinv_r']))
+            Pinv_r=self._i32(t['Pinv_r']),
+            k_crt=self._i32(crt_cuda.kernel_table(t)))
 
     def _wrap_const(self, primes_np, n: int):
         """2^(16n) mod q_l for the input limb width n, [rows, 1] int32."""
@@ -239,15 +256,20 @@ class DeviceContext:
 
     def _from_poly_sub(self, T, poly_limbs):
         wrap = self._wrap_const(T['primes_np'], poly_limbs.shape[-1])
-        res = crt.limbs_to_residues(poly_limbs, T['chunk_tbl'], wrap, T['q'],
-                                    T['qinv_f'], self.wide)
+        res = crt_cuda.limbs_to_residues(poly_limbs, T['chunk_tbl'], wrap,
+                                         T['q'], T['qinv_f'], self.wide)
         return self._fwd_t(T, res)
 
-    def _to_poly_sub(self, T, evals):
-        res = self._inv_crt_t(T, evals)
-        return crt.residues_to_limbs_fast(res, T['fast_crt'], T['q'],
-                                          T['qinv_f'], prescaled=True,
-                                          wide=self.wide)
+    def _to_poly_sub(self, T, evals, tail=None):
+        """Evaluations over basis T -> the centred value as limbs at T's
+        reconstruction width, or with `tail` (self.tail) fused in."""
+        return crt_cuda.crt_to_limbs(self._inv_crt_t(T, evals), T['fast_crt'],
+                                     self.wide, tail)
+
+    def tail(self, kind: str) -> crt_cuda.Tail:
+        """A limb tail mod 2^logQ at the ciphertext width n_ct:
+        'round_down' (ScaleDown) or 'reduce_signed' (reduce_signed)."""
+        return crt_cuda.Tail(kind, self.log_q, self.n_ct)
 
     @staticmethod
     def _gather_rows(T, evals_full, dim=-2):
@@ -319,7 +341,8 @@ class DeviceContext:
         c1_evals = self.from_poly(c1_limbs)
         pk0_pre = modular.mod_add(self._mul(s_evals, c1_evals),
                                   self.small_to_evals(c0), self.q)
-        pk0_limbs = self.reduce_signed(self.to_poly(pk0_pre))
+        pk0_limbs = self._to_poly_sub(self.full, pk0_pre,
+                                      self.tail("reduce_signed"))
         pk1_limbs = self.reduce_signed(lb.neg(c1_limbs))
         pk_limbs = torch.stack([pk0_limbs, pk1_limbs])
         return (torch.stack([ones, s_evals]), self.from_poly(pk_limbs),
@@ -420,15 +443,10 @@ class DeviceContext:
         return torch.stack(out, dim=-3)
 
     def _scale_down(self, tprod_evals):
-        """Ciphertext::ScaleDown: floor((2x + q) / 2q), reduced signed."""
-        return self._round_down(self.to_poly(tprod_evals))
-
-    def _round_down(self, x):
-        """The limb tail of ScaleDown on the reconstructed limbs x."""
-        y = lb.shift_left(x, 1)
-        y = lb.add(y, self.q_limbs.expand(y.shape))
-        y = lb.arith_shift_right(y, self.log_q + 1)
-        return self.reduce_signed(y)
+        """Ciphertext::ScaleDown: floor((2x + q) / 2q), reduced signed,
+        fused into the reconstruction (crt_cuda.tail_plain's steps)."""
+        return self._to_poly_sub(self.full, tprod_evals,
+                                 self.tail("round_down"))
 
     def _digit_evals(self, parts_limbs):
         """ByteDecomp digits and their forward transform over the
@@ -482,7 +500,7 @@ class DeviceContext:
         mat = self._gather_rows(K, matrix_evals)
         acc = modular.mod_dot(mat, digit_evals[..., None, :, :, :],
                               K['q'], K['qinv_f'], axis=-3, wide=self.wide)
-        return self.reduce_signed(self._to_poly_sub(K, acc))
+        return self._to_poly_sub(K, acc, self.tail("reduce_signed"))
 
     def keyswitch_parts(self, parts, matrix_evals):
         """ApplyKeySwitch of non-tensored parts [..., k, phim, n]."""
@@ -531,7 +549,7 @@ class DeviceContext:
         T = self._lin_tables_for_width(parts.shape[-1])
         ev = self._from_poly_sub(T, parts)
         ev = self._mul(ev, self._gather_rows(T, const_evals)[None], T)
-        return self.reduce_signed(self._to_poly_sub(T, ev))
+        return self._to_poly_sub(T, ev, self.tail("reduce_signed"))
 
     def mul_const_tensored(self, evals, const_evals):
         return self._mul(evals, const_evals[None])

@@ -6,7 +6,10 @@ products against 2^(4c) mod q_l tables (Cmodulus::FFT's input
 reduction, CModulus.cpp:89-107); to_poly is the single-pass
 redundant-modulus CRT reconstruction of DoubleCRT::toPoly
 (DoubleCRT.cpp:349-398); residues_to_limbs is the Garner scan it
-replaced, kept as its cross-check.
+replaced, kept as its cross-check.  These are the plain versions:
+DeviceContext and the sharded pipelines reach the lift and the
+single-pass reconstruction through ops/crt_cuda.py, which runs them for
+CPU tensors and the kernels of csrc/crt.cu for CUDA tensors.
 
 PyTorch has no integer matmul on CUDA, so the chunk dot of
 limbs_to_residues runs as one float64 matmul on both lanes, where the

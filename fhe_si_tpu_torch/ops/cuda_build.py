@@ -1,0 +1,85 @@
+"""The build of the Hopper kernels of fhe_si_tpu_torch/csrc/: each source
+csrc/<name>.cu (CUDA C++ for sm_90a, a plain C interface) becomes one
+library, compiled by nvcc into fhe_si_tpu_torch/_build/ the first time
+it is needed and loaded with ctypes.  ops/ntt_ct_cuda.py and
+ops/crt_cuda.py load their libraries through `library`; `build` compiles
+them all at once.  Nothing is compiled or loaded at import, so this
+module imports on a machine without nvcc.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+SOURCES = ("ct_ntt", "crt")      # csrc/<name>.cu, one library each
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def _so_path(name: str) -> Path:
+    """The library of csrc/<name>.cu, tagged by the source and the flags."""
+    tag = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+                         + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{tag.hexdigest()[:12]}.so"
+
+
+def compile_sources(names=SOURCES):
+    """Build the library of each source in `names` that is not built yet
+    (once per source version): one nvcc per source, all started at once.
+    nvcc's output (ptxas -v: registers, shared memory, spills per kernel)
+    goes beside each library as .log."""
+    runs = []
+    for name in names:
+        so = _so_path(name)
+        if so.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        runs.append((name, so, tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, so, tmp, proc in runs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            failed.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{log}")
+            continue
+        so.with_suffix(".log").write_text(log)
+        os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+@functools.cache
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, built first if need be."""
+    compile_sources((name,))
+    return ctypes.CDLL(str(_so_path(name)))
+
+
+def build() -> str:
+    """Compile every source of csrc/ now, in parallel (otherwise each
+    library's first launch builds it), and load them; returns nvcc's
+    reports of registers, shared memory and spills."""
+    compile_sources(SOURCES)
+    logs = []
+    for name in SOURCES:
+        library(name)
+        log = _so_path(name).with_suffix(".log")
+        logs.append(log.read_text() if log.exists() else "")
+    return "".join(logs)

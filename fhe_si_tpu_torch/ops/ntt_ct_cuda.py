@@ -4,7 +4,8 @@ wrappers.
 Stands in for fhe_si_tpu/ops/ntt_ct_pallas.py.  The kernels live in
 fhe_si_tpu_torch/csrc/ct_ntt.cu (CUDA C++ for sm_90a, a plain C
 interface); the first launch compiles them with nvcc into
-fhe_si_tpu_torch/_build/ and loads the library with ctypes.  Nothing is
+fhe_si_tpu_torch/_build/ and loads the library with ctypes
+(ops/cuda_build.py, which builds every source of csrc/).  Nothing is
 compiled or loaded at import, so this module imports on a machine
 without nvcc.  All three transforms run one tensor-core kernel (int8
 byte planes, mma.sync) on the N-point transform of every ring
@@ -37,23 +38,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import torch
 
 from . import ntt_ct
+from .cuda_build import library
 from .ntt_ct import CtMeta
-
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "ct_ntt.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES = {"ct_fwd": 0, "ct_fwd_digits": 0, "ct_inv": 0}
 
@@ -134,36 +125,9 @@ def reset_launches():
         LAUNCHES[k] = 0
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-    return path
-
-
-def _so_path() -> Path:
-    """The library's path, tagged by the source and the flags."""
-    tag = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libct_ntt_{tag.hexdigest()[:12]}.so"
-
-
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    """Build (once per source version) and load the kernel library; nvcc's
-    output (ptxas -v: registers, shared memory, spills per kernel) goes
-    beside it as .log."""
-    so = _so_path()
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        run = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                             capture_output=True, text=True)
-        if run.returncode:
-            raise RuntimeError(f"nvcc failed ({run.returncode}):\n"
-                               f"{run.stdout}{run.stderr}")
-        so.with_suffix(".log").write_text(run.stdout + run.stderr)
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    lib = library("ct_ntt")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for name in ("fsi_ct_fwd", "fsi_ct_fwd_digits", "fsi_ct_inv"):
         fn = getattr(lib, name)
@@ -174,14 +138,6 @@ def _lib() -> ctypes.CDLL:
     lib.fsi_smem_optin.argtypes = []
     lib.fsi_smem_optin.restype = i32
     return lib
-
-
-def build() -> str:
-    """Compile and load the kernels now (otherwise the first launch does);
-    returns nvcc's report of registers, shared memory and spills."""
-    _lib()
-    log = _so_path().with_suffix(".log")
-    return log.read_text() if log.exists() else ""
 
 
 def _on_cuda(x) -> bool:

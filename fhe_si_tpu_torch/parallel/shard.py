@@ -15,9 +15,10 @@ ShardedPipelines: the CRT prime axis over 'limb', the batch over 'dp'.
     rows (ops/ntt_ct_cuda.py; the matmul route, ops/ntt_ct_matmul.py, on
     a split the kernel cannot take), on a dense ring ops/ntt.modmatmul.
   - The only collectives: one all-reduce over 'limb' of the three CRT
-    partials (ops/crt.crt_partials) at each reconstruction, the
-    ScaleDown and the keyswitch output, then crt_finish and the limb
-    tails replicated.  The keyswitch runs on the full chain, not the
+    partials (ops/crt_cuda.crt_partials) at each reconstruction, the
+    ScaleDown and the keyswitch output, then crt_finish with the limb
+    tail fused in, replicated (on CUDA both are modes of the
+    crt_to_limbs kernel).  The keyswitch runs on the full chain, not the
     subset basis of DeviceContext, as the JAX package's sharded keyswitch
     does: the same exact integers.
   - Nothing crosses 'dp' until the block reduce: one all-reduce of raw
@@ -25,8 +26,9 @@ ShardedPipelines: the CRT prime axis over 'limb', the batch over 'dp'.
 
 Coefficient sharding: the phi(m) axis over 'coeff'.  Everything between
 the transforms is per coefficient (limbs_to_residues, the tensor
-product, crt_partials + crt_finish, the ScaleDown tail, byte_decomp, the
-keyswitch dot).  Each transform contracts the sharded axis: a rank forms
+product, the CRT reconstruction with the ScaleDown tail, byte_decomp,
+the keyswitch dot), so the lift and the reconstruction run the kernels
+of ops/crt_cuda.py on the rank's block.  Each transform contracts the sharded axis: a rank forms
 the plain stage product over its slice of the contraction (ops/ntt_ct.py
 _stage, or ops/ntt.modmatmul on the dense family), reduced mod q; one
 all-reduce per stage sums the S partials, `% q` makes the canonical
@@ -45,7 +47,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceContext
-from ..ops import crt, limbs as lb, modular, ntt, ntt_ct
+from ..ops import crt_cuda, limbs as lb, modular, ntt, ntt_ct
 
 I32_MAX = (1 << 31) - 1
 MAX_BLOCK_REDUCE = 1 << 15   # ciphertexts summed by mul_relin_block_reduce
@@ -78,24 +80,24 @@ class ShardedPipelines:
     # The lifts (self.local.from_poly: the wrap constant of the input's
     # width on the rank's primes), the tensor product and the digit
     # transform are the shard context's own.
-    def _to_poly_psum(self, evals):
+    def _to_poly_psum(self, evals, kind: str):
         """The inverse transform of this rank's rows (the full chain's CRT
         premultiplier folded in: the rows of its t2i_crt / inv_crt) and
         their CRT partials, one all-reduce over 'limb', the replicated
-        crt_finish.  acc, sig_raw and er are sums of
-        nonnegative terms (masked 16-bit products, residues mod m_r, the
-        redundant row), so the all-reduced sums are the full chain's,
-        which the unsharded reconstruction forms in int32 alike
-        (ops/crt.py bounds)."""
+        crt_finish with the limb tail `kind` (DeviceContext.tail).  acc,
+        sig_raw and er are sums of nonnegative terms (masked 16-bit
+        products, residues mod m_r, the redundant row), so the
+        all-reduced sums are the full chain's, which the unsharded
+        reconstruction forms in int32 alike (ops/crt.py bounds)."""
         T, wide = self.T, self.ctx.wide
-        acc, sig, er = crt.crt_partials(self.local._inv_crt_t(T, evals),
-                                        T['fast_crt'], T['q'], T['qinv_f'],
-                                        prescaled=True, wide=wide)
+        acc, sig, er = crt_cuda.crt_partials(self.local._inv_crt_t(T, evals),
+                                             T['fast_crt'], wide)
         total = self.mesh.psum(torch.cat([acc, sig[..., None], er[..., None]],
                                          dim=-1), self.limb)
         n = acc.shape[-1]
-        return crt.crt_finish(total[..., :n], total[..., n], total[..., n + 1],
-                              T['fast_crt'], self.ctx.n_limbs, wide)
+        return crt_cuda.crt_finish(total[..., :n], total[..., n],
+                                   total[..., n + 1], T['fast_crt'], wide,
+                                   self.local.tail(kind))
 
     # ------------------------------------------------------------ public ops
     def batched_mul_relin(self, a, b, matrix_local):
@@ -105,13 +107,13 @@ class ShardedPipelines:
         the same on every rank of a 'limb' group.  Wider inputs are lifted
         exactly; outputs are at n_ct."""
         loc = self.local
-        parts = loc._round_down(self._to_poly_psum(loc._tensor_mul(a, b)))
+        parts = self._to_poly_psum(loc._tensor_mul(a, b), "round_down")
         # ByteDecomp digits replicated, their transform on the rank's rows
         d_ev = loc._digit_evals(parts)
         acc = modular.mod_dot(matrix_local, d_ev[..., None, :, :, :],
                               self.T['q'], self.T['qinv_f'], axis=-3,
                               wide=self.ctx.wide)
-        return loc.reduce_signed(self._to_poly_psum(acc))
+        return self._to_poly_psum(acc, "reduce_signed")
 
     def mul_relin_block_reduce(self, a, b, matrix_local):
         """The same, summed over the whole batch (the additive block merge
@@ -309,19 +311,18 @@ class CoeffShardedPipelines:
     def _from_poly(self, parts):
         """[..., k, phim/S, n] limbs -> [..., k, L, phim/S] evaluations."""
         dev, T = self.dev, self.dev.full
-        res = crt.limbs_to_residues(
+        res = crt_cuda.limbs_to_residues(
             parts, T['chunk_tbl'], dev._wrap_const(T['primes_np'],
                                                    parts.shape[-1]),
             T['q'], T['qinv_f'], dev.wide)
         return self._fwd(res)
 
-    def _to_poly(self, evals):
-        """[..., k, L, phim/S] -> [..., k, phim/S, n] limbs (the CRT is per
-        coefficient)."""
-        T = self.dev.full
-        return crt.residues_to_limbs_fast(self._inv_crt(evals), T['fast_crt'],
-                                          T['q'], T['qinv_f'],
-                                          prescaled=True, wide=self.dev.wide)
+    def _to_poly(self, evals, kind: str):
+        """[..., k, L, phim/S] -> [..., k, phim/S, n_ct] limbs with the limb
+        tail `kind` (the CRT is per coefficient)."""
+        dev = self.dev
+        return crt_cuda.crt_to_limbs(self._inv_crt(evals), dev.full['fast_crt'],
+                                     dev.wide, dev.tail(kind))
 
     def batched_mul_relin(self, a, b, matrix_local):
         """a, b [B, k, phim/S, n_ct]: this rank's block (batch over 'dp',
@@ -331,8 +332,8 @@ class CoeffShardedPipelines:
         dev, T = self.dev, self.dev.full
         na = a.shape[-3]
         ev = self._from_poly(torch.cat([a, b], dim=-3))
-        parts = dev._round_down(self._to_poly(dev._tensor_product(
-            ev[..., :na, :, :], ev[..., na:, :, :])))
+        parts = self._to_poly(dev._tensor_product(
+            ev[..., :na, :, :], ev[..., na:, :, :]), "round_down")
         *lead, k, phim_loc, _ = parts.shape
         digs = lb.byte_decomp(parts, dev.log_q, dev.digit_bits, dev.ndigits,
                               dev.q_limbs)                # [..., k, phim/S, nd]
@@ -340,4 +341,4 @@ class CoeffShardedPipelines:
         acc = modular.mod_dot(matrix_local,
                               self._fwd_digits(digs)[..., None, :, :, :],
                               T['q'], T['qinv_f'], axis=-3, wide=dev.wide)
-        return dev.reduce_signed(self._to_poly(acc))
+        return self._to_poly(acc, "reduce_signed")

@@ -1,7 +1,9 @@
-"""The port on a CUDA card: the three kernels against their plain PyTorch
-versions on both residue lanes, on power-of-two and mixed-radix rings
-(odd N1 among them), the splits the kernel refuses and the matmul route
-that takes them, the dense transform family against the same function on
+"""The port on a CUDA card: the three transform kernels against their
+plain PyTorch versions on both residue lanes, on power-of-two and
+mixed-radix rings (odd N1 among them), the splits the kernel refuses and
+the matmul route that takes them, the two limb/CRT kernels
+(ops/crt_cuda.py) in every mode against their plain versions and the
+shapes they refuse, the dense transform family against the same function on
 the CPU, the multiply + relinearize slice (on the
 Cooley-Tukey rings, decompSize 4 included, and on dense rings) and the
 two applications on the card against the same runs on the CPU (which
@@ -19,7 +21,7 @@ import torch
 
 from fhe_si_tpu_torch import DeviceContext, FheContext, sampling, scheme
 from fhe_si_tpu_torch.hostmath import oracle
-from fhe_si_tpu_torch.ops import ntt_ct, ntt_ct_cuda
+from fhe_si_tpu_torch.ops import crt, crt_cuda, ntt_ct, ntt_ct_cuda
 
 torch.set_num_threads(1)
 
@@ -241,7 +243,9 @@ def test_matmul_route_on_card_equals_cpu(cuda, ring):
                                                _slice_round(ctx, cuda))
     torch.cuda.synchronize()
     assert torch.equal(cpu_parts, parts)
-    assert not any(launched.values()) and all(ntt_ct_matmul.CALLS.values())
+    assert not any(launched[k] for k in ntt_ct_cuda.LAUNCHES)
+    assert all(launched[k] for k in crt_cuda.LAUNCHES)
+    assert all(ntt_ct_matmul.CALLS.values())
 
 
 @pytest.mark.cuda
@@ -267,6 +271,7 @@ def _slice_round(ctx, device):
     msgs = [src.uniform_mod_p(ctx.phim, ctx.p) for _ in range(4)]
     cts = pk.encrypt_batch([scheme.Plaintext(ctx, mm) for mm in msgs], src)
     ntt_ct_cuda.reset_launches()
+    crt_cuda.reset_launches()
     out = scheme.relin_batch(scheme.mul_batch(list(zip(cts[0::2],
                                                        cts[1::2]))), ksw)
     dec = sk.decrypt_batch(out)
@@ -274,7 +279,7 @@ def _slice_round(ctx, device):
         assert np.array_equal(dec[i].message, oracle.plaintext_mul(
             ctx, msgs[2 * i], msgs[2 * i + 1]))
     return (torch.stack([c.parts for c in out]).cpu(), dec,
-            dict(ntt_ct_cuda.LAUNCHES))
+            dict(ntt_ct_cuda.LAUNCHES, **crt_cuda.LAUNCHES))
 
 
 @pytest.mark.cuda
@@ -327,7 +332,8 @@ def test_dense_on_card_equals_cpu(cuda, cfg):
     (cpu_parts, _, _), (parts, _, launched) = (_slice_round(ctx, "cpu"),
                                                _slice_round(ctx, cuda))
     assert torch.equal(cpu_parts, parts)
-    assert all(n == 0 for n in launched.values())
+    assert all(launched[k] == 0 for k in ntt_ct_cuda.LAUNCHES)
+    assert all(launched[k] > 0 for k in crt_cuda.LAUNCHES)
 
 
 @pytest.mark.cuda
@@ -345,3 +351,84 @@ def test_app_cli_on_card_matches(cuda, app, tmp_path, capsys):
                      f"--device={cuda}"]) == 0
     assert capsys.readouterr().out.rstrip().endswith("MATCH")
     assert all(n > 0 for n in ntt_ct_cuda.LAUNCHES.values())
+
+
+def _crt_contexts():
+    """The main ring (narrow) and the regression app's context at m = 8192
+    (logQ 213, wide: the largest reconstruction width, 35 limbs)."""
+    from fhe_si_tpu_torch.apps import regression
+    log_q, xi = regression.derive_log_q(256, 4, 40961)
+    return [dict(m=8192, log_q=80, p=40961, generator=3),
+            dict(m=8192, log_q=log_q, p=40961, generator=3, xi=xi)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", [0, 1], ids=["m8192", "m8192-logq213-wide"])
+def test_crt_kernels_match_plain(cuda, which):
+    """Both limb/CRT kernels in every mode (partials, finish and to_limbs,
+    each reconstruction without a tail, with ScaleDown's and with the
+    signed reduction; the lift at the ciphertext and the reconstruction
+    widths) against their plain versions on the card, on every basis, on
+    random and worst-case inputs (every residue q - 1, every limb
+    0xFFFF), bit for bit."""
+    dc = DeviceContext(FheContext(**_crt_contexts()[which]), cuda)
+    assert dc.wide == bool(which)
+    rng = np.random.default_rng(9)
+    crt_cuda.reset_launches()
+    for T in {id(T): T for T in (dc.full, dc.ksw, dc.lin)}.values():
+        q, fc = T["primes_np"], T["fast_crt"]
+        res = rng.integers(0, q[:, None], size=(RAGGED, len(q), dc.phim))
+        res[0] = q[:, None] - 1
+        res = torch.as_tensor(res.astype(np.int32), device=cuda)
+        part = crt_cuda.crt_partials(res, fc, dc.wide)
+        for got, want in zip(part, crt_cuda.crt_partials_plain(res, fc,
+                                                               dc.wide)):
+            assert torch.equal(got, want)
+        for tail in (None, dc.tail("round_down"), dc.tail("reduce_signed")):
+            want = crt_cuda.crt_to_limbs_plain(res, fc, dc.wide, tail)
+            assert torch.equal(crt_cuda.crt_to_limbs(res, fc, dc.wide, tail),
+                               want)
+            assert torch.equal(crt_cuda.crt_finish(*part, fc, dc.wide, tail),
+                               want)
+        for n in (dc.n_ct, fc["B"].shape[-1]):
+            poly = rng.integers(0, 1 << 16, size=(RAGGED, dc.phim, n))
+            poly[0] = 0xFFFF
+            args = (torch.as_tensor(poly.astype(np.int32), device=cuda),
+                    T["chunk_tbl"], dc._wrap_const(q, n), T["q"], T["qinv_f"],
+                    dc.wide)
+            assert torch.equal(crt_cuda.limbs_to_residues(*args),
+                               crt.limbs_to_residues(*args))
+    torch.cuda.synchronize()
+    assert all(n > 0 for n in crt_cuda.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+def test_crt_kernel_refusals(cuda):
+    """What the limb/CRT kernels do not take raises on the host, with the
+    shape, before any launch: a context whose reconstruction is wider
+    than 48 limbs (DeviceContext refuses it on the card and builds it on
+    the CPU), limbs wider than 48, a tail wider than the value, tables
+    without the kernel's basis table."""
+    ctx = FheContext(m=256, log_q=800, p=257, generator=3)
+    assert ctx.n_limbs > crt_cuda.MAX_LIMBS
+    with pytest.raises(ValueError, match="at most"):
+        DeviceContext(ctx, cuda)
+    DeviceContext(ctx, "cpu")
+    dc = DeviceContext(_ctx(256, 257, None), cuda)
+    T, fc = dc.full, dc.full["fast_crt"]
+    crt_cuda.reset_launches()
+    wide = torch.zeros((2, dc.phim, crt_cuda.MAX_LIMBS + 1), dtype=torch.int32,
+                       device=cuda)
+    with pytest.raises(ValueError, match=r"\(2, 128, 49\).*at most"):
+        crt_cuda.limbs_to_residues(wide, T["chunk_tbl"],
+                                   dc._wrap_const(T["primes_np"], 49), T["q"],
+                                   T["qinv_f"])
+    res = torch.zeros((2, dc.L, dc.phim), dtype=torch.int32, device=cuda)
+    n = fc["B"].shape[-1]
+    with pytest.raises(ValueError, match="tail"):
+        crt_cuda.crt_to_limbs(res, fc, False,
+                              crt_cuda.Tail("round_down", 16 * n, 6))
+    with pytest.raises(ValueError, match="k_crt"):
+        crt_cuda.crt_to_limbs(res, {k: v for k, v in fc.items()
+                                    if k != "k_crt"})
+    assert all(v == 0 for v in crt_cuda.LAUNCHES.values())

@@ -8,7 +8,8 @@ prints no result line):
   1. device check: refuses to run without CUDA; prints the card's name
      and power limit as nvidia-smi reports them;
   2. build: compiles the CUDA kernels from fhe_si_tpu_torch/csrc
-     (ct_ntt.cu and crt.cu, one nvcc each, started together) and prints
+     (ct_ntt.cu, crt.cu and modular.cu, one nvcc each, started together)
+     and prints
      ptxas's report for each kernel (registers, shared memory, spills);
      checks that the card allows at least the shared memory per block
      that DeviceContext's choice of transform route assumes
@@ -34,26 +35,38 @@ prints no result line):
      q - 1, every limb 0xFFFF, negative values), bit for bit; later
      phases do the same on every other context they build (m = 2^15,
      the dense rings, m = 20480, the 'limb' shard's tables, p = 8147 and
-     m = 2^16 on the route);
+     m = 2^16 on the route).  The two modular kernels
+     (ops/modular_cuda.py: tensor_product on the two halves of one lifted
+     tensor, on separate 3- and 2-part tensors and at 4 x 4 parts;
+     keyswitch_dot at K = 3 x ndigits) against their plain versions on
+     every basis of every one of those contexts, with a worst-case row
+     (every residue q - 1), bit for bit;
   4. the main path at FheContext(m=8192, log_q=80, p=40961, g=3):
      keygen, relinearization key, batched encrypt of 64 pairs, batched
      multiply + relinearize, batched decrypt; every decrypt must equal
-     the plaintext product, every kernel must have launched, and no
+     the plaintext product, every kernel must have launched, no
      plain function that the limb/CRT kernels replace may have run on a
-     CUDA tensor (on any path below either).  At m = 256 the ciphertext
-     parts must also equal hostmath/oracle.py;
+     CUDA tensor (on any path below either), and no plain modular
+     function (PLAIN_MODULAR: ops/modular.py mod_mul, mod_add, mod_dot,
+     the two plain versions of ops/modular_cuda.py) on a CUDA tensor
+     inside the mul+relin step (on every step checked below: 4b, 7b, 7e,
+     7f, 8, 10a, 11b, 11d; 10b-c through the ranks' launch counts).  At
+     m = 256 the ciphertext parts must also equal hostmath/oracle.py;
   4b. the same path at the JAX package's m = 2^15 config,
      FheContext(m=32768, log_q=170, p=65537, g=3) (wide lane), on 4
      pairs; prints its wall time;
-  5. timing with CUDA events: mul+relin at batch 64, its four stages,
-     and each kernel against its plain version and its bound (the
-     larger of its int32 bytes over the HBM rate and its int8 byte
-     products over the int8 tensor-core rate for the transforms, its
-     int32 operations over the INT32 rate for the limb/CRT kernels) at
-     the main path's shapes, at the regression
-     app's wide shapes and at the m = 2^15 path's shapes (with 4 pairs:
-     its mul+relin step too); at the main path's and the m = 2^15 path's
-     shapes also with its launches per mul+relin step;
+  5. timing with CUDA events: mul+relin at batch 64 (the median of three
+     windows of 10 steps), its four stages, and each kernel against its
+     plain version and its bound (the larger of its int32 bytes over the
+     HBM rate and its int8 byte products over the int8 tensor-core rate
+     for the transforms, its int32 operations over the INT32 rate for
+     the limb/CRT and modular kernels) at the main path's shapes, at the
+     regression app's wide shapes and at the m = 2^15 path's shapes (with
+     4 pairs: its mul+relin step too); at the main path's and the m = 2^15
+     path's shapes also with its launches per mul+relin step; each
+     kernel also with its device time alone (device_ms: the host enqueues
+     its calls behind a spin kernel, so a short kernel's time is not its
+     wrapper's host time);
   6. the applications: the port's Test_Regression and Test_Statistics
      CLIs at m = 8192, p = 40961, g = 3 on a d = 4, n = 256 dataset made
      from the seed (both on the wide lane); each must print MATCH and
@@ -117,7 +130,7 @@ prints no result line):
      c. a world of two ranks (gloo) as coeff = 2, batch 8, in the same
         start: the output equal to the unsharded step, no transform
         kernel launched (the coefficient-sharded transforms are plain
-        PyTorch), both limb/CRT kernels launched;
+        PyTorch), both limb/CRT and both modular kernels launched;
      d. Test_Regression --trace at phase 6's config: MATCH, and the trace
         names ct_mma_kernel among its kernels; the regression phase by
         kernel name;
@@ -201,6 +214,7 @@ M16 = dict(m=65536, log_q=120, p=65537, generator=3)
 BATCH16 = 4
 ORACLE_WORKERS = 5      # processes for oracle.plaintext_mul at phim 4072
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 peak bandwidth
+SPIN_CYCLES = 100_000_000       # device_ms's spin: about 50 ms at 1.98 GHz
 INT8_OPS_PER_S = 1979e12        # dense int8 tensor-core rate, H100 SXM
 F64_OPS_PER_S = 67e12           # FP64 tensor-core rate, H100 SXM
 # int32 on the CUDA cores: 132 SMs x 64 INT32 lanes x 1.98 GHz, a
@@ -210,6 +224,11 @@ INT32_OPS_PER_S = 33.5e12
 PALLAS = "fhe_si_tpu/ops/ntt_ct_pallas.py"
 NTT = ("ct_fwd", "ct_fwd_digits", "ct_inv")
 CRT = ("crt_to_limbs", "limbs_to_residues")
+MODULAR = ("tensor_product", "keyswitch_dot")
+# the kernels of a path that launches no transform kernel (the dense
+# family, the matmul route): every mul+relin step lifts, multiplies,
+# reconstructs and keyswitches
+NO_TRANSFORM = CRT + MODULAR
 KERNELS = {   # wrapper -> (source, the TPU code it replaces)
     "ct_fwd": ("fhe_si_tpu_torch/csrc/ct_ntt.cu", f"{PALLAS}:148"),
     "ct_fwd_digits": ("fhe_si_tpu_torch/csrc/ct_ntt.cu", f"{PALLAS}:137"),
@@ -220,6 +239,12 @@ KERNELS = {   # wrapper -> (source, the TPU code it replaces)
     "limbs_to_residues": ("fhe_si_tpu_torch/csrc/crt.cu",
                           "fhe_si_tpu/ops/crt.py:38 (XLA-fused jnp, not "
                           "Pallas)"),
+    "tensor_product": ("fhe_si_tpu_torch/csrc/modular.cu",
+                       "fhe_si_tpu/device.py:558 (XLA-fused jnp, not "
+                       "Pallas)"),
+    "keyswitch_dot": ("fhe_si_tpu_torch/csrc/modular.cu",
+                      "fhe_si_tpu/ops/modular.py:75 (XLA-fused jnp, not "
+                      "Pallas)"),
 }
 MAX_ERR = dict.fromkeys(KERNELS, 0)     # kernel vs plain, over phase 3 on
 
@@ -243,17 +268,42 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def device_ms(fn, iters: int = 20) -> float | None:
+    """Device time (ms) per call of fn, with the host ahead of the card: a
+    spin kernel (torch.cuda._sleep, SPIN_CYCLES) holds the stream while the
+    host enqueues `iters` calls between two events, so the events time the
+    calls' kernels back to back and not the host's time between launches,
+    which a short kernel's wrapper can exceed (cuda_ms times both).  None
+    when the host took longer to enqueue than the spin lasted."""
+    import torch
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    ev[2].record()
+    torch.cuda.synchronize()
+    if host_ms >= ev[0].elapsed_time(ev[1]):
+        return None
+    return ev[1].elapsed_time(ev[2]) / iters
+
+
 def reset_launches():
     """Every kernel's launch count to 0."""
-    from fhe_si_tpu_torch.ops import crt_cuda, ntt_ct_cuda
-    ntt_ct_cuda.reset_launches()
-    crt_cuda.reset_launches()
+    from fhe_si_tpu_torch.ops import crt_cuda, modular_cuda, ntt_ct_cuda
+    for mod in (ntt_ct_cuda, crt_cuda, modular_cuda):
+        mod.reset_launches()
 
 
 def launch_counts() -> dict:
     """Every kernel's launch count since reset_launches."""
-    from fhe_si_tpu_torch.ops import crt_cuda, ntt_ct_cuda
-    return dict(ntt_ct_cuda.LAUNCHES, **crt_cuda.LAUNCHES)
+    from fhe_si_tpu_torch.ops import crt_cuda, modular_cuda, ntt_ct_cuda
+    return dict(ntt_ct_cuda.LAUNCHES, **crt_cuda.LAUNCHES,
+                **modular_cuda.LAUNCHES)
 
 
 def crt_bound(name: str, rows: int, L: int, n: int, width: int,
@@ -276,6 +326,31 @@ def crt_bound(name: str, rows: int, L: int, n: int, width: int,
     else:
         nbytes = 4 * coeffs * (n + L)
         ops = coeffs * L * (2 * n + 12)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def modular_bound(name: str, rows: int, L: int, phim: int,
+                  K: int = 0) -> tuple[float, str]:
+    """Least time (ms) the card could take for one modular kernel call and
+    what sets it: its int32 inputs and output moved once each over the HBM
+    rate (the kernel table's 16 bytes a row included), or the int32
+    operations the function needs over the INT32 rate, a multiply or
+    multiply-add of 64-bit width counted as 2 and a reduction of a 64-bit
+    sum as 12 (as crt_bound counts the lift's).  tensor_product of 2 x 2
+    parts, per residue of a part: 2 scalings by p (a multiply and a
+    reduction each), 4 multiply-adds and 3 reductions, 4 words in and 3
+    out; keyswitch_dot of K terms, per residue of the output part pair:
+    2K multiply-adds and 2 reductions, K digit words in (the [2, K]
+    matrix once) and 2 out."""
+    coeffs = rows * L * phim
+    if name == "tensor_product":
+        nbytes = 4 * coeffs * 7 + 16 * L
+        ops = coeffs * (2 * (2 + 12) + 2 * 4 + 12 * 3)
+    else:
+        nbytes = 4 * (coeffs * (K + 2) + 2 * K * L * phim) + 16 * L
+        ops = coeffs * (2 * 2 * K + 2 * 12)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -392,7 +467,7 @@ def phase_kernels(dev):
             check_tables(T['ct'], T['primes_np'], dc.ct_meta,
                          f"m={cfg['m']} logQ={cfg['log_q']} "
                          f"{'wide' if ctx.wide else 'narrow'} basis={basis}")
-        check_crt(dc, f"m={cfg['m']} logQ={cfg['log_q']}")
+        check_basis_kernels(dc, f"m={cfg['m']} logQ={cfg['log_q']}")
     # the largest rings, on tables of one narrow and one wide prime
     # (m = 2^15: the twiddle read from global memory, 16 tiles per warp)
     for m in (1 << 14, 1 << 15):
@@ -472,6 +547,53 @@ def check_crt(dc, label, rows=RAGGED_ROWS, bases=("full", "ksw", "lin")):
               f"{'wide' if dc.wide else 'narrow'} basis={basis} "
               f"rows={len(q)} n={n} n_ct={dc.n_ct} phim={dc.phim}")
     torch.cuda.synchronize()
+
+
+def check_modular(dc, label, rows=RAGGED_ROWS, bases=("full", "ksw", "lin")):
+    """Both modular kernels against their plain versions on the card, on
+    each basis of dc, bit for bit: tensor_product on the two halves of one
+    [rows, 4, L, phim] tensor (views, as _tensor_mul passes them), on
+    separate 3- and 2-part tensors and at 4 x 4 parts (the kernel's
+    limit); keyswitch_dot at K = 3 x ndigits (a relinearization) over a
+    [rows] lead.  Residues are random with a worst-case row: every residue
+    q - 1."""
+    import torch
+    from fhe_si_tpu_torch.ops import modular_cuda as mc
+    rng = np.random.default_rng(SEED)
+    seen = set()
+    for basis in bases:
+        T = getattr(dc, basis)
+        if id(T) in seen:
+            continue
+        seen.add(id(T))
+        q = T['primes_np']
+
+        def res(*lead):
+            x = rng.integers(0, q[:, None], size=lead + (len(q), dc.phim))
+            x[0] = q[:, None] - 1
+            return torch.as_tensor(x.astype(np.int32), device=dc.device)
+        ev = res(rows, 4)
+        plain = (T['q'], T['qinv_f'], dc.wide)
+        for a, b in ((ev[:, :2], ev[:, 2:]), (res(rows, 3), res(rows, 2)),
+                     (res(2, 4), res(2, 4))):
+            check_equal("tensor_product", mc.tensor_product(a, b, T, dc.wide),
+                        mc.tensor_product_plain(a, b, T['p_mod_q'], *plain))
+        K = 3 * dc.ndigits
+        mat, dig = res(2, K), res(rows, K)
+        check_equal("keyswitch_dot", mc.keyswitch_dot(mat, dig, T, dc.wide),
+                    mc.keyswitch_dot_plain(mat, dig, *plain))
+        print(f"modular kernels == plain: {label} "
+              f"{'wide' if dc.wide else 'narrow'} basis={basis} "
+              f"rows={len(q)} K={K} phim={dc.phim}")
+    torch.cuda.synchronize()
+
+
+def check_basis_kernels(dc, label, rows=RAGGED_ROWS,
+                        bases=("full", "ksw", "lin")):
+    """check_crt and check_modular: every kernel that works on dc's bases
+    (all but the transforms) against its plain version."""
+    check_crt(dc, label, rows, bases)
+    check_modular(dc, label, rows, bases)
 
 
 def _plaintext_mul_job(phim, phim_x, p, a, b):
@@ -568,19 +690,29 @@ def plain_ct_calls():
 PLAIN_CRT = {"crt": ("limbs_to_residues", "crt_partials", "crt_finish",
                      "residues_to_limbs_fast"),
              "crt_cuda": ("tail_plain",)}
+# the plain modular functions: those of ops/modular.py that the two
+# modular kernels replace on the mul+relin step, and their plain versions
+# in ops/modular_cuda.py.  Keygen, encrypt, decrypt, the constant
+# multiplies and signed_group_sum_tensored still call ops/modular.py on
+# the card, so only the step is counted (lean_path, phase 10a); the
+# mixed-radix fold's mod_add (ops/ntt_ct.py fold_mod_phim, the transform
+# wrapper's plain phim <-> N step, imported by name) is not counted.
+PLAIN_MODULAR = {"modular": ("mod_mul", "mod_add", "mod_dot"),
+                 "modular_cuda": ("tensor_product_plain",
+                                  "keyswitch_dot_plain")}
 
 
 @contextlib.contextmanager
-def plain_crt_calls():
-    """Counts the calls, on CUDA tensors, of the plain functions of
-    PLAIN_CRT made while the block runs: the wrappers of ops/crt_cuda.py
-    reach them only for CPU tensors, so a path on the card must make
-    none."""
-    from fhe_si_tpu_torch.ops import crt, crt_cuda
-    mods = {"crt": crt, "crt_cuda": crt_cuda}
-    calls = []
+def plain_calls(table: dict, calls: list):
+    """Appends to `calls` the name of each call, on a CUDA tensor, of the
+    plain functions of `table` ({module of fhe_si_tpu_torch.ops: names})
+    made while the block runs: the wrappers reach them only for CPU
+    tensors, so a path on the card must make none."""
+    import importlib
+    mods = {m: importlib.import_module(f"fhe_si_tpu_torch.ops.{m}")
+            for m in table}
     plain = {(m, n): getattr(mods[m], n)
-             for m, names in PLAIN_CRT.items() for n in names}
+             for m, names in table.items() for n in names}
 
     def counted(key):
         def call(x, *args, **kw):
@@ -604,36 +736,42 @@ class PathCounts(NamedTuple):
     plain: list      # plain Cooley-Tukey transforms (ops/ntt_ct.py)
     route: dict      # ops/ntt_ct_matmul.CALLS, filled when the block ends
     plain_crt: list  # plain limb/CRT functions on CUDA tensors (PLAIN_CRT)
+    plain_modular: list  # plain modular functions on CUDA tensors inside
+    #                      the mul+relin steps the caller wraps in
+    #                      plain_calls(PLAIN_MODULAR, ...)
 
 
 @contextlib.contextmanager
 def transform_calls():
-    """dense_calls, plain_ct_calls, plain_crt_calls and the matmul route's
-    counts (set to 0 on entry) of the block."""
+    """dense_calls, plain_ct_calls, the plain limb/CRT calls and the
+    matmul route's counts (set to 0 on entry) of the block, and an empty
+    list for the plain modular calls of its mul+relin step."""
     from fhe_si_tpu_torch.ops import ntt_ct_matmul
     ntt_ct_matmul.reset_calls()
     route: dict = {}
     with dense_calls() as dense, plain_ct_calls() as plain, \
-            plain_crt_calls() as plain_crt:
-        yield PathCounts(dense, plain, route, plain_crt)
+            plain_calls(PLAIN_CRT, []) as plain_crt:
+        yield PathCounts(dense, plain, route, plain_crt, [])
     route.update(ntt_ct_matmul.CALLS)
 
 
 def check_launches(label, launches, expect, calls: PathCounts,
                    route: bool = False):
     """The kernels in `expect` launched and no other, and no plain
-    Cooley-Tukey transform and no plain limb/CRT function (PLAIN_CRT) ran
-    on a CUDA tensor.  With route, the block must have run the matmul
+    Cooley-Tukey transform, no plain limb/CRT function (PLAIN_CRT) and no
+    plain modular function inside a wrapped mul+relin step
+    (PLAIN_MODULAR) ran on a CUDA tensor.  With route, the block must have run the matmul
     route (ops/ntt_ct_matmul.py, whose stage products are modmatmul
     calls) and launched no transform kernel; without, it must not have
     touched the route, and a run that launched no transform kernel must
     have gone through the dense transform, and one that did, not."""
     n_dense, n_plain = len(calls.dense), len(calls.plain)
-    n_crt = len(calls.plain_crt)
+    n_crt, n_mod = len(calls.plain_crt), len(calls.plain_modular)
     n_route = sum(calls.route.values())
     print(f"{label} launches: {launches}, modmatmul calls: {n_dense}, "
           f"plain Cooley-Tukey transforms: {n_plain}, plain limb/CRT calls "
-          f"on the card: {n_crt}, matmul-route transforms: {calls.route}")
+          f"on the card: {n_crt}, plain modular calls in the step: {n_mod}, "
+          f"matmul-route transforms: {calls.route}")
     for name, n in launches.items():
         if (n > 0) != (name in expect):
             raise AssertionError(f"{label}: {name} launched {n} times")
@@ -642,10 +780,12 @@ def check_launches(label, launches, expect, calls: PathCounts,
         bad = ntt or not n_route or not n_dense
     else:
         bad = bool(n_route) or ntt == bool(n_dense)
-    if n_plain or n_crt or bad:
+    if n_plain or n_crt or n_mod or bad:
         raise AssertionError(f"{label}: {n_dense} modmatmul calls, {n_plain} "
                              f"plain Cooley-Tukey transforms, {n_crt} plain "
-                             f"limb/CRT calls ({sorted(set(calls.plain_crt))}) "
+                             f"limb/CRT calls ({sorted(set(calls.plain_crt))}), "
+                             f"{n_mod} plain modular calls "
+                             f"({sorted(set(calls.plain_modular))}) "
                              f"and {n_route} matmul-route transforms ran")
 
 
@@ -668,7 +808,8 @@ def lean_path(dev, cfg, batch, label, expect=tuple(KERNELS), dc=None,
     oracle.plaintext_mul (computed on `pool`, a process pool, while the
     card works, when given), and the kernels in `expect` must have
     launched and no other (check_launches; route: the matmul route ran
-    instead).  Returns a LeanRun (msgs: the 2 * batch messages, pair i of
+    instead), and no plain modular function (PLAIN_MODULAR) may have run
+    on a CUDA tensor inside the mul+relin step.  Returns a LeanRun (msgs: the 2 * batch messages, pair i of
     msgs[2i], msgs[2i + 1])."""
     import torch
     from fhe_si_tpu_torch import DeviceContext, FheContext, sampling, scheme
@@ -687,7 +828,8 @@ def lean_path(dev, cfg, batch, label, expect=tuple(KERNELS), dc=None,
         ksw = scheme.KeySwitch.for_relinearization(sk, kr)
         msgs, pairs = encrypt_pairs(scheme, ctx, pk, src, batch)
         wants = oracle_products(ctx, msgs, pool)
-        out = scheme.relin_batch(scheme.mul_batch(pairs), ksw)
+        with plain_calls(PLAIN_MODULAR, calls.plain_modular):
+            out = scheme.relin_batch(scheme.mul_batch(pairs), ksw)
         dec = sk.decrypt_batch(out)
         torch.cuda.synchronize()
     launches = launch_counts()
@@ -714,21 +856,26 @@ def step_cases(dc, batch, ntt=True):
     tensored parts back (ct_inv, then crt_to_limbs with ScaleDown's
     tail), 3 x ndigits digit rows transformed, and 2 keyswitched parts
     back on the ksw basis (ct_inv, crt_to_limbs with the signed
-    reduction).  ntt=False: the limb/CRT kernels only (the dense family
-    and the matmul route launch no transform kernel)."""
+    reduction), the tensor product of the 2 x 2 lifted parts and the
+    keyswitch dot of the 3 x ndigits digit rows (rows: the batch).
+    ntt=False: the other kernels only (the dense family and the matmul
+    route launch no transform kernel)."""
     cases = [("ct_fwd", "full", batch * 4, None),
              ("ct_inv", "full", batch * 3, None),
              ("ct_inv", "ksw", batch * 2, None),
              ("ct_fwd_digits", "ksw", batch * 3 * dc.ndigits, None)]
-    crt = [("crt_to_limbs", "full", batch * 3, "round_down"),
-           ("crt_to_limbs", "ksw", batch * 2, "reduce_signed"),
-           ("limbs_to_residues", "full", batch * 4, None)]
-    return (cases if ntt else []) + crt
+    other = [("crt_to_limbs", "full", batch * 3, "round_down"),
+             ("crt_to_limbs", "ksw", batch * 2, "reduce_signed"),
+             ("limbs_to_residues", "full", batch * 4, None),
+             ("tensor_product", "full", batch, None),
+             ("keyswitch_dot", "ksw", batch, None)]
+    return (cases if ntt else []) + other
 
 
 def time_step(card, dc, pairs, ksw, out, label):
-    """mul+relin over the stacked pairs, held equal to `out` and timed;
-    returns (a, b, ms per step, launches of one step)."""
+    """mul+relin over the stacked pairs, held equal to `out` and timed in
+    three windows of 10 steps; returns (a, b, the median window's ms per
+    step, launches of one step)."""
     import torch
     a = torch.stack([x.parts for x, _ in pairs])
     b = torch.stack([y.parts for _, y in pairs])
@@ -736,11 +883,13 @@ def time_step(card, dc, pairs, ksw, out, label):
     step = lambda: dc.mul_relin(a, b, ksw.matrix_evals)  # noqa: E731
     for _ in range(2):
         step()
-    ms = cuda_ms(step, 10)
+    windows = [cuda_ms(step, 10) for _ in range(3)]
+    ms = sorted(windows)[1]
     if not torch.equal(step(), ref):
         raise AssertionError(f"{label}: timed mul+relin output changed")
     print(f"[{card}] {label} mul+relin B={len(pairs)} m={dc.ctx.m}: "
-          f"{ms:.3f} ms/step, {len(pairs) * 1000.0 / ms:.1f} mults/s")
+          f"{ms:.3f} ms/step, {len(pairs) * 1000.0 / ms:.1f} mults/s "
+          f"(median of windows {', '.join(f'{w:.3f}' for w in windows)})")
     reset_launches()
     step()
     return a, b, ms, launch_counts()
@@ -802,11 +951,33 @@ def _case(dc, name, basis, rows, tail, rng):
     """One timed case: (its input, run(kernel: bool), bound ms, bound_by).
     The transforms' run takes the wrapper of ops/ntt_ct_cuda.py or the
     plain ops/ntt_ct.py, the limb/CRT kernels' the wrapper of
-    ops/crt_cuda.py or its plain version."""
+    ops/crt_cuda.py or its plain version, the modular kernels' the wrapper
+    of ops/modular_cuda.py or its plain version (tensor_product on the two
+    halves of one [rows, 4, L, phim] tensor, keyswitch_dot at K = 3 x
+    ndigits)."""
     import torch
-    from fhe_si_tpu_torch.ops import crt, crt_cuda, ntt_ct, ntt_ct_cuda
+    from fhe_si_tpu_torch.ops import (crt, crt_cuda, modular_cuda as mc,
+                                      ntt_ct, ntt_ct_cuda)
     T = getattr(dc, basis)
     q_np, meta = T['primes_np'], dc.ct_meta
+    if name in MODULAR:
+        L = len(q_np)
+
+        def res(*lead):
+            return torch.as_tensor(rng.integers(0, q_np[:, None], size=lead + (
+                L, dc.phim)).astype(np.int32), device=dc.device)
+        plain = (T['q'], T['qinv_f'], dc.wide)
+        if name == "tensor_product":
+            x = res(rows, 4)
+            a, b = x[:, :2], x[:, 2:]
+            return (x, lambda k: mc.tensor_product(a, b, T, dc.wide) if k
+                    else mc.tensor_product_plain(a, b, T['p_mod_q'], *plain),
+                    *modular_bound(name, rows, L, dc.phim))
+        K = 3 * dc.ndigits
+        mat, x = res(2, K), res(rows, K)
+        return (x, lambda k: mc.keyswitch_dot(mat, x, T, dc.wide) if k
+                else mc.keyswitch_dot_plain(mat, x, *plain),
+                *modular_bound(name, rows, L, dc.phim, K))
     if name in NTT:
         tab = T['ct']
         if name == "ct_fwd_digits":
@@ -841,10 +1012,12 @@ def _case(dc, name, basis, rows, tail, rng):
 
 def time_kernels(card, dev, dc, cases, per_step=None):
     """Each (kernel, basis, rows, tail) case against its plain version on
-    random operands: held equal, then timed plain, kernel, kernel, plain,
-    and set against its bound.  With per_step, also the kernel's launches
-    per mul+relin step.  Returns {kernel: [(shape, kernel ms, plain ms,
-    bound ms, bound_by), ...]} in case order."""
+    random operands: held equal, then timed plain, kernel, kernel, plain
+    with CUDA events (the wrapper's host time included), then the
+    kernel's device time alone (device_ms), each set against its bound.
+    With per_step, also the kernel's launches per mul+relin step.
+    Returns {kernel: [(shape, kernel ms, plain ms, bound ms, bound_by,
+    device ms or None), ...]} in case order."""
     import torch
     rng = np.random.default_rng(SEED)
     lane = "wide" if dc.wide else "narrow"
@@ -866,10 +1039,15 @@ def time_kernels(card, dev, dc, cases, per_step=None):
                 f"{tuple(x.shape)}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms"
                 f", bound {b_ms * 1e3:.1f} us ({b_by}), share of bound "
                 f"{100 * b_ms / k_ms:.1f}%")
+        d_ms = device_ms(lambda: run(True))
+        line += ("; device time not measured (the host was slower than the "
+                 "spin)" if d_ms is None else f"; device time {d_ms:.4f} ms, "
+                 f"share of bound {100 * b_ms / d_ms:.1f}%")
         if per_step is not None:
             line += f", launches per mul+relin step {per_step[name]}"
         print(line)
-        out.setdefault(name, []).append((tuple(x.shape), k_ms, p_ms, b_ms, b_by))
+        out.setdefault(name, []).append((tuple(x.shape), k_ms, p_ms, b_ms, b_by,
+                                         d_ms))
     return out
 
 
@@ -990,19 +1168,19 @@ def phase_dense(dev, card):
         raise AssertionError("p=4007 logQ 170: expected dense, narrow, "
                              "one matmul per transform")
     check_dense(dc)
-    check_crt(dc, f"p={BIG['p']} m={BIG['m']} logQ={BIG['log_q']} dense")
+    check_basis_kernels(dc, f"p={BIG['p']} m={BIG['m']} logQ={BIG['log_q']} dense")
     wdc = DeviceContext(FheContext(**DENSE_WIDE), dev)
     if wdc.use_ct or not wdc.wide or len(wdc.full['fwd']) != 2:
         raise AssertionError("p=2027 prime_bits=23: expected dense, wide, "
                              "the 12-bit split")
     check_dense(wdc)
-    check_crt(wdc, f"p={DENSE_WIDE['p']} m={DENSE_WIDE['m']} dense")
+    check_basis_kernels(wdc, f"p={DENSE_WIDE['p']} m={DENSE_WIDE['m']} dense")
     del wdc
     t0 = part("a")
 
     # b. mul+relin at bench_big, uncut
     dc, ksw, pairs, out, launches["dense_mul_relin"] = lean_path(
-        dev, BIG, BATCH, "dense path", expect=CRT, dc=dc)[:5]
+        dev, BIG, BATCH, "dense path", expect=NO_TRANSFORM, dc=dc)[:5]
     a, b, _, per_step = time_step(card, dc, pairs, ksw, out, "dense path")
     time_stages(card, dc, a, b, ksw, "dense path")
     time_kernels(card, dev, dc, step_cases(dc, BATCH, ntt=False), per_step)
@@ -1018,21 +1196,22 @@ def phase_dense(dev, card):
 
     # c. the apps at the reference's regression ring
     launches.update(phase_apps(dev, card, APP_REF, "narrow", "_m4006",
-                               expect=CRT))
+                               expect=NO_TRANSFORM))
     t0 = part("c")
 
     # d. Test_General at its defaults, Test_AddMul at bench_big's ring
     rc, text, *_, launches["general"] = run_cli(
         dev, test_general, ["test_general", str(GENERAL["p"]),
                             str(GENERAL["generator"]), str(GENERAL["log_q"]),
-                            str(SEED), f"--device={dev}"], "general", CRT)
+                            str(SEED), f"--device={dev}"], "general",
+        NO_TRANSFORM)
     if rc != 0 or text.strip() != "All tests finished.":
         raise AssertionError(f"Test_General failed (rc {rc})")
     t0 = part("d (Test_General)")
     rc, text, *_, launches["addmul"] = run_cli(
         dev, test_addmul, ["test_addmul", str(BIG["log_q"]), str(BIG["p"]),
                            str(BIG["generator"]), "--trials", "10",
-                           f"--device={dev}"], "addmul", CRT)
+                           f"--device={dev}"], "addmul", NO_TRANSFORM)
     if rc != 0 or not text.rstrip().endswith("All tests SUCCEEDED!"):
         raise AssertionError(f"Test_AddMul failed (rc {rc})")
     t0 = part("d (Test_AddMul)")
@@ -1041,7 +1220,7 @@ def phase_dense(dev, card):
     # residues through ct_fwd, no ct_fwd_digits
     dc, *_, launches["decomp4"] = lean_path(
         dev, DECOMP4, BATCH_DECOMP4, "decompSize 4",
-        expect=("ct_fwd", "ct_inv") + CRT)[:5]
+        expect=("ct_fwd", "ct_inv") + NO_TRANSFORM)[:5]
     if dc.digit_bits != 32:
         raise AssertionError(f"decompSize 4: {dc.digit_bits}-bit digits")
     del dc
@@ -1052,7 +1231,8 @@ def phase_dense(dev, card):
     cfg = dict(m=LARGE_P["m"], log_q=LARGE_P["log_q"], p=p,
                generator=LARGE_P["generator"])
     dc, *_, launches["large_p"] = lean_path(dev, cfg, BATCH_LARGE_P,
-                                            f"large p={p}", expect=CRT)[:5]
+                                            f"large p={p}",
+                                            expect=NO_TRANSFORM)[:5]
     if dc.ctx.slot_degree != 1 or p < 1 << 20:
         raise AssertionError(f"p={p}: not a large p with slots of degree 1")
     del dc
@@ -1132,7 +1312,7 @@ def phase_mixed(dev, card):
     if tuple(dc.ct_meta) != (128, 80, 8192, 5) or dc.wide or dc.L != 12:
         raise AssertionError(f"m=20480: {dc.ct_meta}, L={dc.L}, "
                              f"wide={dc.wide}")
-    check_crt(dc, f"m={MIXED['m']} logQ={MIXED['log_q']}", rows=9)
+    check_basis_kernels(dc, f"m={MIXED['m']} logQ={MIXED['log_q']}", rows=9)
     print(f"m=20480 path wall time: {time.perf_counter() - t0:.2f} s "
           "(setup, keys, encrypt, mul+relin, decrypt)")
     a, b, _, per_step = time_step(card, dc, pairs, ksw, out, "m=20480 path")
@@ -1496,10 +1676,11 @@ def phase_sharded(dev, card, main_run, codec):
         half = ctx.num_primes // 2
         for rows in (None, np.arange(half), np.arange(half, 2 * half)):
             shard = sp.local if rows is None else DeviceContext(ctx, dev, rows)
-            check_crt(shard, f"limb shard rows {rows}", bases=("full",))
+            check_basis_kernels(shard, f"limb shard rows {rows}", bases=("full",))
         mat = shard_matrix(mesh, ksw.matrix_evals)
         reset_launches()
-        with transform_calls() as calls:
+        with transform_calls() as calls, \
+                plain_calls(PLAIN_MODULAR, calls.plain_modular):
             got = sp.batched_mul_relin(a, b, mat)
             red = sp.mul_relin_block_reduce(a, b, mat)
             torch.cuda.synchronize()
@@ -1576,13 +1757,13 @@ def phase_sharded(dev, card, main_run, codec):
               f"{w['first_call_s']:.3f} s, launches {w['launches']} (ranks "
               "share one card and run at once: not a scaling figure)")
     coeff = worlds["coeff2"]["launches"]
-    if any(coeff[k] for k in NTT) or not all(coeff[k] for k in CRT):
+    if any(coeff[k] for k in NTT) or not all(coeff[k] for k in NO_TRANSFORM):
         raise AssertionError(f"the coeff path launched {coeff}")
     print("worlds: limb = 2 and dp = 2 over gloo == the single rank (NCCL), "
           "block reduce and batched output; coeff = 2 == the unsharded "
           "step, no transform kernel launched there (plain transforms, as "
-          "the JAX package's XLA einsums), both limb/CRT kernels on the "
-          "rank's block")
+          "the JAX package's XLA einsums), both limb/CRT and both modular "
+          "kernels on the rank's block")
     gflop, bound = coeff_step_bound(dc, 8)
     w = worlds["coeff2"]
     print(f"[{card}] coeff-sharded transforms of one B=8 step: {gflop:.3f} "
@@ -1711,7 +1892,8 @@ def cli_child(dev, argv) -> int:
     oracle products are minutes of host Python."""
     import importlib
     cli = importlib.import_module(f"fhe_si_tpu_torch.cli.{argv[0]}")
-    rc, _, err, _ = run_cli(dev, cli, list(argv), argv[0], CRT, route=True)
+    rc, _, err, _ = run_cli(dev, cli, list(argv), argv[0], NO_TRANSFORM,
+                            route=True)
     sys.stderr.write(err)
     return rc
 
@@ -1754,13 +1936,13 @@ def phase_route(dev, card):
             if any(k.startswith("k_") for k in dc.full['ct']):
                 raise AssertionError("p=8147: kernel tables were built")
             check_route(dc, ((RAGGED_ROWS,), (2, 3)))
-            check_crt(dc, f"p={ROUTE['p']} m={ROUTE['m']} logQ="
+            check_basis_kernels(dc, f"p={ROUTE['p']} m={ROUTE['m']} logQ="
                       f"{ROUTE['log_q']} route")
             t0 = part(f"a (p={ROUTE['p']})")
 
             # b. mul+relin at p = 8147, batch 64, the oracle on the pool
             label = f"p={ROUTE['p']} route path"
-            run = lean_path(dev, ROUTE, BATCH, label, expect=CRT, dc=dc,
+            run = lean_path(dev, ROUTE, BATCH, label, expect=NO_TRANSFORM, dc=dc,
                             route=True, pool=pool)
             print(f"peak device memory (phase 11a-b): "
                   f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
@@ -1774,18 +1956,20 @@ def phase_route(dev, card):
                 raise AssertionError(f"m={M16['m']}: route {dc16.ct_route}, "
                                      f"wide={dc16.wide}")
             check_route(dc16, ((3,),))
-            check_crt(dc16, f"m={M16['m']} logQ={M16['log_q']} route", rows=3)
+            check_basis_kernels(dc16, f"m={M16['m']} logQ={M16['log_q']} route", rows=3)
             launches = {"route_mul_relin": run.launches,
                         "route_mul_relin_m65536": lean_path(
                             dev, M16, BATCH16, f"m={M16['m']} route path",
-                            expect=CRT, dc=dc16, route=True).launches}
+                            expect=NO_TRANSFORM, dc=dc16,
+                            route=True).launches}
             del dc16
             torch.cuda.empty_cache()
             t0 = part(f"d (m={M16['m']})")
 
         # c. Test_Statistics at p = 8147 (m = p - 1)
         launches.update(phase_apps(dev, card, ROUTE_APP, "narrow",
-                                   f"_p{ROUTE['p']}", expect=CRT, route=True,
+                                   f"_p{ROUTE['p']}", expect=NO_TRANSFORM,
+                                   route=True,
                                    names=("statistics",)))
         t0 = part("c (Test_Statistics)")
         log, _ = addmul.communicate(timeout=600)
@@ -1864,7 +2048,7 @@ def main() -> int:
     t0 = time.perf_counter()
     dc15, ksw15, pairs15, out15, launches15 = lean_path(
         dev, M15, BATCH15, "m=32768 path")[:5]
-    check_crt(dc15, f"m={M15['m']} logQ={M15['log_q']}", rows=5)
+    check_basis_kernels(dc15, f"m={M15['m']} logQ={M15['log_q']}", rows=5)
     print(f"m=32768 path wall time: {time.perf_counter() - t0:.2f} s "
           f"(setup, keys, encrypt, mul+relin, decrypt)")
 
@@ -1883,7 +2067,8 @@ def main() -> int:
         ("ct_fwd_digits", "ksw", 20 * 2 * rdc.ndigits, None),
         ("crt_to_limbs", "full", 14 * 3, "round_down"),
         ("crt_to_limbs", "ksw", 20 * 2, "reduce_signed"),
-        ("limbs_to_residues", "full", 14 * 4, None)])
+        ("limbs_to_residues", "full", 14 * 4, None),
+        ("tensor_product", "full", 14, None), ("keyswitch_dot", "ksw", 20, None)])
     del rdc
     *_, per_step15 = time_step(card, dc15, pairs15, ksw15, out15,
                                "m=32768 path")
@@ -1929,14 +2114,15 @@ def main() -> int:
                        **{path: n[name] for path, n in
                           (app_launches | dense_launches
                            | route_launches).items()})
-        _, k_ms, p_ms, b_ms, b_by = narrow_ms[name][0]
+        _, k_ms, p_ms, b_ms, b_by, d_ms = narrow_ms[name][0]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=MAX_ERR[name], ms=k_ms, plain_ms=p_ms,
-            bound_ms=b_ms, bound_by=b_by,
+            bound_ms=b_ms, bound_by=b_by, device_ms=d_ms,
             # no PyTorch call computes a transform mod q, a CRT
-            # reconstruction into limbs or a lift of limbs to residues
+            # reconstruction into limbs, a lift of limbs to residues, or
+            # a modular product or dot
             library_ms=None,
             wide_ms=wide_ms[name][0][1], wide_plain_ms=wide_ms[name][0][2],
             m32768_ms=m15_ms[name][0][1], m32768_plain_ms=m15_ms[name][0][2],

@@ -27,7 +27,10 @@ both families the conversions between limbs and residues (from_poly's
 lift, to_poly's CRT reconstruction with the limb tails of ScaleDown and
 of the signed reduction fused in) go through ops/crt_cuda.py: the
 Hopper kernels of csrc/crt.cu for CUDA tensors, the plain ops/crt.py and
-ops/limbs.py for CPU tensors.
+ops/limbs.py for CPU tensors; and the evaluation-domain products of
+mul+relin (the tensor product, the keyswitch dot) through
+ops/modular_cuda.py: the Hopper kernels of csrc/modular.cu for CUDA
+tensors, ops/modular.py for CPU tensors.
 
 Pipeline map to the reference (file:line into the dwu4/fhe-si sources):
   from_poly   = Cmodulus::FFT per prime        CModulus.cpp:89-107
@@ -48,8 +51,8 @@ import numpy as np
 import torch
 
 from .context import MAX_KSW_PARTS, FheContext, int_to_limbs
-from .ops import (crt, crt_cuda, limbs as lb, modular, ntt, ntt_ct,
-                  ntt_ct_cuda, ntt_ct_matmul)
+from .ops import (crt, crt_cuda, limbs as lb, modular, modular_cuda, ntt,
+                  ntt_ct, ntt_ct_cuda, ntt_ct_matmul)
 
 
 # fast_crt table entries with one row per chain prime; the rest (P_limbs,
@@ -108,6 +111,8 @@ class DeviceContext:
                 chunk_tbl=self._i32(rt['chunk_tbl'] if rows is None
                                     else rt['chunk_tbl'][:, rows]),
                 fast_crt=self._fast_crt(fast_crt_np),
+                p_mod_q=self._i32((ctx.p % q_np)[:, None]),
+                k_mod=self._i32(modular_cuda.kernel_table(q_np, ctx.p)),
                 primes_np=q_np)
             if self.use_ct:
                 ct = ntt_ct.with_crt_premultiplier(
@@ -150,17 +155,21 @@ class DeviceContext:
             # the raw inverse, for ntt_inv (the CT tables keep raw t2i)
             self.full['inv'] = self._dense(dense_inv, rows)
         if self.device.type == "cuda":
-            # the limb/CRT kernels' shapes and primes, before any path
-            # reaches them
+            # the limb/CRT and the modular kernels' shapes and primes,
+            # before any path reaches them
             for T in (self.full, self.ksw, self.lin):
                 B = T['fast_crt']['B']
                 crt_cuda.check_shape("crt_to_limbs", B.shape, *B.shape,
                                      T['primes_np'])
+                modular_cuda.check_shape("tensor_product", B.shape,
+                                         T['primes_np'])
             crt_cuda.check_shape("limbs_to_residues", (self.L, self.n),
                                  self.L, self.n)
+            modular_cuda.check_shape("keyswitch_dot", self.ksw['q'].shape,
+                                     self.ksw['primes_np'],
+                                     MAX_KSW_PARTS * self.ndigits)
         self.q = self.full['q']
         self.qinv_f = self.full['qinv_f']
-        self.p_mod_q = self._i32((ctx.p % ctx.primes[rows])[:, None])
         self.q_limbs = self._i32(int_to_limbs(ctx.q, ctx.n_limbs))
         self.q_over_p = self._i32(ctx.q_over_p_limbs)
         self.q_over_p_sh10 = self._i32(
@@ -377,7 +386,7 @@ class DeviceContext:
         pk_sub = self._gather_rows(T, pk_evals)
         r_evals = self._fwd_t(T, r[..., None, :] % q)
         e_evals = self._mul(self._fwd_t(T, errors[..., None, :] % q),
-                            self._gather_rows(T, self.p_mod_q), T)
+                            T['p_mod_q'], T)
         ct_evals = modular.mod_add(
             self._mul(pk_sub, r_evals[..., None, :, :], T), e_evals, q)
         parts = self._to_poly_sub(T, ct_evals)
@@ -430,17 +439,8 @@ class DeviceContext:
     def _tensor_product(self, a_ev, b_ev):
         """The evaluation-domain half of _tensor_mul: p * a tensored with
         b, [..., ka, L, phim] x [..., kb, L, phim] -> [..., ka+kb-1, L,
-        phim]."""
-        na, nb = a_ev.shape[-3], b_ev.shape[-3]
-        a_ev = self._mul(a_ev, self.p_mod_q)
-        out = [None] * (na + nb - 1)
-        for i in range(na):
-            for j in range(nb):
-                pr = self._mul(a_ev[..., i, :, :], b_ev[..., j, :, :])
-                k = i + j
-                out[k] = pr if out[k] is None else modular.mod_add(
-                    out[k], pr, self.q)
-        return torch.stack(out, dim=-3)
+        phim] (a and b may be views of one lifted tensor)."""
+        return modular_cuda.tensor_product(a_ev, b_ev, self.full, self.wide)
 
     def _scale_down(self, tprod_evals):
         """Ciphertext::ScaleDown: floor((2x + q) / 2q), reduced signed,
@@ -495,11 +495,13 @@ class DeviceContext:
     def _keyswitch_digits(self, matrix_evals, digit_evals):
         """Keyswitch dot + reconstruction over the keyswitch basis.
         matrix_evals [2, K, L, phim] (full chain), digit_evals
-        [..., K, Lk, phim] -> parts [..., 2, phim, n_ct]."""
+        [..., K, Lk, phim] -> parts [..., 2, phim, n_ct].  The matrix's
+        ksw rows are gathered first (an index_select, 3 MB at m = 8192),
+        so the dot kernel reads one layout whatever the matrix's source:
+        the full chain here, a limb shard's block in parallel/shard.py."""
         K = self.ksw
-        mat = self._gather_rows(K, matrix_evals)
-        acc = modular.mod_dot(mat, digit_evals[..., None, :, :, :],
-                              K['q'], K['qinv_f'], axis=-3, wide=self.wide)
+        acc = modular_cuda.keyswitch_dot(self._gather_rows(K, matrix_evals),
+                                         digit_evals, K, self.wide)
         return self._to_poly_sub(K, acc, self.tail("reduce_signed"))
 
     def keyswitch_parts(self, parts, matrix_evals):

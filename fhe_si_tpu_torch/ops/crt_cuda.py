@@ -44,7 +44,7 @@ import torch
 
 from ..context import int_to_limbs
 from . import crt, limbs as lb
-from .cuda_build import library
+from .cuda_build import library, on_cuda
 
 LAUNCHES = {"crt_to_limbs": 0, "limbs_to_residues": 0}
 MAX_ROWS = 64          # crt.cu kMaxRows: the int32 limb sums' bound
@@ -178,14 +178,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _on_cuda(x) -> bool:
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise RuntimeError(f"no kernel for device {x.device}")
-    return True
-
-
 def _launch(name: str, fn: str, tensors, ints):
     """Check the operands, launch on the current stream, count."""
     dev = tensors[0].device
@@ -227,7 +219,7 @@ def crt_partials(res, t: dict, wide: bool = False):
     [..., rows, phim] (the redundant row last where the basis has it):
     (acc [..., phim, n], sig_raw [..., phim], er [..., phim]), element
     for element crt.crt_partials(prescaled=True)."""
-    if not _on_cuda(res):
+    if not on_cuda(res):
         return crt_partials_plain(res, t, wide)
     rows, n, tab = _basis("crt_partials", t, res.shape)
     res = _residues("crt_partials", res, rows)
@@ -245,7 +237,7 @@ def crt_finish(acc, sig_raw, er, t: dict, wide: bool = False,
                tail: Tail | None = None):
     """crt.crt_finish of (all-reduced) partials -> limbs [..., phim, n],
     then `tail` (limbs [..., phim, tail.width])."""
-    if not _on_cuda(acc):
+    if not on_cuda(acc):
         return crt_finish_plain(acc, sig_raw, er, t, wide, tail)
     rows, n, tab = _basis("crt_finish", t, acc.shape)
     _check_tail("crt_finish", tail, n)
@@ -271,7 +263,7 @@ def crt_to_limbs(res, t: dict, wide: bool = False, tail: Tail | None = None):
     [..., phim, n] (crt.residues_to_limbs_fast(prescaled=True)), then
     `tail` (limbs [..., phim, tail.width]).  Nothing of size
     [..., rows, phim, n] reaches device memory."""
-    if not _on_cuda(res):
+    if not on_cuda(res):
         return crt_to_limbs_plain(res, t, wide, tail)
     rows, n, tab = _basis("crt_to_limbs", t, res.shape)
     _check_tail("crt_to_limbs", tail, n)
@@ -294,7 +286,7 @@ def limbs_to_residues(poly, chunk_tbl, wrap, q, qinv_f, wide: bool = False):
     kernel reads its rows 0, 4, 8, ...), wrap [L, 1] = 2^(16n) mod q_l,
     q [L, 1], its primes below 2^23 (DeviceContext checks them on the
     host)."""
-    if not _on_cuda(poly):
+    if not on_cuda(poly):
         return crt.limbs_to_residues(poly, chunk_tbl, wrap, q, qinv_f, wide)
     n, L = poly.shape[-1], q.shape[0]
     check_shape("limbs_to_residues", poly.shape, L, n)

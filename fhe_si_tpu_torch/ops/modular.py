@@ -3,6 +3,15 @@
 Counterpart of fhe_si_tpu/ops/modular.py.  Every output is the canonical
 residue in [0, q), so any exact method gives the JAX package's tensors.
 
+On the card, the products of the main path no longer run here: the
+tensor product and the keyswitch dot of mul+relin run on the kernels of
+csrc/modular.cu (ops/modular_cuda.py: exact 64-bit products, one
+reduction per output).  These functions remain their plain versions
+(modular_cuda.tensor_product_plain and keyswitch_dot_plain are made of
+them), the CPU path, and the residue arithmetic of the rest of the port
+on either device: keygen, encrypt, decrypt, the constant and scalar
+multiplies, signed_group_sum_tensored, DoubleCrt.
+
 Narrow lane (q < 2^20): the JAX package's arithmetic as it is.  Every
 product stays below 2^31 and quotients are estimated in float32
 ("f32 Barrett"):
@@ -12,14 +21,15 @@ product stays below 2^31 and quotients are estimated in float32
 
 torch.round rounds half to even like jnp.rint, and int32 products wrap
 mod 2^32 on CPU and CUDA alike, so the intermediate `t - quo*q` is exact
-whenever the true value is small.
+whenever the true value is small.  mod_dot's int32 partial sums take at
+most 512 terms.
 
 Wide lane (q < 2^23): where the JAX package runs a 6-bit Horner
 (mod_mul) and 12-bit splits (mod_dot) to stay inside int32, the port
 computes in int64: a product is below 2^46 and a dot of K terms below
-K * 2^46, exact for K < 2^17 (the keyswitch dot has K <= 64 rows,
-context.py caps it).  `%` on int64 with a positive divisor returns the
-canonical residue on CPU and CUDA.
+K * 2^46, exact for K < 2^17 (context.py caps the wide keyswitch dot at
+64 terms, as the JAX package's int32 splits need).  `%` on int64 with a
+positive divisor returns the canonical residue on CPU and CUDA.
 
 torch.sum of an int32 tensor returns int64 where jnp.sum keeps int32; the
 int32 sums below pass dtype=torch.int32 so later shifts and masks see

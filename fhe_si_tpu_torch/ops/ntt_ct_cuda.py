@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from . import ntt_ct
-from .cuda_build import library
+from .cuda_build import library, on_cuda
 from .ntt_ct import CtMeta
 
 LAUNCHES = {"ct_fwd": 0, "ct_fwd_digits": 0, "ct_inv": 0}
@@ -138,14 +138,6 @@ def _lib() -> ctypes.CDLL:
     lib.fsi_smem_optin.argtypes = []
     lib.fsi_smem_optin.restype = i32
     return lib
-
-
-def _on_cuda(x) -> bool:
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise RuntimeError(f"no kernel for device {x.device}")
-    return True
 
 
 SMEM_MAX = 232448       # ct_ntt.cu kSmemMax: an H100 block's opt-in bytes
@@ -250,7 +242,7 @@ def _mma_tables(name, x, T: dict, keys, S: int, R: int):
 
 def ct_fwd(T: dict, x, meta: CtMeta):
     """Forward transform of residues int32 [..., L, phim] in [0, q)."""
-    if not _on_cuda(x):
+    if not on_cuda(x):
         return ntt_ct.ct_fwd(T, x, meta)
     L = T['q'].shape[0]
     _check("ct_fwd", x, (L, meta.phim), T)
@@ -265,7 +257,7 @@ def ct_fwd(T: dict, x, meta: CtMeta):
 def ct_fwd_digits(T: dict, digits, meta: CtMeta, digit_bits: int):
     """Forward transform of prime-independent digits int32 [..., phim] in
     [0, 2^digit_bits) -> [..., L, phim]."""
-    if not _on_cuda(digits):
+    if not on_cuda(digits):
         return ntt_ct.ct_fwd_digits(T, digits, meta, digit_bits)
     if digit_bits > ntt_ct.MAX_DIGIT_BITS:
         raise NotImplementedError(
@@ -285,7 +277,7 @@ def ct_fwd_digits(T: dict, digits, meta: CtMeta, digit_bits: int):
 def ct_inv(T: dict, evals, meta: CtMeta, t2i_key: str = 't2i'):
     """Inverse transform [..., L, phim] -> coefficients; t2i_key='t2i_crt'
     folds in the CRT premultiplier."""
-    if not _on_cuda(evals):
+    if not on_cuda(evals):
         return ntt_ct.ct_inv(T, evals, meta, t2i_key)
     L = T['q'].shape[0]
     _check("ct_inv", evals, (L, meta.phim), T)

@@ -11,9 +11,11 @@ ShardedPipelines: the CRT prime axis over 'limb', the batch over 'dp'.
   - A rank builds the tables of its own block of chain rows only
     (DeviceContext(ctx, device, rows)): the transforms, the tensor
     product, the digit transform and the keyswitch dot are per prime, so
-    on a Cooley-Tukey ring on CUDA the three kernels run on the rank's
-    rows (ops/ntt_ct_cuda.py; the matmul route, ops/ntt_ct_matmul.py, on
-    a split the kernel cannot take), on a dense ring ops/ntt.modmatmul.
+    on a Cooley-Tukey ring on CUDA the three transform kernels run on the
+    rank's rows (ops/ntt_ct_cuda.py; the matmul route,
+    ops/ntt_ct_matmul.py, on a split the kernel cannot take), on a dense
+    ring ops/ntt.modmatmul; the tensor product and the keyswitch dot run
+    the kernels of ops/modular_cuda.py on the rank's rows on every ring.
   - The only collectives: one all-reduce over 'limb' of the three CRT
     partials (ops/crt_cuda.crt_partials) at each reconstruction, the
     ScaleDown and the keyswitch output, then crt_finish with the limb
@@ -28,7 +30,8 @@ Coefficient sharding: the phi(m) axis over 'coeff'.  Everything between
 the transforms is per coefficient (limbs_to_residues, the tensor
 product, the CRT reconstruction with the ScaleDown tail, byte_decomp,
 the keyswitch dot), so the lift and the reconstruction run the kernels
-of ops/crt_cuda.py on the rank's block.  Each transform contracts the sharded axis: a rank forms
+of ops/crt_cuda.py, the tensor product and the dot those of
+ops/modular_cuda.py, on the rank's block.  Each transform contracts the sharded axis: a rank forms
 the plain stage product over its slice of the contraction (ops/ntt_ct.py
 _stage, or ops/ntt.modmatmul on the dense family), reduced mod q; one
 all-reduce per stage sums the S partials, `% q` makes the canonical
@@ -47,7 +50,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceContext
-from ..ops import crt_cuda, limbs as lb, modular, ntt, ntt_ct
+from ..ops import crt_cuda, limbs as lb, modular_cuda, ntt, ntt_ct
 
 I32_MAX = (1 << 31) - 1
 MAX_BLOCK_REDUCE = 1 << 15   # ciphertexts summed by mul_relin_block_reduce
@@ -109,10 +112,8 @@ class ShardedPipelines:
         loc = self.local
         parts = self._to_poly_psum(loc._tensor_mul(a, b), "round_down")
         # ByteDecomp digits replicated, their transform on the rank's rows
-        d_ev = loc._digit_evals(parts)
-        acc = modular.mod_dot(matrix_local, d_ev[..., None, :, :, :],
-                              self.T['q'], self.T['qinv_f'], axis=-3,
-                              wide=self.ctx.wide)
+        acc = modular_cuda.keyswitch_dot(matrix_local, loc._digit_evals(parts),
+                                         self.T, self.ctx.wide)
         return self._to_poly_psum(acc, "reduce_signed")
 
     def mul_relin_block_reduce(self, a, b, matrix_local):
@@ -338,7 +339,6 @@ class CoeffShardedPipelines:
         digs = lb.byte_decomp(parts, dev.log_q, dev.digit_bits, dev.ndigits,
                               dev.q_limbs)                # [..., k, phim/S, nd]
         digs = digs.movedim(-1, -2).reshape(*lead, k * dev.ndigits, phim_loc)
-        acc = modular.mod_dot(matrix_local,
-                              self._fwd_digits(digs)[..., None, :, :, :],
-                              T['q'], T['qinv_f'], axis=-3, wide=dev.wide)
+        acc = modular_cuda.keyswitch_dot(matrix_local, self._fwd_digits(digs),
+                                         T, dev.wide)
         return self._to_poly(acc, "reduce_signed")

@@ -3,8 +3,11 @@ plain PyTorch versions on both residue lanes, on power-of-two and
 mixed-radix rings (odd N1 among them), the splits the kernel refuses and
 the matmul route that takes them, the two limb/CRT kernels
 (ops/crt_cuda.py) in every mode against their plain versions and the
-shapes they refuse, the dense transform family against the same function on
-the CPU, the multiply + relinearize slice (on the
+shapes they refuse, the two evaluation-domain kernels
+(ops/modular_cuda.py: the tensor product, the keyswitch dot) against
+their plain versions and the shapes they refuse, the dense transform
+family against the same function on the CPU, the multiply + relinearize
+slice (on the
 Cooley-Tukey rings, decompSize 4 included, and on dense rings) and the
 two applications on the card against the same runs on the CPU (which
 test_torch_slice.py, test_torch_dense*.py and test_torch_apps*.py hold
@@ -21,7 +24,8 @@ import torch
 
 from fhe_si_tpu_torch import DeviceContext, FheContext, sampling, scheme
 from fhe_si_tpu_torch.hostmath import oracle
-from fhe_si_tpu_torch.ops import crt, crt_cuda, ntt_ct, ntt_ct_cuda
+from fhe_si_tpu_torch.ops import (crt, crt_cuda, modular_cuda, ntt_ct,
+                                  ntt_ct_cuda)
 
 torch.set_num_threads(1)
 
@@ -245,6 +249,7 @@ def test_matmul_route_on_card_equals_cpu(cuda, ring):
     assert torch.equal(cpu_parts, parts)
     assert not any(launched[k] for k in ntt_ct_cuda.LAUNCHES)
     assert all(launched[k] for k in crt_cuda.LAUNCHES)
+    assert all(launched[k] for k in modular_cuda.LAUNCHES)
     assert all(ntt_ct_matmul.CALLS.values())
 
 
@@ -270,8 +275,8 @@ def _slice_round(ctx, device):
     ksw = scheme.KeySwitch.for_relinearization(sk, src)
     msgs = [src.uniform_mod_p(ctx.phim, ctx.p) for _ in range(4)]
     cts = pk.encrypt_batch([scheme.Plaintext(ctx, mm) for mm in msgs], src)
-    ntt_ct_cuda.reset_launches()
-    crt_cuda.reset_launches()
+    for mod in (ntt_ct_cuda, crt_cuda, modular_cuda):
+        mod.reset_launches()
     out = scheme.relin_batch(scheme.mul_batch(list(zip(cts[0::2],
                                                        cts[1::2]))), ksw)
     dec = sk.decrypt_batch(out)
@@ -279,7 +284,8 @@ def _slice_round(ctx, device):
         assert np.array_equal(dec[i].message, oracle.plaintext_mul(
             ctx, msgs[2 * i], msgs[2 * i + 1]))
     return (torch.stack([c.parts for c in out]).cpu(), dec,
-            dict(ntt_ct_cuda.LAUNCHES, **crt_cuda.LAUNCHES))
+            dict(ntt_ct_cuda.LAUNCHES, **crt_cuda.LAUNCHES,
+                 **modular_cuda.LAUNCHES))
 
 
 @pytest.mark.cuda
@@ -334,6 +340,7 @@ def test_dense_on_card_equals_cpu(cuda, cfg):
     assert torch.equal(cpu_parts, parts)
     assert all(launched[k] == 0 for k in ntt_ct_cuda.LAUNCHES)
     assert all(launched[k] > 0 for k in crt_cuda.LAUNCHES)
+    assert all(launched[k] > 0 for k in modular_cuda.LAUNCHES)
 
 
 @pytest.mark.cuda
@@ -432,3 +439,105 @@ def test_crt_kernel_refusals(cuda):
         crt_cuda.crt_to_limbs(res, {k: v for k, v in fc.items()
                                     if k != "k_crt"})
     assert all(v == 0 for v in crt_cuda.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mp", [pytest.param((256, 257, None), id="m256"),
+                                pytest.param((256, 257, 23), id="m256-wide"),
+                                pytest.param((8192, 40961, None), id="m8192"),
+                                pytest.param((8192, 40961, 23),
+                                             id="m8192-wide")])
+def test_modular_kernels_match_plain(cuda, mp):
+    """tensor_product (the two halves of one lifted tensor, separate
+    tensors; 2 x 2, 3 x 2 and 4 x 4 parts) and keyswitch_dot (K = 3 and
+    4 times ndigits, a [2, 3] lead shape) against their plain versions on
+    the card, on every basis, with a worst-case row (every residue
+    q - 1), bit for bit."""
+    dc = DeviceContext(_ctx(*mp), cuda)
+    rng = np.random.default_rng(10)
+    modular_cuda.reset_launches()
+
+    def residues(q, *lead):
+        x = rng.integers(0, q[:, None], size=lead + (len(q), dc.phim))
+        x[0] = q[:, None] - 1
+        return torch.as_tensor(x.astype(np.int32), device=cuda)
+    for T in {id(T): T for T in (dc.full, dc.ksw, dc.lin)}.values():
+        q, args = T["primes_np"], (T["q"], T["qinv_f"], dc.wide)
+        ev = residues(q, 5, 4)
+        for a, b in ((ev[:, :2], ev[:, 2:]),
+                     (residues(q, 5, 3), residues(q, 5, 2)),
+                     (residues(q, 2, 4), residues(q, 2, 4))):
+            assert torch.equal(
+                modular_cuda.tensor_product(a, b, T, dc.wide),
+                modular_cuda.tensor_product_plain(a, b, T["p_mod_q"], *args))
+        for k in (3, 4):
+            K = k * dc.ndigits
+            mat, dig = residues(q, 2, K), residues(q, 2, 3, K)
+            assert torch.equal(modular_cuda.keyswitch_dot(mat, dig, T, dc.wide),
+                               modular_cuda.keyswitch_dot_plain(mat, dig,
+                                                                *args))
+    torch.cuda.synchronize()
+    assert all(n > 0 for n in modular_cuda.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+def test_mul_relin_on_card_launches_modular_kernels(cuda):
+    """DeviceContext.mul_relin at m = 256: both modular kernels launch, no
+    plain modular function (ops/modular.py mod_mul, mod_add, mod_dot)
+    runs on a CUDA tensor, and the output equals the CPU's."""
+    from fhe_si_tpu_torch.ops import modular
+    ctx = _ctx(256, 257, None)
+    names = ("mod_mul", "mod_add", "mod_dot")
+    plain = {n: getattr(modular, n) for n in names}
+    calls = []
+
+    def counted(name):
+        def call(x, *args, **kw):
+            if x.is_cuda:
+                calls.append(name)
+            return plain[name](x, *args, **kw)
+        return call
+    outs = []
+    for device in ("cpu", cuda):
+        dev = DeviceContext(ctx, device)
+        src = sampling.RandomSource(6)
+        sk, pk = scheme.keygen(dev, src)
+        ksw = scheme.KeySwitch.for_relinearization(sk, src)
+        cts = pk.encrypt_batch([scheme.Plaintext(ctx, src.uniform_mod_p(
+            ctx.phim, ctx.p)) for _ in range(4)], src)
+        a = torch.stack([c.parts for c in cts[0::2]])
+        b = torch.stack([c.parts for c in cts[1::2]])
+        modular_cuda.reset_launches()
+        for n in names:
+            setattr(modular, n, counted(n))
+        try:
+            outs.append(dev.mul_relin(a, b, ksw.matrix_evals).cpu())
+        finally:
+            for n in names:
+                setattr(modular, n, plain[n])
+    torch.cuda.synchronize()
+    assert all(n > 0 for n in modular_cuda.LAUNCHES.values())
+    assert not calls
+    assert torch.equal(*outs)
+
+
+@pytest.mark.cuda
+def test_modular_kernel_refusals(cuda):
+    """What the modular kernels do not take raises on the host, with the
+    shape, before any launch: five parts a side, a dot wider than
+    MAX_TERMS, tables without the kernel table."""
+    dc = DeviceContext(_ctx(256, 257, None), cuda)
+    T = dc.full
+    modular_cuda.reset_launches()
+    x = torch.zeros((2, 5, dc.L, dc.phim), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match=r"1 to 4 parts"):
+        modular_cuda.tensor_product(x, x[:, :2], T)
+    with pytest.raises(ValueError, match="k_mod"):
+        modular_cuda.tensor_product(x[:, :2], x[:, :2],
+                                    {k: v for k, v in T.items()
+                                     if k != "k_mod"})
+    K = modular_cuda.MAX_TERMS + 1
+    mat = torch.zeros((2, K, dc.L, dc.phim), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="at most 384"):
+        modular_cuda.keyswitch_dot(mat, mat[:1], T)
+    assert all(v == 0 for v in modular_cuda.LAUNCHES.values())

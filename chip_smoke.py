@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch port (fhe_si_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --sass LIBRARY KERNEL...   (SASS counts only)
+    python3 chip_smoke.py --steps m20480 REPEATS     (one step's windows only)
 
 Phases, each of which raises on failure (any failure exits nonzero and
 prints no result line):
@@ -10,7 +12,10 @@ prints no result line):
   2. build: compiles the CUDA kernels from fhe_si_tpu_torch/csrc
      (ct_ntt.cu, crt.cu and modular.cu, one nvcc each, started together)
      and prints
-     ptxas's report for each kernel (registers, shared memory, spills);
+     ptxas's report for each kernel (registers, shared memory, spills)
+     and, where cuobjdump is found, the static SASS instruction counts of
+     the main path's limb/CRT kernel instances, whole and per loop
+     (sass_report; --sass gives the same for any library and kernels);
      checks that the card allows at least the shared memory per block
      that DeviceContext's choice of transform route assumes
      (ntt_ct_cuda.SMEM_MAX);
@@ -30,7 +35,8 @@ prints no result line):
      kernels (ops/crt_cuda.py: crt_to_limbs as partials, finish and in
      one pass, each without a tail, with ScaleDown's and with the signed
      reduction; limbs_to_residues at the ciphertext and reconstruction
-     widths) against their plain versions on every basis of the same
+     widths, and from two sources as _tensor_mul lifts) against their
+     plain versions on every basis of the same
      contexts, on random inputs with a worst-case row (every residue
      q - 1, every limb 0xFFFF, negative values), bit for bit; later
      phases do the same on every other context they build (m = 2^15,
@@ -120,7 +126,7 @@ prints no result line):
         on the shard tables of this world and of both halves of a
         limb = 2 world; the sharded and the unsharded step timed in turns
         with CUDA events, and the unsharded step's kernels by name from a
-        torch.profiler trace;
+        torch.profiler trace, with its aten::cat launches per step;
      b. worlds of fhe_si_tpu_torch.parallel.run_distributed at m = 8192,
         batch 64, all started at once on the one card: one rank (NCCL),
         two ranks over gloo as (dp = 1, limb = 2) and as (dp = 2,
@@ -381,6 +387,81 @@ def ptxas_report(log: str) -> list[str]:
     return out
 
 
+# the limb/CRT kernel instances of the main path (m = 8192): ScaleDown's
+# reconstruction (n = 17, 9 words), the keyswitch's (n = 13, 7 words) and
+# the lift at n_ct = 6 (3 words)
+MAIN_CRT_SASS = ("crt_pass_kernel<9>", "crt_pass_kernel<7>", "lift_kernel<3>")
+SASS_KINDS = ("IMAD.WIDE", "IMAD", "LDS", "LDG", "STS", "STG", "LDL", "STL")
+
+
+def sass_kernel_name(mangled: str) -> str:
+    """crt.cu's kernel names from their mangled form, with their integer
+    template arguments (crt_pass_kernel<9>, crt_kernel<0, 24>, ...); the
+    mangled name itself for anything else."""
+    import re
+    m = re.search(r"\d+(crt_pass_kernel|crt_kernel|lift_kernel)"
+                  r"I((?:Li-?\d+E)+)E", mangled)
+    if not m:
+        return mangled
+    return f"{m.group(1)}<{', '.join(re.findall(r'Li(-?\d+)E', m.group(2)))}>"
+
+
+def sass_report(so_path: str, names) -> list[str]:
+    """Static SASS instruction counts (cuobjdump -sass) of the kernels of
+    the library so_path named in `names` (sass_kernel_name): the total
+    and by kind (SASS_KINDS, IMAD without the .WIDE forms; LDL and STL
+    are local memory), and the same for each loop (the instructions from
+    a backward branch's target, a label or an address, to the branch),
+    which is what a tile, a residue row or a prime pays per iteration.
+    An empty list when cuobjdump is missing."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return []
+    text = subprocess.run([tool, "-sass", so_path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    out = []
+    for block in text.split("Function : ")[1:]:
+        name = sass_kernel_name(block.split(None, 1)[0])
+        if name not in names:
+            continue
+        insts, labels, pending = [], {}, []
+        for line in block.splitlines():
+            lab = re.match(r"\s*(\.L_x_\d+):", line)
+            if lab:
+                pending.append(lab.group(1))
+                continue
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                         r"([A-Z][A-Z0-9_.]*)(.*)", line)
+            if not m:
+                continue
+            addr = int(m.group(1), 16)
+            for lab_name in pending:
+                labels[lab_name] = addr
+            pending = []
+            target = re.search(r"(0x[0-9a-f]+|\.L_x_\d+)", m.group(3))
+            insts.append((addr, m.group(2), target and target.group(1)))
+
+        def counts(sel):
+            c = dict.fromkeys(SASS_KINDS, 0)
+            for _, op, _ in sel:
+                kind = next((k for k in SASS_KINDS if op.startswith(k)), None)
+                if kind:
+                    c[kind] += 1
+            return (f"{len(sel)} ("
+                    + ", ".join(f"{k} {v}" for k, v in c.items()) + ")")
+        line = f"sass {name}: {counts(insts)}"
+        for addr, op, target in insts:
+            start = (int(target, 16) if target and target.startswith("0x")
+                     else labels.get(target))
+            if op.startswith("BRA") and start is not None and start < addr:
+                body = [i for i in insts if start <= i[0] <= addr]
+                line += f"; loop {start:#06x}-{addr:#06x}: {counts(body)}"
+        out.append(line)
+    return out
+
+
 def probe_semantics(dev):
     """The int32/float32 behaviour the JAX package relies on, on CUDA."""
     import torch
@@ -507,7 +588,9 @@ def check_crt(dc, label, rows=RAGGED_ROWS, bases=("full", "ksw", "lin")):
     the card, on each basis of dc, bit for bit: crt_to_limbs as partials,
     as finish (on the partials) and in one pass, each without a tail,
     with ScaleDown's rounding and with the signed reduction; the lift at
-    the ciphertext and the reconstruction widths.  Inputs are random
+    the ciphertext and the reconstruction widths, and from two sources
+    (the operands of _tensor_mul) against the plain lift of the two
+    joined.  Inputs are random
     with a worst-case row: every residue q - 1, every limb 0xFFFF (the
     value -1), and negative values."""
     import torch
@@ -543,6 +626,17 @@ def check_crt(dc, label, rows=RAGGED_ROWS, bases=("full", "ksw", "lin")):
                     T['qinv_f'], dc.wide)
             check_equal("limbs_to_residues", crt_cuda.limbs_to_residues(*args),
                         crt.limbs_to_residues(*args))
+        # the two-source lift of _tensor_mul: 2 + 2 parts, each side read
+        # in place, against the plain lift of the two joined
+        poly = torch.as_tensor(rng.integers(0, 1 << 16, size=(
+            rows, 4, dc.phim, dc.n_ct)).astype(np.int32), device=dc.device)
+        poly[0, 0] = 0xFFFF
+        a, b = poly[:, :2].contiguous(), poly[:, 2:].contiguous()
+        args = (T['chunk_tbl'], dc._wrap_const(q, dc.n_ct), T['q'],
+                T['qinv_f'], dc.wide)
+        check_equal("limbs_to_residues",
+                    crt_cuda.limbs_to_residues(a, *args, second=b),
+                    crt.limbs_to_residues(poly, *args))
         print(f"crt kernels == plain: {label} "
               f"{'wide' if dc.wide else 'narrow'} basis={basis} "
               f"rows={len(q)} n={n} n_ct={dc.n_ct} phim={dc.phim}")
@@ -912,6 +1006,23 @@ def time_stages(card, dc, a, b, ksw, label):
         print(f"[{card}] {label} stage {name}: {cuda_ms(fn, 5):.3f} ms")
 
 
+STEP_CONFIGS = {"m8192": (MAIN, BATCH), "m20480": (MIXED, BATCH_MIXED),
+                "m32768": (M15, BATCH15)}
+
+
+def steps_only(dev, name: str, repeats: int) -> int:
+    """The mul+relin step of STEP_CONFIGS[name] alone: its lean path
+    (decrypts checked), then `repeats` rounds of time_step (three windows
+    of 10 steps each), for the small-batch steps whose windows spread."""
+    cfg, batch = STEP_CONFIGS[name]
+    card = card_line()
+    dc, ksw, pairs, out = lean_path(dev, cfg, batch, f"{name} path")[:4]
+    for _ in range(repeats):
+        time_step(card, dc, pairs, ksw, out, f"{name} path")
+    print(card)
+    return 0
+
+
 def oracle_check_small(dev):
     """Ciphertext parts at m = 256 equal the pure-Python reference."""
     from fhe_si_tpu_torch import DeviceContext, FheContext, sampling, scheme
@@ -954,7 +1065,8 @@ def _case(dc, name, basis, rows, tail, rng):
     ops/crt_cuda.py or its plain version, the modular kernels' the wrapper
     of ops/modular_cuda.py or its plain version (tensor_product on the two
     halves of one [rows, 4, L, phim] tensor, keyswitch_dot at K = 3 x
-    ndigits)."""
+    ndigits); the lift from two sources of rows / 4 x 2 parts, as
+    _tensor_mul runs it (its plain version joins them first)."""
     import torch
     from fhe_si_tpu_torch.ops import (crt, crt_cuda, modular_cuda as mc,
                                       ntt_ct, ntt_ct_cuda)
@@ -1001,12 +1113,15 @@ def _case(dc, name, basis, rows, tail, rng):
                               crt_cuda.crt_to_limbs_plain)(x, fc, dc.wide, t),
                 *crt_bound(name, rows, len(q_np), n, t.width if t else n,
                            dc.phim))
+    # as _tensor_mul lifts: two sources of rows / 4 x 2 parts each; the
+    # plain version joins them (torch.cat) and lifts
     x = torch.as_tensor(rng.integers(0, 1 << 16, size=(
-        rows, dc.phim, dc.n_ct)).astype(np.int32), device=dc.device)
-    args = (x, T['chunk_tbl'], dc._wrap_const(q_np, dc.n_ct), T['q'],
+        rows // 4, 4, dc.phim, dc.n_ct)).astype(np.int32), device=dc.device)
+    a, b = x[:, :2].contiguous(), x[:, 2:].contiguous()
+    args = (T['chunk_tbl'], dc._wrap_const(q_np, dc.n_ct), T['q'],
             T['qinv_f'], dc.wide)
-    return (x, lambda k: (crt_cuda.limbs_to_residues if k else
-                          crt.limbs_to_residues)(*args),
+    return (x, lambda k: crt_cuda.limbs_to_residues(a, *args, second=b) if k
+            else crt.limbs_to_residues(torch.cat([a, b], dim=-3), *args),
             *crt_bound(name, rows, len(q_np), dc.n_ct, dc.n_ct, dc.phim))
 
 
@@ -1725,9 +1840,12 @@ def phase_sharded(dev, card, main_run, codec):
                 with annotate("mul_relin"):
                     steps["unsharded"]()
             torch.cuda.synchronize()
+        kernels = trace_kernels(tdir)
         print_breakdown(card, f"mul+relin B={len(pairs)} m={ctx.m} step "
-                        "(torch.profiler, 3 steps)", trace_kernels(tdir),
-                        steps=3)
+                        "(torch.profiler, 3 steps)", kernels, steps=3)
+        n_cat = sum(op == "aten::cat" for _, op, *_ in kernels)
+        print(f"[{card}] aten::cat per mul+relin step: {n_cat / 3:.0f} "
+              "(torch.profiler, 3 steps)")
     t0 = part("a (NCCL world 1)")
 
     # b, c. worlds of run_distributed on the one card, all at once: a
@@ -2010,6 +2128,12 @@ def main() -> int:
     dev = torch.device("cuda:0")
     if sys.argv[1:2] == ["--route-cli"]:
         return cli_child(dev, sys.argv[2:])
+    if sys.argv[1:2] == ["--sass"]:
+        for line in sass_report(sys.argv[2], sys.argv[3:]):
+            print(line)
+        return 0
+    if sys.argv[1:2] == ["--steps"]:
+        return steps_only(dev, sys.argv[2], int(sys.argv[3]))
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -2024,6 +2148,8 @@ def main() -> int:
         raise AssertionError(f"no ptxas report in the build log:\n{log}")
     for line in report:
         print(f"ptxas {line}")
+    for line in sass_report(str(cuda_build._so_path("crt")), MAIN_CRT_SASS):
+        print(line)
     # DeviceContext picks the transform route on the host, against
     # ntt_ct_cuda.SMEM_MAX: the card must allow at least that much
     optin = ntt_ct_cuda._smem_limit(dev)

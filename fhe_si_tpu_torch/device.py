@@ -263,10 +263,15 @@ class DeviceContext:
             return self._ct_ops.ct_inv(self.full['ct'], x, self.ct_meta)
         return ntt.modmatmul(self.full['inv'], x, self.q)
 
-    def _from_poly_sub(self, T, poly_limbs):
+    def _from_poly_sub(self, T, poly_limbs, second=None):
+        """Limbs [..., phim, n] -> evaluations [..., L, phim] over basis T;
+        with `second`, parts [..., ka, phim, n] and [..., kb, phim, n] ->
+        [..., ka + kb, L, phim], lifted by one launch without joining
+        them (crt_cuda.limbs_to_residues)."""
         wrap = self._wrap_const(T['primes_np'], poly_limbs.shape[-1])
         res = crt_cuda.limbs_to_residues(poly_limbs, T['chunk_tbl'], wrap,
-                                         T['q'], T['qinv_f'], self.wide)
+                                         T['q'], T['qinv_f'], self.wide,
+                                         second)
         return self._fwd_t(T, res)
 
     def _to_poly_sub(self, T, evals, tail=None):
@@ -429,8 +434,8 @@ class DeviceContext:
         evaluations [..., ka+kb-1, L, phim]."""
         na = a_parts.shape[-3]
         if a_parts.shape[-1] == b_parts.shape[-1]:
-            # one lift for both operands
-            ev = self.from_poly(torch.cat([a_parts, b_parts], dim=-3))
+            # one lift for both operands, each read in place
+            ev = self._from_poly_sub(self.full, a_parts, b_parts)
             return self._tensor_product(ev[..., :na, :, :],
                                         ev[..., na:, :, :])
         return self._tensor_product(self.from_poly(a_parts),

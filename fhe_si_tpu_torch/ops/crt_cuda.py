@@ -18,7 +18,9 @@ place, built and loaded like csrc/ct_ntt.cu (cuda_build.library):
                      registers), the last two with an optional Tail:
                      ScaleDown's rounding or the signed reduction,
                      written at the ciphertext width;
-  limbs_to_residues  limbs -> canonical residues of every prime.
+  limbs_to_residues  limbs -> canonical residues of every prime, from one
+                     limb tensor or from two (the operands of
+                     DeviceContext._tensor_mul, without joining them).
 
 Dispatch: a tensor on the CPU takes the plain version (the *_plain
 functions here, made of ops/crt.py and ops/limbs.py as DeviceContext
@@ -26,7 +28,8 @@ composed them; for the lift, crt.limbs_to_residues itself); a tensor on
 a CUDA device launches the kernel, or raises.  There is no
 fallback.  The host checks dtypes, contiguity, shapes and what the
 kernels' exactness rests on (crt.cu header): at most MAX_ROWS residue
-rows, at most MAX_LIMBS limbs, primes below 2^23.  DeviceContext checks
+rows, at most MAX_LIMBS limbs, primes below 2^23, fewer than 2^31
+coefficients a launch.  DeviceContext checks
 its bases' shapes and primes (check_shape, on the host tables) when it
 is built on a CUDA device, so a basis the kernels cannot take raises
 before any path reaches them; kernel_table checks m_r.
@@ -47,10 +50,12 @@ from . import crt, limbs as lb
 from .cuda_build import library, on_cuda
 
 LAUNCHES = {"crt_to_limbs": 0, "limbs_to_residues": 0}
-MAX_ROWS = 64          # crt.cu kMaxRows: the int32 limb sums' bound
+MAX_ROWS = 64          # crt.cu kMaxRows: the limb sums' bounds
 MAX_LIMBS = 48         # crt.cu kMaxLimbs: the largest register bucket
 Q_LIMIT = 1 << 23      # every prime, m_r included, lies below it
+MAX_COEFFS = 1 << 31   # coefficients a launch: 32-bit tile indices
 HEADER, ROW_WORDS = 8, 4
+PASS_ROW = 28          # crt.cu kPassRow: words a row of the one-pass section
 TAIL_CODES = {None: 0, "round_down": 1, "reduce_signed": 2}
 
 
@@ -69,9 +74,35 @@ def reset_launches():
         LAUNCHES[k] = 0
 
 
-def table_words(rows: int, n: int) -> int:
-    """Words of kernel_table for a basis of `rows` rows and n limbs."""
+def split_words(rows: int, n: int) -> int:
+    """Words of kernel_table's first section (the split form's tables,
+    crt_kernel's) for a basis of `rows` rows and n limbs."""
     return HEADER + ROW_WORDS * rows + 2 * rows * n + 2 * n
+
+
+def pass_offset(rows: int, n: int) -> int:
+    """Where the one-pass section (crt_pass_kernel's) starts: the first
+    16-byte boundary after the split form's words."""
+    return -(-split_words(rows, n) // 4) * 4
+
+
+def table_words(rows: int, n: int) -> int:
+    """Words of kernel_table for a basis of `rows` rows and n limbs: no
+    one-pass section past MAX_LIMBS (check_shape refuses such a basis
+    before any launch)."""
+    if n > MAX_LIMBS:
+        return split_words(rows, n)
+    return pass_offset(rows, n) + HEADER + PASS_ROW * (rows + 1)
+
+
+def words32(limbs) -> np.ndarray:
+    """16-bit limbs [..., n] -> the 32-bit words [..., ceil(n/2)] of the
+    same integer (limbs 2j and 2j + 1), int64."""
+    limbs = np.asarray(limbs, np.int64)
+    n = limbs.shape[-1]
+    x = np.zeros(limbs.shape[:-1] + (n + n % 2,), np.int64)
+    x[..., :n] = limbs
+    return x[..., 0::2] | (x[..., 1::2] << 16)
 
 
 def _shoup(w, q):
@@ -82,10 +113,15 @@ def _shoup(w, q):
 def kernel_table(fc: dict) -> np.ndarray:
     """The basis table crt.cu reads, from the numpy single-pass CRT
     tables (FheContext._fast_crt_for, sliced to a shard's rows where
-    DeviceContext has rows): int32 words [rows, n, m_r, P^-1 mod m_r, its
-    Shoup w', 0, 0, 0], per row (Bmodr, its w', er_mask, 0), then B
+    DeviceContext has rows), as int32 words (the bit patterns of uint32).
+    The split form's section (split_words): [rows, n, m_r, P^-1 mod m_r,
+    its Shoup w', 0, 0, 0], per row (Bmodr, its w', er_mask, 0), then B
     [rows, n], Bh [rows, n], P_limbs [n] and P_limbs_sh10 [n]; w' =
-    floor(w 2^32 / m_r) as the bit pattern of a uint32."""
+    floor(w 2^32 / m_r).  Zeros to pass_offset, then the one-pass
+    section: [ceil(n/2), 2^32 mod m_r, its w', floor(2^32 / m_r), 0, 0,
+    0, 0], per row PASS_ROW words (Bmodr, er_mask, B's 32-bit words
+    (words32), zeros) and a last row with P's words in B's columns; the
+    latter only up to MAX_LIMBS limbs (table_words)."""
     B = np.asarray(fc['B'], np.int64)
     rows, n = B.shape
     mr, pinv = int(fc['mr']), int(fc['Pinv_r'])
@@ -101,6 +137,18 @@ def kernel_table(fc: dict) -> np.ndarray:
         per_row.ravel(), B.ravel(), np.asarray(fc['Bh'], np.int64).ravel(),
         np.asarray(fc['P_limbs'], np.int64),
         np.asarray(fc['P_limbs_sh10'], np.int64)])
+    if n > MAX_LIMBS:
+        return words.astype(np.uint32).view(np.int32)
+    nw = (n + 1) // 2
+    c32 = (1 << 32) % mr
+    rows_w = np.zeros((rows + 1, PASS_ROW), np.int64)
+    rows_w[:rows, 0], rows_w[:rows, 1] = bmodr, fc['er_mask']
+    rows_w[:rows, 2:2 + nw] = words32(B)
+    rows_w[rows, 2:2 + nw] = words32(fc['P_limbs'])
+    words = np.concatenate([
+        words, np.zeros(pass_offset(rows, n) - words.size, np.int64),
+        np.array([nw, c32, _shoup(c32, mr), (1 << 32) // mr, 0, 0, 0, 0],
+                 np.int64), rows_w.ravel()])
     assert words.size == table_words(rows, n)
     return words.astype(np.uint32).view(np.int32)
 
@@ -171,7 +219,7 @@ def _lib() -> ctypes.CDLL:
             ("fsi_crt_partials", [ptr] * 5 + [i64] + [i32] * 3),
             ("fsi_crt_finish", [ptr] * 5 + [i64] + [i32] * 5),
             ("fsi_crt_to_limbs", [ptr] * 3 + [i64] + [i32] * 6),
-            ("fsi_limbs_to_residues", [ptr] * 5 + [i64] + [i32] * 3)):
+            ("fsi_limbs_to_residues", [ptr] * 6 + [i32] * 6)):
         fn = getattr(lib, name)
         fn.argtypes = args + [ptr]
         fn.restype = ctypes.c_int
@@ -205,6 +253,12 @@ def _basis(name: str, t: dict, shape):
                          "build it with crt_cuda.kernel_table (DeviceContext "
                          "does)")
     return rows, n, tab
+
+
+def _check_coeffs(name: str, x, coeffs: int):
+    if coeffs >= MAX_COEFFS:
+        raise ValueError(f"{name}: input {tuple(x.shape)} has {coeffs} "
+                         f"coefficients; a launch takes fewer than 2^31")
 
 
 def _residues(name: str, res, rows: int):
@@ -270,6 +324,7 @@ def crt_to_limbs(res, t: dict, wide: bool = False, tail: Tail | None = None):
     res = _residues("crt_to_limbs", res, rows)
     lead, phim = res.shape[:-2], res.shape[-1]
     width = n if tail is None else tail.width
+    _check_coeffs("crt_to_limbs", res, res.numel() // rows)
     out = torch.empty(lead + (phim, width), dtype=torch.int32,
                       device=res.device)
     if out.numel():
@@ -280,13 +335,24 @@ def crt_to_limbs(res, t: dict, wide: bool = False, tail: Tail | None = None):
     return out
 
 
-def limbs_to_residues(poly, chunk_tbl, wrap, q, qinv_f, wide: bool = False):
+def limbs_to_residues(poly, chunk_tbl, wrap, q, qinv_f, wide: bool = False,
+                      second=None):
     """Limbs [..., phim, n] -> canonical residues [..., L, phim], equal to
-    crt.limbs_to_residues.  chunk_tbl [>= 4n, L] (2^(4c) mod q_l; the
-    kernel reads its rows 0, 4, 8, ...), wrap [L, 1] = 2^(16n) mod q_l,
-    q [L, 1], its primes below 2^23 (DeviceContext checks them on the
-    host)."""
+    crt.limbs_to_residues.  With `second`, poly [..., ka, phim, n] and
+    second [..., kb, phim, n] (the same lead and width) -> [..., ka + kb,
+    L, phim], equal to crt.limbs_to_residues of their join along the
+    parts axis, which the kernel does not make: it reads each part from
+    its own tensor.  chunk_tbl [>= 4n, L] (2^(4c) mod q_l; the kernel
+    reads its rows 0, 8, 16, ...), wrap [L, 1] = 2^(16n) mod q_l, q [L,
+    1], its primes below 2^23 (DeviceContext checks them on the host)."""
+    if second is not None and (poly.dim() < 3 or second.dim() != poly.dim()
+                               or second.shape[:-3] != poly.shape[:-3]
+                               or second.shape[-2:] != poly.shape[-2:]):
+        raise ValueError(f"limbs_to_residues: parts {tuple(poly.shape)} and "
+                         f"{tuple(second.shape)} do not join along axis -3")
     if not on_cuda(poly):
+        if second is not None:
+            poly = torch.cat([poly, second], dim=-3)
         return crt.limbs_to_residues(poly, chunk_tbl, wrap, q, qinv_f, wide)
     n, L = poly.shape[-1], q.shape[0]
     check_shape("limbs_to_residues", poly.shape, L, n)
@@ -295,11 +361,19 @@ def limbs_to_residues(poly, chunk_tbl, wrap, q, qinv_f, wide: bool = False):
         raise ValueError(f"limbs_to_residues: limbs {tuple(poly.shape)}, "
                          f"chunk table {tuple(chunk_tbl.shape)}, wrap "
                          f"{tuple(wrap.shape)}, q {tuple(q.shape)}")
-    poly = poly.contiguous()
-    lead, phim = poly.shape[:-2], poly.shape[-2]
+    phim = poly.shape[-2]
+    if second is None:
+        lead, ka, kb = poly.shape[:-2], 1, 0
+        b = poly = poly.contiguous()
+    else:
+        lead = poly.shape[:-3] + (poly.shape[-3] + second.shape[-3],)
+        ka, kb = poly.shape[-3], second.shape[-3]
+        poly, b = poly.contiguous(), second.contiguous()
+    _check_coeffs("limbs_to_residues", poly,
+                  (poly.numel() + (b.numel() if kb else 0)) // n)
     out = torch.empty(lead + (L, phim), dtype=torch.int32, device=poly.device)
     if out.numel():
         _launch("limbs_to_residues", "fsi_limbs_to_residues",
-                (poly, chunk_tbl, q, wrap, out),
-                (poly.numel() // n, phim, L, n))
+                (poly, b, chunk_tbl, q, wrap, out),
+                (out.numel() // ((ka + kb) * L * phim), ka, kb, phim, L, n))
     return out

@@ -309,13 +309,14 @@ class CoeffShardedPipelines:
                                                      mesh, coeff)
             self._fwd_digits = lambda d: self._fwd(d[..., None, :] % T['q'])
 
-    def _from_poly(self, parts):
-        """[..., k, phim/S, n] limbs -> [..., k, L, phim/S] evaluations."""
+    def _from_poly(self, parts, second):
+        """[..., ka, phim/S, n] and [..., kb, phim/S, n] limbs -> [...,
+        ka + kb, L, phim/S] evaluations, one lift of both."""
         dev, T = self.dev, self.dev.full
         res = crt_cuda.limbs_to_residues(
             parts, T['chunk_tbl'], dev._wrap_const(T['primes_np'],
                                                    parts.shape[-1]),
-            T['q'], T['qinv_f'], dev.wide)
+            T['q'], T['qinv_f'], dev.wide, second)
         return self._fwd(res)
 
     def _to_poly(self, evals, kind: str):
@@ -332,7 +333,7 @@ class CoeffShardedPipelines:
         the products [B, 2, phim/S, n_ct]."""
         dev, T = self.dev, self.dev.full
         na = a.shape[-3]
-        ev = self._from_poly(torch.cat([a, b], dim=-3))
+        ev = self._from_poly(a, b)
         parts = self._to_poly(dev._tensor_product(
             ev[..., :na, :, :], ev[..., na:, :, :]), "round_down")
         *lead, k, phim_loc, _ = parts.shape

@@ -10,12 +10,18 @@ Two halves, both exact (integers, no tolerance):
     m = 32 and 256 on both residue lanes (prime_bits = 23 forces the
     wide one) and on the full, keyswitch and linear bases;
   - a numpy model of each kernel's per-coefficient loop, at the kernel's
-    own integer widths (int32 limb sums, 32-bit Shoup products, the
-    64-bit lift sum) and reading the kernel's own table layout
-    (crt_cuda.kernel_table), held equal to the plain versions on
+    own integer widths (the split form's int32 limb sums and 32-bit
+    Shoup products; the one-pass kernel's 64-bit column sums over 32-bit
+    words, its signed 64-bit subtraction and carry pass; the lift's
+    64-bit sums over pairs of limbs) and reading the kernel's own table
+    layout (crt_cuda.kernel_table), held equal to the plain versions on
     worst-case inputs: every residue q - 1, every limb 0xFFFF, negative
-    values, and synthetic bases of 64 rows and 48 limbs (the kernels'
-    largest), where it also asserts the bounds the crt.cu header states.
+    values, and synthetic bases of up to 64 rows and 48 limbs (the
+    kernels' largest), where it also asserts the bounds the crt.cu
+    header states;
+  - the two-source lift (limbs_to_residues with `second`, the operands
+    of DeviceContext._tensor_mul read without joining them) against the
+    lift of the joined operands, in the port and in the JAX package.
 The kernels themselves run only on a card (tests/test_torch_cuda.py,
 chip_smoke.py phase 3).
 """
@@ -32,8 +38,8 @@ from fhe_si_tpu.device import device_context
 from fhe_si_tpu.ops import crt as jcrt, limbs as jlb
 from fhe_si_tpu_torch import DeviceContext, FheContext
 from fhe_si_tpu_torch.hostmath import numbth
-from fhe_si_tpu_torch.ops import crt_cuda
-from fhe_si_tpu_torch.ops.crt_cuda import HEADER, ROW_WORDS, Tail
+from fhe_si_tpu_torch.ops import crt, crt_cuda
+from fhe_si_tpu_torch.ops.crt_cuda import HEADER, PASS_ROW, ROW_WORDS, Tail
 
 torch.set_num_threads(1)
 
@@ -46,6 +52,7 @@ MODES = [("partials", None), ("finish", None), ("finish", "round_down"),
          ("finish", "reduce_signed"), ("to_limbs", None),
          ("to_limbs", "round_down"), ("to_limbs", "reduce_signed"),
          ("lift", None)]
+TAILS = [None, "round_down", "reduce_signed"]
 M = 0xFFFF
 M32 = (1 << 32) - 1
 U64 = np.uint64
@@ -233,7 +240,8 @@ def model_crt(tab, mode, res=None, partials=None, tail=None):
     o = HEADER + ROW_WORDS * rows
     B = w[o:o + rows * n].reshape(rows, n)
     Bh = w[o + rows * n:o + 2 * rows * n].reshape(rows, n)
-    P, P10 = w[o + 2 * rows * n:o + 2 * rows * n + n], w[o + 2 * rows * n + n:]
+    P = w[o + 2 * rows * n:o + 2 * rows * n + n]
+    P10 = w[o + 2 * rows * n + n:crt_cuda.split_words(rows, n)]
     if mode == "finish":
         acc = np.zeros((len(partials[1]), n + 1), np.int64)
         acc[:, :n] = partials[0]
@@ -289,6 +297,164 @@ def model_lift(poly, chunk_tbl, q, wrap):
     return np.moveaxis(out.reshape(lead), -1, -2).astype(np.int32)
 
 
+def _words(limbs):
+    """16-bit limbs [..., n] -> 32-bit words [..., ceil(n/2)] (limbs 2j and
+    2j + 1), uint64."""
+    limbs = np.asarray(limbs, np.int64)
+    n = limbs.shape[-1]
+    x = np.zeros(limbs.shape[:-1] + (n + n % 2,), np.int64)
+    x[..., :n] = limbs
+    return (x[..., 0::2] | (x[..., 1::2] << 16)).astype(U64)
+
+
+def _reduce64(x, q, r32, c32, c32_r):
+    """crt.cu reduce64: x mod q by two Shoup products of its halves."""
+    v = (_shoup(x >> U64(32), c32, c32_r, q)
+         + _shoup(x & U64(M32), 1, r32, q))
+    assert v.max() < 4 * q
+    return _csub(_csub(v, 2 * q), q)
+
+
+def model_pass(tab, res, tail=None):
+    """crt_pass_kernel of csrc/crt.cu (the one-pass reconstruction) for
+    every coefficient at once, reading the table's one-pass section:
+    res [..., rows, phim] -> limbs [C, width].  Its integer widths: the
+    exact 64-bit column sums over 32-bit words (sig, er and S's words),
+    the signed 64-bit subtraction of w P, one carry pass into 32-bit
+    words, and the tails on those words (sign_extend,
+    round_down_words); each bound the crt.cu header states is
+    asserted."""
+    w = tab.view(np.uint32).astype(np.int64)
+    rows, n, mr, pinv, pinv_r = (int(v) for v in w[:5])
+    o = crt_cuda.pass_offset(rows, n)
+    nw, c32, c32_r, r32 = (int(v) for v in w[o:o + 4])
+    assert nw == (n + 1) // 2 and not w[o + 4:o + HEADER].any()
+    body = w[o + HEADER:o + HEADER + PASS_ROW * (rows + 1)].reshape(
+        rows + 1, PASS_ROW)
+    assert not body[:, 2 + nw:].any() and not body[rows, :2].any()
+    cols = body[:rows, :2 + nw].astype(U64)      # Bmodr, er_mask, B's words
+    c = np.moveaxis(res, -2, -1).reshape(-1, rows).astype(U64)
+    assert c.max() < 1 << 23 and cols.max() < 1 << 32
+    acc = np.zeros((len(c), 2 + nw), U64)
+    for l in range(rows):
+        prod = c[:, l:l + 1] * cols[l]
+        assert prod.max() < 1 << 55
+        acc += prod
+    assert acc[:, 2:].max() < 1 << 61
+    assert acc[:, 0].max() < 1 << 52 and acc[:, 1].max() < 1 << 29
+    s = _reduce64(acc[:, 0], mr, r32, c32, c32_r)
+    diff = s - acc[:, 1].astype(np.int64)
+    diff = np.where(diff < 0, diff + mr, diff)
+    wc = _csub(_shoup(diff, pinv, pinv_r, mr), mr)
+    assert wc.max() < mr < 1 << 23
+    # E = S - w P: signed 64-bit columns, one carry pass into 32-bit
+    # words (as many as the kernel's register bucket holds at least)
+    t = acc[:, 2:].astype(np.int64) - wc[:, None] * body[rows, 2:2 + nw]
+    assert t.min() > -(1 << 55) and t.max() < 1 << 61
+    width = n if tail is None else tail.width
+    nwk = max(nw, (width + 1) // 2)
+    x = np.zeros((len(c), nwk), np.int64)
+    carry = np.zeros(len(c), np.int64)
+    for j in range(nwk):
+        v = (t[:, j] if j < nw else 0) + carry
+        x[:, j], carry = v & M32, v >> 32
+        assert np.abs(carry).max() < 1 << 30
+    if tail is not None and tail.kind == "round_down":
+        x = _round_down_words(x, n, tail.log_q)
+    if tail is not None:
+        x = _sign_extend(x, tail.log_q - 1)
+    limbs = np.stack([x[:, k >> 1] >> 16 if k & 1 else x[:, k >> 1] & M
+                      for k in range(width)], axis=-1)
+    return limbs.astype(np.int32)
+
+
+def _sign_extend(x, bit):
+    """crt.cu sign_extend: the words x [C, NW] sign-extended from `bit`."""
+    x = x.copy()
+    hw, hb = divmod(bit, 32)
+    fill = np.where((x[:, hw] >> hb) & 1, M32, 0)
+    keep = (2 << hb) - 1
+    x[:, hw] = (x[:, hw] & keep) | (fill & (M32 ^ keep))
+    x[:, hw + 1:] = fill[:, None]
+    return x
+
+
+def _round_down_words(x, n, log_q):
+    """crt.cu round_down_words on the words x [C, NW] of X: Y = (2X +
+    2^logQ) mod 2^16n sign-extended from bit 16n - 1, shifted right by
+    logQ + 1 with Y's sign shifted in."""
+    nwk = x.shape[1]
+    y = (x << 1) & M32
+    y[:, 1:] |= x[:, :-1] >> 31
+    qw = log_q >> 5
+    y[:, qw] += 1 << (log_q & 31)
+    for k in range(qw, nwk - 1):                      # the carry up
+        y[:, k + 1] += y[:, k] >> 32
+        y[:, k] &= M32
+    y[:, -1] &= M32
+    y = _sign_extend(y, 16 * n - 1)
+    fill = np.where(y[:, -1] >> 31, M32, 0)[:, None]
+    ws, bs = divmod(log_q + 1, 32)
+    y = np.concatenate([y, np.repeat(fill, nwk + 1, axis=1)], axis=1)
+    y = y[:, ws:ws + nwk + 1]
+    return ((y[:, :-1] | (y[:, 1:] << 32)) >> bs) & M32
+
+
+def model_lift_words(poly, chunk_tbl, q, wrap):
+    """lift_kernel of csrc/crt.cu: limbs [..., phim, n] -> [..., L, phim]
+    through 64-bit sums over pairs of limbs (32-bit words) against the
+    chunk table's rows 0, 8, 16, ... (2^(32j) mod q_l)."""
+    n = poly.shape[-1]
+    nw = (n + 1) // 2
+    x = _words(poly.reshape(-1, n).astype(np.int64) & M)
+    sign = (poly.reshape(-1, n)[:, -1].astype(np.int64) >> 15) & 1
+    assert chunk_tbl.shape[0] >= 4 * n and 8 * (nw - 1) < 4 * n
+    T = chunk_tbl[0:8 * nw:8].astype(U64)                  # [nw, L]
+    out = np.empty((len(x), len(q)), np.int64)
+    for l, ql in enumerate(int(v) for v in q):
+        prod = x * T[:, l]
+        assert prod.max() < 1 << 55
+        acc = prod.sum(axis=1)
+        assert int(acc.max()) < 1 << 60
+        c32 = (1 << 32) % ql
+        r = _reduce64(acc, ql, (1 << 32) // ql, c32, (c32 << 32) // ql) \
+            - sign * int(wrap[l])
+        out[:, l] = np.where(r < 0, r + ql, r)
+    lead = poly.shape[:-2] + (poly.shape[-2], len(q))
+    return np.moveaxis(out.reshape(lead), -1, -2).astype(np.int32)
+
+
+def synthetic_basis(rows, n, bits, worst, rng):
+    """numpy basis tables of `rows` rows (one per prime: the `rows`
+    largest primes below 2^bits, the redundant modulus m_r the largest,
+    its row last in er_mask) and n limbs, made as
+    FheContext._fast_crt_for makes them (Bh and P_limbs_sh10 the limbs of
+    B << 10 and P << 10 mod 2^16n): every limb of B and P 0xFFFF and
+    every Bmodr m_r - 1 (worst), or random.  Returns (primes, tables
+    with the kernel table, the same as torch tensors)."""
+    primes = np.array(_primes_below(1 << bits, rows), np.int64)
+    mr, top = int(primes[0]), 1 << (16 * n)
+    ints = [top - 1 if worst else int.from_bytes(rng.bytes(2 * n), "little")
+            for _ in range(rows + 1)]
+    er_mask = np.zeros(rows, np.int64)
+    er_mask[-1] = 1
+    fc = dict(B=np.array([int_to_limbs(b, n) for b in ints[:rows]], np.int32),
+              Bh=np.array([int_to_limbs((b << 10) % top, n)
+                           for b in ints[:rows]], np.int32),
+              Bmodr=(np.full(rows, mr - 1, np.int64) if worst else
+                     rng.integers(0, mr, size=rows)),
+              er_mask=er_mask,
+              P_limbs=np.array(int_to_limbs(ints[rows], n), np.int32),
+              P_limbs_sh10=np.array(int_to_limbs((ints[rows] << 10) % top, n),
+                                    np.int32),
+              mr=mr, Pinv_r=mr - 1 if worst else int(rng.integers(1, mr)),
+              binv=np.ones(rows, np.int64))
+    fc["k_crt"] = crt_cuda.kernel_table(fc)
+    t = {k: torch.as_tensor(np.asarray(v, np.int32)) for k, v in fc.items()}
+    t["mrinv_f"] = torch.as_tensor(np.float32(1.0 / mr))
+    return primes, fc, t
+
+
 def _check_crt_model(T, t_torch, res, wide, tail_args):
     """Every mode of the model against the plain versions on res."""
     tab = T["k_crt"] if isinstance(T["k_crt"], np.ndarray) else \
@@ -338,6 +504,9 @@ def test_kernel_model_equals_plain(cfg, basis, kernel):
                                           T["qinv_f"], td.wide)
         assert np.array_equal(model_lift(poly, T["chunk_tbl"].numpy(),
                                          primes, wrap.numpy().ravel()),
+                              want.numpy())
+        assert np.array_equal(model_lift_words(poly, T["chunk_tbl"].numpy(),
+                                               primes, wrap.numpy().ravel()),
                               want.numpy())
 
 
@@ -402,9 +571,156 @@ def test_kernel_model_at_its_bounds(wide, kernel):
                       Tail("reduce_signed", log_q, n - 3)))
 
 
+@pytest.mark.parametrize("tail", TAILS,
+                         ids=["none", "round_down", "reduce_signed"])
+@pytest.mark.parametrize("basis", BASES)
+@pytest.mark.parametrize("cfg", CONFIGS)
+def test_pass_model_equals_plain(cfg, basis, tail):
+    """The one-pass kernel's model on the port's own tables (random
+    residues and a worst-case row, every residue q - 1) equals
+    crt_to_limbs's plain version, without a tail and with each."""
+    td, T, _ = _tables(cfg, basis)
+    primes, fc = T["primes_np"], T["fast_crt"]
+    rng = np.random.default_rng(15)
+    res = rng.integers(0, primes[:, None], size=(3, len(primes), td.phim))
+    res[0] = primes[:, None] - 1
+    res = res.astype(np.int32)
+    t = td.tail(tail) if tail else None
+    want = crt_cuda.crt_to_limbs(torch.from_numpy(res), fc, td.wide, t)
+    got = model_pass(fc["k_crt"].numpy(), res, t)
+    assert np.array_equal(got, want.numpy().reshape(got.shape))
+
+
+@pytest.mark.parametrize("tail", TAILS,
+                         ids=["none", "round_down", "reduce_signed"])
+@pytest.mark.parametrize("n", [1, 17, 48])
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+def test_pass_model_at_its_bounds(wide, n, tail):
+    """The one-pass model on synthetic bases of 64 rows (primes just below
+    2^20 or 2^23) at n = 1, 17 (odd: the last word holds one limb) and
+    48: every table limb 0xFFFF with every residue q - 1 (the model
+    asserts each bound of the crt.cu header there), then random tables;
+    equal to the plain version each time."""
+    rng = np.random.default_rng(16)
+    rows = crt_cuda.MAX_ROWS
+    width = max(1, n - 3)
+    t = Tail(tail, 16 * width - 5, width) if tail else None
+    for worst in (True, False):
+        primes, fc, tt = synthetic_basis(rows, n, 23 if wide else 20, worst,
+                                         rng)
+        res = rng.integers(0, primes[:, None], size=(2, rows, 64))
+        res[0] = primes[:, None] - 1
+        res = res.astype(np.int32)
+        want = crt_cuda.crt_to_limbs(torch.from_numpy(res), tt, wide, t)
+        got = model_pass(fc["k_crt"], res, t)
+        assert np.array_equal(got, want.numpy().reshape(got.shape))
+
+
+@pytest.mark.parametrize("n", [7, 8])
+def test_pass_model_tails_at_every_offset(n):
+    """The word tails of the one-pass model (sign_extend at bit logQ - 1,
+    ScaleDown's shift by logQ + 1 across words) at every logQ below 16n
+    and at widths from the narrowest the tail takes to past n, against
+    the plain tails: every word and bit offset of an n-limb value."""
+    rng = np.random.default_rng(23)
+    primes, fc, tt = synthetic_basis(5, n, 20, False, rng)
+    res = rng.integers(0, primes[:, None], size=(2, 5, 32)).astype(np.int32)
+    for log_q in range(1, 16 * n):
+        for width in sorted({log_q // 16 + 1, n, n + 3}):
+            for kind in TAILS[1:]:
+                t = Tail(kind, log_q, width)
+                want = crt_cuda.crt_to_limbs(torch.from_numpy(res), tt, False,
+                                             t)
+                got = model_pass(fc["k_crt"], res, t)
+                assert np.array_equal(got, want.numpy().reshape(got.shape))
+
+
+@pytest.mark.parametrize("wide,n", [(False, 1), (False, 2), (False, 17),
+                                    (False, 34), (True, 1), (True, 6),
+                                    (True, 17), (True, 48)])
+def test_lift_model_at_odd_and_even_n(wide, n):
+    """The lift's model over pairs of limbs at odd n (the last word holds
+    one limb) and even n, on 64 primes just below 2^20 or 2^23 (the
+    narrow plain version sums 4-bit chunks in int32: n <= 34 there),
+    with every limb 0xFFFF and negative values: equal to the plain
+    version; the model asserts the header's 2^55 and 2^60."""
+    rows = crt_cuda.MAX_ROWS
+    primes = np.array(_primes_below(1 << (23 if wide else 20), rows),
+                      np.int64)
+    rng = np.random.default_rng(17)
+    poly = rng.integers(0, 1 << 16, size=(3, 64, n))
+    poly[0] = M
+    poly[1, :, -1] |= 0x8000
+    poly = poly.astype(np.int32)
+    tbl = np.array([[pow(2, 4 * c, int(q)) for q in primes]
+                    for c in range(4 * n)], np.int32)
+    wrap = np.array([pow(2, 16 * n, int(q)) for q in primes], np.int64)
+    want = crt_cuda.limbs_to_residues(
+        torch.from_numpy(poly), torch.from_numpy(tbl),
+        torch.from_numpy(wrap.astype(np.int32)[:, None]),
+        torch.from_numpy(primes.astype(np.int32)[:, None]),
+        torch.from_numpy((1.0 / primes[:, None]).astype(np.float32)), wide)
+    assert np.array_equal(model_lift_words(poly, tbl, primes, wrap),
+                          want.numpy())
+
+
+@pytest.mark.parametrize("cfg", CONFIGS)
+def test_two_source_lift_equals_joined(cfg):
+    """limbs_to_residues with a second limb tensor equals the lift of the
+    two joined along the parts axis, in the port (cat, then the plain
+    lift) and in the JAX package (fhe_si_tpu/ops/crt.py:38 on
+    jnp.concatenate), on both residue lanes; mismatched operands raise."""
+    td, T, JT = _tables(cfg, "full")
+    rng = np.random.default_rng(18)
+    shape = (2, td.phim, td.n_ct)
+    a = rng.integers(0, 1 << 16, size=(2,) + shape)
+    b = rng.integers(0, 1 << 16, size=(2, 3) + shape[1:])
+    a[0, 0] = M
+    b[1, :, :, -1] |= 0x8000
+    a, b = a.astype(np.int32), b.astype(np.int32)
+    wrap = td._wrap_const(T["primes_np"], td.n_ct)
+    args = (T["chunk_tbl"], wrap, T["q"], T["qinv_f"], td.wide)
+    got = crt_cuda.limbs_to_residues(torch.from_numpy(a), *args,
+                                     second=torch.from_numpy(b))
+    joined = np.concatenate([a, b], axis=-3)
+    assert torch.equal(got, crt.limbs_to_residues(torch.from_numpy(joined),
+                                                  *args))
+    _eq(jcrt.limbs_to_residues(jnp.asarray(joined), JT["chunk_tbl"],
+                               jnp.asarray(wrap.numpy()), JT["q"],
+                               JT["qinv_f"], td.wide), got)
+    for other in (b[:1], b[..., :-1], b[:, 0]):
+        with pytest.raises(ValueError, match="join along axis -3"):
+            crt_cuda.limbs_to_residues(torch.from_numpy(a), *args,
+                                       second=torch.from_numpy(other))
+
+
+@pytest.mark.parametrize("cfg", CONFIGS)
+def test_tensor_mul_lifts_both_operands_in_one_call(cfg, monkeypatch):
+    """DeviceContext._tensor_mul hands both operands to one
+    limbs_to_residues call (second=b), not a join of them, and equals the
+    JAX package's _tensor_mul (fhe_si_tpu/device.py:558)."""
+    jd, td = _devices(*cfg)
+    rng = np.random.default_rng(19)
+    a = rng.integers(0, 1 << 16, size=(2, 2, td.phim, td.n_ct))
+    b = rng.integers(0, 1 << 16, size=(2, 2, td.phim, td.n_ct))
+    a, b = a.astype(np.int32), b.astype(np.int32)
+    calls = []
+    lift = crt_cuda.limbs_to_residues
+
+    def counted(poly, chunk_tbl, wrap, q, qinv_f, wide=False, second=None):
+        calls.append((tuple(poly.shape), None if second is None
+                      else tuple(second.shape)))
+        return lift(poly, chunk_tbl, wrap, q, qinv_f, wide, second)
+    monkeypatch.setattr(crt_cuda, "limbs_to_residues", counted)
+    got = td._tensor_mul(torch.from_numpy(a), torch.from_numpy(b))
+    assert calls == [(a.shape, b.shape)]
+    _eq(jd._tensor_mul(jd.C, jnp.asarray(a), jnp.asarray(b)), got)
+
+
 def test_kernel_table_layout():
     """kernel_table's words: the header, the per-row constants with their
-    Shoup reciprocals, then B, Bh, P_limbs, P_limbs_sh10."""
+    Shoup reciprocals, then B, Bh, P_limbs, P_limbs_sh10; then, at a
+    16-byte boundary, the one-pass section."""
     td = _devices(256, 257, None)[1]
     fc = td.ctx.fast_crt_tables
     w = crt_cuda.kernel_table(fc).view(np.uint32).astype(np.int64)
@@ -421,10 +737,53 @@ def test_kernel_table_layout():
     o = HEADER + ROW_WORDS * rows
     assert np.array_equal(w[o:o + 2 * rows * n],
                           np.concatenate([fc["B"].ravel(), fc["Bh"].ravel()]))
-    assert np.array_equal(w[o + 2 * rows * n:],
+    end = crt_cuda.split_words(rows, n)
+    assert np.array_equal(w[o + 2 * rows * n:end],
                           np.concatenate([fc["P_limbs"], fc["P_limbs_sh10"]]))
+    # the one-pass section: at the next 16-byte boundary, its header,
+    # rows of (Bmodr, er_mask, B's 32-bit words, zeros), P's words
+    po = crt_cuda.pass_offset(rows, n)
+    assert po % 4 == 0 and 0 <= po - end < 4 and not w[end:po].any()
+    nw = (n + 1) // 2
+    c32 = (1 << 32) % mr
+    assert list(w[po:po + HEADER]) == [nw, c32, (c32 << 32) // mr,
+                                       (1 << 32) // mr, 0, 0, 0, 0]
+    body = w[po + HEADER:].reshape(rows + 1, PASS_ROW)
+    assert w.size == po + HEADER + PASS_ROW * (rows + 1)
+    assert np.array_equal(body[:rows, 0], fc["Bmodr"])
+    assert np.array_equal(body[:rows, 1], fc["er_mask"])
+    big = [sum(int(v) << (16 * k) for k, v in enumerate(limbs))
+           for limbs in list(fc["B"]) + [fc["P_limbs"]]]
+    assert np.array_equal(body[:, 2:2 + nw], [[(x >> (32 * j)) & M32
+                                               for j in range(nw)]
+                                              for x in big])
+    assert not body[:, 2 + nw:].any() and not body[rows, :2].any()
     assert np.array_equal(td.full["fast_crt"]["k_crt"].numpy(),
                           crt_cuda.kernel_table(fc))
+
+
+def test_kernel_table_past_its_widths():
+    """A basis wider than MAX_LIMBS (the kernels refuse it on the card)
+    still gets its table on the CPU: the split form's words alone, so a
+    DeviceContext of such a context builds there and runs the plain
+    versions."""
+    ctx = FheContext(m=256, log_q=800, p=257, generator=3)
+    assert ctx.n_limbs > crt_cuda.MAX_LIMBS
+    dc = DeviceContext(ctx, "cpu")
+    fc = ctx.fast_crt_tables
+    rows, n = fc["B"].shape
+    tab = dc.full["fast_crt"]["k_crt"].numpy()
+    assert tab.size == crt_cuda.table_words(rows, n) \
+        == crt_cuda.split_words(rows, n)
+    assert np.array_equal(tab[:HEADER].view(np.uint32)[:3],
+                          [rows, n, int(fc["mr"])])
+    res = np.random.default_rng(22).integers(
+        0, dc.full["primes_np"][:, None], size=(2, rows, dc.phim))
+    res = torch.from_numpy(res.astype(np.int32))
+    assert torch.equal(crt_cuda.crt_to_limbs(res, dc.full["fast_crt"]),
+                       crt.residues_to_limbs_fast(res, dc.full["fast_crt"],
+                                                  None, None,
+                                                  prescaled=True))
 
 
 @pytest.mark.parametrize("rows,n,tail,primes", [

@@ -409,6 +409,137 @@ def test_crt_kernels_match_plain(cuda, which):
     assert all(n > 0 for n in crt_cuda.LAUNCHES.values())
 
 
+def _synthetic_basis(rows, n, bits, worst, rng, device):
+    """Basis tables of `rows` rows (the `rows` largest primes below 2^bits,
+    m_r the largest, its row last in er_mask) and n limbs on `device`,
+    made as FheContext._fast_crt_for makes them (Bh, P_limbs_sh10: B and
+    P << 10 mod 2^16n): every limb of B and P 0xFFFF (worst) or random.
+    Returns (primes, tables with k_crt)."""
+    from fhe_si_tpu_torch.context import int_to_limbs
+    from fhe_si_tpu_torch.hostmath import numbth
+    primes, x = [], (1 << bits) - 1
+    while len(primes) < rows:
+        if numbth.is_prime(x):
+            primes.append(x)
+        x -= 1
+    primes = np.array(primes, np.int64)
+    mr, top = int(primes[0]), 1 << (16 * n)
+    ints = [top - 1 if worst else int.from_bytes(rng.bytes(2 * n), "little")
+            for _ in range(rows + 1)]
+    er_mask = np.zeros(rows, np.int64)
+    er_mask[-1] = 1
+    fc = dict(B=[int_to_limbs(b, n) for b in ints[:rows]],
+              Bh=[int_to_limbs((b << 10) % top, n) for b in ints[:rows]],
+              Bmodr=(np.full(rows, mr - 1) if worst
+                     else rng.integers(0, mr, size=rows)),
+              er_mask=er_mask, P_limbs=int_to_limbs(ints[rows], n),
+              P_limbs_sh10=int_to_limbs((ints[rows] << 10) % top, n), mr=mr,
+              Pinv_r=mr - 1 if worst else int(rng.integers(1, mr)),
+              binv=np.ones(rows, np.int64))
+    fc = {k: np.asarray(v, np.int64) for k, v in fc.items()}
+    t = {k: torch.as_tensor(v.astype(np.int32), device=device)
+         for k, v in fc.items()}
+    t["mrinv_f"] = torch.as_tensor(np.float32(1.0 / mr), device=device)
+    t["k_crt"] = torch.as_tensor(crt_cuda.kernel_table(fc), device=device)
+    return primes, t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [17, 48])
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+def test_crt_pass_kernel_at_its_widths(cuda, wide, n):
+    """The one-pass kernel (crt_to_limbs) at 64 residue rows on synthetic
+    bases of primes just below 2^20 or 2^23, at n = 17 (odd: one limb in
+    the last word) and 48 (the largest), without a tail and with each,
+    against its plain version; the partials and the finish against the
+    plain partials and finish element for element.  Worst-case tables
+    (every limb 0xFFFF) with every residue q - 1, then random ones, at a
+    phim that leaves a ragged tile."""
+    rng = np.random.default_rng(20)
+    rows, width = crt_cuda.MAX_ROWS, n - 3
+    crt_cuda.reset_launches()
+    for worst in (True, False):
+        primes, t = _synthetic_basis(rows, n, 23 if wide else 20, worst, rng,
+                                     cuda)
+        res = rng.integers(0, primes[:, None], size=(5, rows, 1000))
+        res[0] = primes[:, None] - 1
+        res = torch.as_tensor(res.astype(np.int32), device=cuda)
+        part = crt_cuda.crt_partials(res, t, wide)
+        for got, want in zip(part, crt_cuda.crt_partials_plain(res, t, wide)):
+            assert torch.equal(got, want)
+        for kind in (None, "round_down", "reduce_signed"):
+            tail = crt_cuda.Tail(kind, 16 * width - 5, width) if kind else None
+            want = crt_cuda.crt_to_limbs_plain(res, t, wide, tail)
+            assert torch.equal(crt_cuda.crt_to_limbs(res, t, wide, tail), want)
+            assert torch.equal(crt_cuda.crt_finish(*part, t, wide, tail), want)
+    torch.cuda.synchronize()
+    assert crt_cuda.LAUNCHES["crt_to_limbs"] == 2 * (1 + 2 * 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", [0, 1], ids=["m8192", "m8192-logq213-wide"])
+def test_two_source_lift_on_card(cuda, which):
+    """limbs_to_residues with a second limb tensor (the operands of
+    _tensor_mul, each read in place) against the plain lift of the two
+    joined, at the ciphertext width and the reconstruction width, with
+    every limb 0xFFFF in one part and negative values."""
+    dc = DeviceContext(FheContext(**_crt_contexts()[which]), cuda)
+    rng = np.random.default_rng(21)
+    T, q = dc.full, dc.full["primes_np"]
+    crt_cuda.reset_launches()
+    for n in (dc.n_ct, T["fast_crt"]["B"].shape[-1]):
+        a = rng.integers(0, 1 << 16, size=(RAGGED, 2, dc.phim, n))
+        b = rng.integers(0, 1 << 16, size=(RAGGED, 3, dc.phim, n))
+        a[0, 0] = 0xFFFF
+        b[1, :, :, -1] |= 0x8000
+        a, b = (torch.as_tensor(x.astype(np.int32), device=cuda)
+                for x in (a, b))
+        args = (T["chunk_tbl"], dc._wrap_const(q, n), T["q"], T["qinv_f"],
+                dc.wide)
+        assert torch.equal(crt_cuda.limbs_to_residues(a, *args, second=b),
+                           crt.limbs_to_residues(torch.cat([a, b], dim=-3),
+                                                 *args))
+    torch.cuda.synchronize()
+    assert crt_cuda.LAUNCHES["limbs_to_residues"] == 2
+
+
+@pytest.mark.cuda
+def test_mul_relin_lifts_two_sources_without_cat(cuda, monkeypatch):
+    """DeviceContext.mul_relin on the card lifts both operands with one
+    two-source limbs_to_residues, and no torch.cat runs before it (the
+    operands are not joined); the output equals the CPU's."""
+    ctx = _ctx(256, 257, None)
+    events = []
+    cat, lift = torch.cat, crt_cuda.limbs_to_residues
+
+    def counted_cat(*args, **kw):
+        events.append("cat")
+        return cat(*args, **kw)
+
+    def counted_lift(poly, chunk_tbl, wrap, q, qinv_f, wide=False,
+                     second=None):
+        events.append(("lift", second is not None and poly.is_cuda))
+        return lift(poly, chunk_tbl, wrap, q, qinv_f, wide, second)
+    outs = []
+    for device in ("cpu", cuda):
+        dev = DeviceContext(ctx, device)
+        src = sampling.RandomSource(7)
+        sk, pk = scheme.keygen(dev, src)
+        ksw = scheme.KeySwitch.for_relinearization(sk, src)
+        cts = pk.encrypt_batch([scheme.Plaintext(ctx, src.uniform_mod_p(
+            ctx.phim, ctx.p)) for _ in range(4)], src)
+        a = torch.stack([c.parts for c in cts[0::2]])
+        b = torch.stack([c.parts for c in cts[1::2]])
+        events.clear()
+        with monkeypatch.context() as mp:
+            mp.setattr(torch, "cat", counted_cat)
+            mp.setattr(crt_cuda, "limbs_to_residues", counted_lift)
+            outs.append(dev.mul_relin(a, b, ksw.matrix_evals).cpu())
+    torch.cuda.synchronize()
+    assert events[0] == ("lift", True)
+    assert torch.equal(*outs)
+
+
 @pytest.mark.cuda
 def test_crt_kernel_refusals(cuda):
     """What the limb/CRT kernels do not take raises on the host, with the

@@ -53,6 +53,7 @@ import torch
 from .context import MAX_KSW_PARTS, FheContext, int_to_limbs
 from .ops import (crt, crt_cuda, limbs as lb, modular, modular_cuda, ntt,
                   ntt_ct, ntt_ct_cuda, ntt_ct_matmul)
+from .profiling import annotate
 
 
 # fast_crt table entries with one row per chain prime; the rest (P_limbs,
@@ -432,14 +433,15 @@ class DeviceContext:
     def _tensor_mul(self, a_parts, b_parts):
         """Ciphertext::operator*= : parts [..., k, phim, n] -> tensored
         evaluations [..., ka+kb-1, L, phim]."""
-        na = a_parts.shape[-3]
-        if a_parts.shape[-1] == b_parts.shape[-1]:
-            # one lift for both operands, each read in place
-            ev = self._from_poly_sub(self.full, a_parts, b_parts)
-            return self._tensor_product(ev[..., :na, :, :],
-                                        ev[..., na:, :, :])
-        return self._tensor_product(self.from_poly(a_parts),
-                                    self.from_poly(b_parts))
+        with annotate("fhe.tensor_mul"):
+            na = a_parts.shape[-3]
+            if a_parts.shape[-1] == b_parts.shape[-1]:
+                # one lift for both operands, each read in place
+                ev = self._from_poly_sub(self.full, a_parts, b_parts)
+                return self._tensor_product(ev[..., :na, :, :],
+                                            ev[..., na:, :, :])
+            return self._tensor_product(self.from_poly(a_parts),
+                                        self.from_poly(b_parts))
 
     def _tensor_product(self, a_ev, b_ev):
         """The evaluation-domain half of _tensor_mul: p * a tensored with
@@ -450,8 +452,9 @@ class DeviceContext:
     def _scale_down(self, tprod_evals):
         """Ciphertext::ScaleDown: floor((2x + q) / 2q), reduced signed,
         fused into the reconstruction (crt_cuda.tail_plain's steps)."""
-        return self._to_poly_sub(self.full, tprod_evals,
-                                 self.tail("round_down"))
+        with annotate("fhe.scale_down"):
+            return self._to_poly_sub(self.full, tprod_evals,
+                                     self.tail("round_down"))
 
     def _digit_evals(self, parts_limbs):
         """ByteDecomp digits and their forward transform over the
@@ -467,35 +470,37 @@ class DeviceContext:
         splits each x2^16 step into int32 shift hops (10 + 6 narrow,
         6 + 6 + 4 wide); here a step is one int64 product below 2^39 and
         a `%`, the same canonical residue."""
-        k = parts_limbs.shape[-3]
-        if k > MAX_KSW_PARTS:
-            raise ValueError(
-                f"keyswitching {k} parts exceeds MAX_KSW_PARTS="
-                f"{MAX_KSW_PARTS} (context.exact_bounds['ksw'])")
-        K = self.ksw
-        lead = parts_limbs.shape[:-3]
-        rows = k * self.ndigits
-        if self.digit_bits <= ntt_ct.MAX_DIGIT_BITS:
-            digs = lb.byte_decomp(parts_limbs, self.log_q, self.digit_bits,
-                                  self.ndigits, self.q_limbs)
-            digs = digs.movedim(-1, -2)               # [..., k, nd, phim]
-            digs = digs.reshape(lead + (rows, self.phim))
-            if self.use_ct:
-                return self._ct_ops.ct_fwd_digits(K['ct'], digs, self.ct_meta,
-                                                  self.digit_bits)
-            res = digs[..., None, :] % K['q']         # [..., rows, Lk, phim]
-        else:
-            planes = lb.byte_decomp_planes(parts_limbs, self.log_q,
-                                           self.digit_bits, self.ndigits,
-                                           self.q_limbs)
-            planes = planes.movedim(-2, -3)           # [..., k, nd, phim, pl]
-            planes = planes.reshape(lead + (rows, self.phim, planes.shape[-1]))
-            q = K['q'].to(torch.int64)
-            res = planes[..., None, :, -1] % q        # [..., rows, Lk, phim]
-            for t in range(planes.shape[-1] - 2, -1, -1):
-                res = ((res << lb.LIMB_BITS) + planes[..., None, :, t]) % q
-            res = res.to(torch.int32)
-        return self._fwd_t(K, res)
+        with annotate("fhe.digits"):
+            k = parts_limbs.shape[-3]
+            if k > MAX_KSW_PARTS:
+                raise ValueError(
+                    f"keyswitching {k} parts exceeds MAX_KSW_PARTS="
+                    f"{MAX_KSW_PARTS} (context.exact_bounds['ksw'])")
+            K = self.ksw
+            lead = parts_limbs.shape[:-3]
+            rows = k * self.ndigits
+            if self.digit_bits <= ntt_ct.MAX_DIGIT_BITS:
+                digs = lb.byte_decomp(parts_limbs, self.log_q, self.digit_bits,
+                                      self.ndigits, self.q_limbs)
+                digs = digs.movedim(-1, -2)               # [..., k, nd, phim]
+                digs = digs.reshape(lead + (rows, self.phim))
+                if self.use_ct:
+                    return self._ct_ops.ct_fwd_digits(
+                        K['ct'], digs, self.ct_meta, self.digit_bits)
+                res = digs[..., None, :] % K['q']     # [..., rows, Lk, phim]
+            else:
+                planes = lb.byte_decomp_planes(parts_limbs, self.log_q,
+                                               self.digit_bits, self.ndigits,
+                                               self.q_limbs)
+                planes = planes.movedim(-2, -3)       # [..., k, nd, phim, pl]
+                planes = planes.reshape(
+                    lead + (rows, self.phim, planes.shape[-1]))
+                q = K['q'].to(torch.int64)
+                res = planes[..., None, :, -1] % q    # [..., rows, Lk, phim]
+                for t in range(planes.shape[-1] - 2, -1, -1):
+                    res = ((res << lb.LIMB_BITS) + planes[..., None, :, t]) % q
+                res = res.to(torch.int32)
+            return self._fwd_t(K, res)
 
     def _keyswitch_digits(self, matrix_evals, digit_evals):
         """Keyswitch dot + reconstruction over the keyswitch basis.
@@ -504,10 +509,11 @@ class DeviceContext:
         ksw rows are gathered first (an index_select, 3 MB at m = 8192),
         so the dot kernel reads one layout whatever the matrix's source:
         the full chain here, a limb shard's block in parallel/shard.py."""
-        K = self.ksw
-        acc = modular_cuda.keyswitch_dot(self._gather_rows(K, matrix_evals),
-                                         digit_evals, K, self.wide)
-        return self._to_poly_sub(K, acc, self.tail("reduce_signed"))
+        with annotate("fhe.keyswitch"):
+            K = self.ksw
+            acc = modular_cuda.keyswitch_dot(
+                self._gather_rows(K, matrix_evals), digit_evals, K, self.wide)
+            return self._to_poly_sub(K, acc, self.tail("reduce_signed"))
 
     def keyswitch_parts(self, parts, matrix_evals):
         """ApplyKeySwitch of non-tensored parts [..., k, phim, n]."""
@@ -598,5 +604,6 @@ class DeviceContext:
         """Homomorphic multiply + relinearize (Ciphertext.cpp:167-218,
         FHE-SI.cpp:241-260), rank-generic: a/b [..., 2, phim, n_ct] ->
         [..., 2, phim, n_ct]."""
-        return self.keyswitch_tensored(self._tensor_mul(a_parts, b_parts),
-                                       matrix_evals)
+        with annotate("fhe.mul_relin"):
+            return self.keyswitch_tensored(self._tensor_mul(a_parts, b_parts),
+                                           matrix_evals)

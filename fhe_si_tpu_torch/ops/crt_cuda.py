@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from ..context import int_to_limbs
+from ..profiling import annotate
 from . import crt, limbs as lb
 from .cuda_build import library, on_cuda
 
@@ -317,22 +318,23 @@ def crt_to_limbs(res, t: dict, wide: bool = False, tail: Tail | None = None):
     [..., phim, n] (crt.residues_to_limbs_fast(prescaled=True)), then
     `tail` (limbs [..., phim, tail.width]).  Nothing of size
     [..., rows, phim, n] reaches device memory."""
-    if not on_cuda(res):
-        return crt_to_limbs_plain(res, t, wide, tail)
-    rows, n, tab = _basis("crt_to_limbs", t, res.shape)
-    _check_tail("crt_to_limbs", tail, n)
-    res = _residues("crt_to_limbs", res, rows)
-    lead, phim = res.shape[:-2], res.shape[-1]
-    width = n if tail is None else tail.width
-    _check_coeffs("crt_to_limbs", res, res.numel() // rows)
-    out = torch.empty(lead + (phim, width), dtype=torch.int32,
-                      device=res.device)
-    if out.numel():
-        _launch("crt_to_limbs", "fsi_crt_to_limbs", (res, tab, out),
-                (out.numel() // width, phim, rows, n,
-                 TAIL_CODES[tail and tail.kind], tail.log_q if tail else 0,
-                 width))
-    return out
+    with annotate("fhe.crt_to_limbs"):
+        if not on_cuda(res):
+            return crt_to_limbs_plain(res, t, wide, tail)
+        rows, n, tab = _basis("crt_to_limbs", t, res.shape)
+        _check_tail("crt_to_limbs", tail, n)
+        res = _residues("crt_to_limbs", res, rows)
+        lead, phim = res.shape[:-2], res.shape[-1]
+        width = n if tail is None else tail.width
+        _check_coeffs("crt_to_limbs", res, res.numel() // rows)
+        out = torch.empty(lead + (phim, width), dtype=torch.int32,
+                          device=res.device)
+        if out.numel():
+            _launch("crt_to_limbs", "fsi_crt_to_limbs", (res, tab, out),
+                    (out.numel() // width, phim, rows, n,
+                     TAIL_CODES[tail and tail.kind], tail.log_q if tail else 0,
+                     width))
+        return out
 
 
 def limbs_to_residues(poly, chunk_tbl, wrap, q, qinv_f, wide: bool = False,
@@ -345,35 +347,41 @@ def limbs_to_residues(poly, chunk_tbl, wrap, q, qinv_f, wide: bool = False,
     its own tensor.  chunk_tbl [>= 4n, L] (2^(4c) mod q_l; the kernel
     reads its rows 0, 8, 16, ...), wrap [L, 1] = 2^(16n) mod q_l, q [L,
     1], its primes below 2^23 (DeviceContext checks them on the host)."""
-    if second is not None and (poly.dim() < 3 or second.dim() != poly.dim()
-                               or second.shape[:-3] != poly.shape[:-3]
-                               or second.shape[-2:] != poly.shape[-2:]):
-        raise ValueError(f"limbs_to_residues: parts {tuple(poly.shape)} and "
-                         f"{tuple(second.shape)} do not join along axis -3")
-    if not on_cuda(poly):
-        if second is not None:
-            poly = torch.cat([poly, second], dim=-3)
-        return crt.limbs_to_residues(poly, chunk_tbl, wrap, q, qinv_f, wide)
-    n, L = poly.shape[-1], q.shape[0]
-    check_shape("limbs_to_residues", poly.shape, L, n)
-    if poly.dim() < 2 or chunk_tbl.dim() != 2 or chunk_tbl.shape[0] < 4 * n \
-            or chunk_tbl.shape[1] != L or wrap.numel() != L or q.numel() != L:
-        raise ValueError(f"limbs_to_residues: limbs {tuple(poly.shape)}, "
-                         f"chunk table {tuple(chunk_tbl.shape)}, wrap "
-                         f"{tuple(wrap.shape)}, q {tuple(q.shape)}")
-    phim = poly.shape[-2]
-    if second is None:
-        lead, ka, kb = poly.shape[:-2], 1, 0
-        b = poly = poly.contiguous()
-    else:
-        lead = poly.shape[:-3] + (poly.shape[-3] + second.shape[-3],)
-        ka, kb = poly.shape[-3], second.shape[-3]
-        poly, b = poly.contiguous(), second.contiguous()
-    _check_coeffs("limbs_to_residues", poly,
-                  (poly.numel() + (b.numel() if kb else 0)) // n)
-    out = torch.empty(lead + (L, phim), dtype=torch.int32, device=poly.device)
-    if out.numel():
-        _launch("limbs_to_residues", "fsi_limbs_to_residues",
-                (poly, b, chunk_tbl, q, wrap, out),
-                (out.numel() // ((ka + kb) * L * phim), ka, kb, phim, L, n))
-    return out
+    with annotate("fhe.limbs_to_residues"):
+        if second is not None and (poly.dim() < 3 or second.dim() != poly.dim()
+                                   or second.shape[:-3] != poly.shape[:-3]
+                                   or second.shape[-2:] != poly.shape[-2:]):
+            raise ValueError(
+                f"limbs_to_residues: parts {tuple(poly.shape)} and "
+                f"{tuple(second.shape)} do not join along axis -3")
+        if not on_cuda(poly):
+            if second is not None:
+                poly = torch.cat([poly, second], dim=-3)
+            return crt.limbs_to_residues(poly, chunk_tbl, wrap, q, qinv_f,
+                                         wide)
+        n, L = poly.shape[-1], q.shape[0]
+        check_shape("limbs_to_residues", poly.shape, L, n)
+        if poly.dim() < 2 or chunk_tbl.dim() != 2 \
+                or chunk_tbl.shape[0] < 4 * n or chunk_tbl.shape[1] != L \
+                or wrap.numel() != L or q.numel() != L:
+            raise ValueError(f"limbs_to_residues: limbs {tuple(poly.shape)}, "
+                             f"chunk table {tuple(chunk_tbl.shape)}, wrap "
+                             f"{tuple(wrap.shape)}, q {tuple(q.shape)}")
+        phim = poly.shape[-2]
+        if second is None:
+            lead, ka, kb = poly.shape[:-2], 1, 0
+            b = poly = poly.contiguous()
+        else:
+            lead = poly.shape[:-3] + (poly.shape[-3] + second.shape[-3],)
+            ka, kb = poly.shape[-3], second.shape[-3]
+            poly, b = poly.contiguous(), second.contiguous()
+        _check_coeffs("limbs_to_residues", poly,
+                      (poly.numel() + (b.numel() if kb else 0)) // n)
+        out = torch.empty(lead + (L, phim), dtype=torch.int32,
+                          device=poly.device)
+        if out.numel():
+            _launch("limbs_to_residues", "fsi_limbs_to_residues",
+                    (poly, b, chunk_tbl, q, wrap, out),
+                    (out.numel() // ((ka + kb) * L * phim), ka, kb, phim, L,
+                     n))
+        return out

@@ -40,6 +40,7 @@ import functools
 import numpy as np
 import torch
 
+from ..profiling import annotate
 from . import modular
 from .cuda_build import library, on_cuda
 
@@ -181,16 +182,17 @@ def tensor_product(a, b, T: dict, wide: bool = False):
     """p * a tensored with b over the rows of basis T: a [..., na, L, phim]
     and b [..., nb, L, phim] canonical residues -> [..., na+nb-1, L, phim],
     element for element tensor_product_plain with T's p_mod_q."""
-    if not on_cuda(a):
-        return tensor_product_plain(a, b, T['p_mod_q'], T['q'], T['qinv_f'],
-                                    wide)
-    a2, sa, b2, sb, tab, shape = tensor_product_operands(a, b, T)
-    out = torch.empty(shape, dtype=torch.int32, device=a.device)
-    if out.numel():
-        R, na, L, phim = a2.shape
-        _launch("tensor_product", "fsi_tensor_product", (a2, b2, tab, out),
-                (sa, sb, R, L, phim, na, b2.shape[1]))
-    return out
+    with annotate("fhe.tensor_product"):
+        if not on_cuda(a):
+            return tensor_product_plain(a, b, T['p_mod_q'], T['q'],
+                                        T['qinv_f'], wide)
+        a2, sa, b2, sb, tab, shape = tensor_product_operands(a, b, T)
+        out = torch.empty(shape, dtype=torch.int32, device=a.device)
+        if out.numel():
+            R, na, L, phim = a2.shape
+            _launch("tensor_product", "fsi_tensor_product", (a2, b2, tab, out),
+                    (sa, sb, R, L, phim, na, b2.shape[1]))
+        return out
 
 
 def keyswitch_dot_operands(mat, digits, T: dict):
@@ -215,12 +217,13 @@ def keyswitch_dot(mat, digits, T: dict, wide: bool = False):
     """sum_k mat[j, k] * digits[..., k] mod q over the rows of basis T:
     mat [2, K, L, phim], digits [..., K, L, phim] canonical residues ->
     [..., 2, L, phim], element for element keyswitch_dot_plain."""
-    if not on_cuda(digits):
-        return keyswitch_dot_plain(mat, digits, T['q'], T['qinv_f'], wide)
-    mat, dig, tab, shape = keyswitch_dot_operands(mat, digits, T)
-    out = torch.empty(shape, dtype=torch.int32, device=digits.device)
-    if out.numel():
-        R, K, L, phim = dig.shape
-        _launch("keyswitch_dot", "fsi_keyswitch_dot", (mat, dig, tab, out),
-                (R, L, phim, K))
-    return out
+    with annotate("fhe.keyswitch_dot"):
+        if not on_cuda(digits):
+            return keyswitch_dot_plain(mat, digits, T['q'], T['qinv_f'], wide)
+        mat, dig, tab, shape = keyswitch_dot_operands(mat, digits, T)
+        out = torch.empty(shape, dtype=torch.int32, device=digits.device)
+        if out.numel():
+            R, K, L, phim = dig.shape
+            _launch("keyswitch_dot", "fsi_keyswitch_dot", (mat, dig, tab, out),
+                    (R, L, phim, K))
+        return out

@@ -32,6 +32,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..profiling import annotate
+
 F64_EXACT = 1 << 53
 SPLIT_BITS = 12
 SPLIT_MASK = (1 << SPLIT_BITS) - 1
@@ -105,17 +107,18 @@ def modmatmul(tab, x, q):
     is one [n_out, n_in] x [n_in, rows] product, batched over L (the JAX
     package flattens its lead dims for the same reason, ntt.py:356-366).
     """
-    q64 = q.to(torch.int64)
-    *lead, L, n_in = x.shape
-    n_out = tab[0].shape[-2]
-    if tab[0].shape[-1] != n_in or tab[0].shape[0] != L:
-        raise ValueError(f"modmatmul: table {tuple(tab[0].shape)} does not "
-                         f"take input {tuple(x.shape)}")
-    cols = x.reshape(-1, L, n_in).permute(1, 2, 0).to(torch.float64)
-    if len(tab) == 1:
-        r = torch.matmul(tab[0], cols).to(torch.int64) % q64[..., None]
-    else:
-        hi = torch.matmul(tab[0], cols).to(torch.int64) % q64[..., None]
-        lo = torch.matmul(tab[1], cols).to(torch.int64)
-        r = (hi * (1 << SPLIT_BITS) + lo) % q64[..., None]
-    return r.permute(2, 0, 1).to(torch.int32).reshape(*lead, L, n_out)
+    with annotate("fhe.modmatmul"):
+        q64 = q.to(torch.int64)
+        *lead, L, n_in = x.shape
+        n_out = tab[0].shape[-2]
+        if tab[0].shape[-1] != n_in or tab[0].shape[0] != L:
+            raise ValueError(f"modmatmul: table {tuple(tab[0].shape)} does "
+                             f"not take input {tuple(x.shape)}")
+        cols = x.reshape(-1, L, n_in).permute(1, 2, 0).to(torch.float64)
+        if len(tab) == 1:
+            r = torch.matmul(tab[0], cols).to(torch.int64) % q64[..., None]
+        else:
+            hi = torch.matmul(tab[0], cols).to(torch.int64) % q64[..., None]
+            lo = torch.matmul(tab[1], cols).to(torch.int64)
+            r = (hi * (1 << SPLIT_BITS) + lo) % q64[..., None]
+        return r.permute(2, 0, 1).to(torch.int32).reshape(*lead, L, n_out)

@@ -42,6 +42,7 @@ import functools
 import numpy as np
 import torch
 
+from ..profiling import annotate
 from . import ntt_ct
 from .cuda_build import library, on_cuda
 from .ntt_ct import CtMeta
@@ -242,50 +243,55 @@ def _mma_tables(name, x, T: dict, keys, S: int, R: int):
 
 def ct_fwd(T: dict, x, meta: CtMeta):
     """Forward transform of residues int32 [..., L, phim] in [0, q)."""
-    if not on_cuda(x):
-        return ntt_ct.ct_fwd(T, x, meta)
-    L = T['q'].shape[0]
-    _check("ct_fwd", x, (L, meta.phim), T)
-    tabs = _mma_tables("ct_fwd", x, T, ('k_t2', 'k_t1', 'k_tw', 'k_consts'),
-                       meta.N2, meta.N1)
-    x = ntt_ct.pad_to_N(x, meta).contiguous()
-    out = _launch("ct_fwd", _lib().fsi_ct_fwd, x, tabs, torch.empty_like(x),
-                  x.numel() // (L * meta.N), L, meta)
-    return ntt_ct.drop_excluded(out, meta)
+    with annotate("fhe.ct_fwd"):
+        if not on_cuda(x):
+            return ntt_ct.ct_fwd(T, x, meta)
+        L = T['q'].shape[0]
+        _check("ct_fwd", x, (L, meta.phim), T)
+        tabs = _mma_tables("ct_fwd", x, T,
+                           ('k_t2', 'k_t1', 'k_tw', 'k_consts'), meta.N2,
+                           meta.N1)
+        x = ntt_ct.pad_to_N(x, meta).contiguous()
+        out = _launch("ct_fwd", _lib().fsi_ct_fwd, x, tabs,
+                      torch.empty_like(x), x.numel() // (L * meta.N), L, meta)
+        return ntt_ct.drop_excluded(out, meta)
 
 
 def ct_fwd_digits(T: dict, digits, meta: CtMeta, digit_bits: int):
     """Forward transform of prime-independent digits int32 [..., phim] in
     [0, 2^digit_bits) -> [..., L, phim]."""
-    if not on_cuda(digits):
-        return ntt_ct.ct_fwd_digits(T, digits, meta, digit_bits)
-    if digit_bits > ntt_ct.MAX_DIGIT_BITS:
-        raise NotImplementedError(
-            f"digit radix above 2^{ntt_ct.MAX_DIGIT_BITS}")
-    L = T['q'].shape[0]
-    _check("ct_fwd_digits", digits, (meta.phim,), T)
-    tabs = _mma_tables("ct_fwd_digits", digits, T,
-                       ('k_t2', 'k_t1', 'k_tw', 'k_consts'), meta.N2, meta.N1)
-    digits = ntt_ct.pad_to_N(digits, meta).contiguous()
-    out = torch.empty(digits.shape[:-1] + (L, meta.N), dtype=torch.int32,
-                      device=digits.device)
-    out = _launch("ct_fwd_digits", _lib().fsi_ct_fwd_digits, digits, tabs,
-                  out, digits.numel() // meta.N, L, meta)
-    return ntt_ct.drop_excluded(out, meta)
+    with annotate("fhe.ct_fwd_digits"):
+        if not on_cuda(digits):
+            return ntt_ct.ct_fwd_digits(T, digits, meta, digit_bits)
+        if digit_bits > ntt_ct.MAX_DIGIT_BITS:
+            raise NotImplementedError(
+                f"digit radix above 2^{ntt_ct.MAX_DIGIT_BITS}")
+        L = T['q'].shape[0]
+        _check("ct_fwd_digits", digits, (meta.phim,), T)
+        tabs = _mma_tables("ct_fwd_digits", digits, T,
+                           ('k_t2', 'k_t1', 'k_tw', 'k_consts'), meta.N2,
+                           meta.N1)
+        digits = ntt_ct.pad_to_N(digits, meta).contiguous()
+        out = torch.empty(digits.shape[:-1] + (L, meta.N), dtype=torch.int32,
+                          device=digits.device)
+        out = _launch("ct_fwd_digits", _lib().fsi_ct_fwd_digits, digits, tabs,
+                      out, digits.numel() // meta.N, L, meta)
+        return ntt_ct.drop_excluded(out, meta)
 
 
 def ct_inv(T: dict, evals, meta: CtMeta, t2i_key: str = 't2i'):
     """Inverse transform [..., L, phim] -> coefficients; t2i_key='t2i_crt'
     folds in the CRT premultiplier."""
-    if not on_cuda(evals):
-        return ntt_ct.ct_inv(T, evals, meta, t2i_key)
-    L = T['q'].shape[0]
-    _check("ct_inv", evals, (L, meta.phim), T)
-    tabs = _mma_tables("ct_inv", evals, T,
-                       ('k_t1i', 'k_' + t2i_key, 'k_twi', 'k_consts'),
-                       meta.N1, meta.N2)
-    evals = ntt_ct.insert_excluded(evals, meta).contiguous()
-    out = _launch("ct_inv", _lib().fsi_ct_inv, evals, tabs,
-                  torch.empty_like(evals), evals.numel() // (L * meta.N), L,
-                  meta)
-    return ntt_ct.fold_mod_phim(out, T['q'], meta)
+    with annotate("fhe.ct_inv"):
+        if not on_cuda(evals):
+            return ntt_ct.ct_inv(T, evals, meta, t2i_key)
+        L = T['q'].shape[0]
+        _check("ct_inv", evals, (L, meta.phim), T)
+        tabs = _mma_tables("ct_inv", evals, T,
+                           ('k_t1i', 'k_' + t2i_key, 'k_twi', 'k_consts'),
+                           meta.N1, meta.N2)
+        evals = ntt_ct.insert_excluded(evals, meta).contiguous()
+        out = _launch("ct_inv", _lib().fsi_ct_inv, evals, tabs,
+                      torch.empty_like(evals),
+                      evals.numel() // (L * meta.N), L, meta)
+        return ntt_ct.fold_mod_phim(out, T['q'], meta)

@@ -17,6 +17,20 @@ Usage:
     with device_trace("/tmp/trace"):   # torch.profiler capture
         with annotate("step"):
             ...
+
+    with counting() as table:          # no profiler: counts and host ns
+        ...
+    table["fhe.mul_relin"]             # [spans entered, total ns]
+
+The program's spans (annotate, named fhe.<function>) mark mul+relin's
+request (fhe.mul_relin), its four stages (fhe.tensor_mul, fhe.scale_down,
+fhe.digits, fhe.keyswitch) and each wrapper that launches a hand-written
+kernel (fhe.limbs_to_residues, fhe.crt_to_limbs, fhe.ct_fwd,
+fhe.ct_fwd_digits, fhe.ct_inv, fhe.tensor_product, fhe.keyswitch_dot) or
+the dense transform (fhe.modmatmul), around the whole wrapper.  They go to one sink: an open
+counting() table, else a recording torch.profiler capture (a
+user_annotation event on the clock of the card's kernels).  With
+neither, a span is one shared no-op context and costs two global reads.
 """
 from __future__ import annotations
 
@@ -28,6 +42,7 @@ import time
 from collections import OrderedDict
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 class PhaseProfiler:
@@ -85,6 +100,48 @@ def device_trace(log_dir: str):
         f"{time.time_ns() // 1_000_000}.pt.trace.json"))
 
 
+_OFF = contextlib.nullcontext()   # the span of a run with no sink
+_table: dict | None = None        # the open counting() table, if any
+
+
+class _Counted:
+    """A span while a counting() table is open: one more entry and the
+    elapsed host ns under its name."""
+    __slots__ = ("name", "table", "t0")
+
+    def __init__(self, name: str, table: dict):
+        self.name, self.table = name, table
+
+    def __enter__(self):
+        self.t0 = time.perf_counter_ns()
+
+    def __exit__(self, *exc):
+        entry = self.table.setdefault(self.name, [0, 0])
+        entry[0] += 1
+        entry[1] += time.perf_counter_ns() - self.t0
+
+
 def annotate(name: str):
-    """Named region inside a device trace (torch.profiler.record_function)."""
-    return torch.profiler.record_function(name)
+    """A named span: counted and timed while a counting() table is open,
+    else a torch.profiler user_annotation while a capture records, else
+    the one shared no-op context (no record_function, no dispatcher
+    call)."""
+    if _table is not None:
+        return _Counted(name, _table)
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
+@contextlib.contextmanager
+def counting():
+    """Count the spans entered in the block, with their host time: yields
+    the table {name: [spans entered, total ns]} it fills, nested spans
+    each under their own name.  Needs no profiler and writes nothing;
+    spans counted here do not reach a capture."""
+    global _table
+    saved, _table = _table, {}
+    try:
+        yield _table
+    finally:
+        _table = saved

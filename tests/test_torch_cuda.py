@@ -541,6 +541,34 @@ def test_mul_relin_lifts_two_sources_without_cat(cuda, monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ring", [pytest.param((256, 80, 257, 3), id="m256"),
+                                  pytest.param((22, 80, 23, 7), id="m22")])
+def test_mul_relin_wrapper_spans_equal_launches(cuda, ring):
+    """One mul_relin on the card under profiling.counting(): each kernel
+    wrapper's span count equals its LAUNCHES delta, and the step runs 14
+    spans on either family."""
+    from fhe_si_tpu_torch import profiling
+    m, log_q, p, g = ring
+    ctx = FheContext(m=m, log_q=log_q, p=p, generator=g)
+    dev = DeviceContext(ctx, cuda)
+    a, b = (torch.randint(0, 1 << 16, (2, 2, ctx.phim, ctx.n_limbs_ct),
+                          dtype=torch.int32, device=cuda) for _ in range(2))
+    mat = torch.randint(0, 2, (2, 3 * ctx.ndigits, ctx.num_primes, ctx.phim),
+                        dtype=torch.int32, device=cuda)
+    dev.mul_relin(a, b, mat)
+    mods = (ntt_ct_cuda, crt_cuda, modular_cuda)
+    for mod in mods:
+        mod.reset_launches()
+    with profiling.counting() as table:
+        dev.mul_relin(a, b, mat)
+    torch.cuda.synchronize()
+    launched = {k: n for mod in mods for k, n in mod.LAUNCHES.items()}
+    assert {k: table.get("fhe." + k, [0])[0] for k in launched} == launched
+    assert sum(launched.values()) > 0
+    assert sum(n for n, _ in table.values()) == 14
+
+
+@pytest.mark.cuda
 def test_crt_kernel_refusals(cuda):
     """What the limb/CRT kernels do not take raises on the host, with the
     shape, before any launch: a context whose reconstruction is wider

@@ -1,6 +1,9 @@
 """fhe_si_tpu_torch/profiling.py against fhe_si_tpu/profiling.py: the
 same report for the same phase times, and a torch.profiler trace on the
-CPU that holds the annotated region."""
+CPU that holds the annotated region.  The spans (annotate): one shared
+no-op with no sink, nested user_annotation events under the profiler,
+counts and host time under counting(), and the fhe.* spans of
+mul+relin on both transform families."""
 import json
 import time
 
@@ -8,7 +11,10 @@ import pytest
 import torch
 
 from fhe_si_tpu import profiling as jprofiling
-from fhe_si_tpu_torch import profiling
+from fhe_si_tpu_torch import DeviceContext, FheContext, profiling
+
+STAGES = ("fhe.mul_relin", "fhe.tensor_mul", "fhe.scale_down", "fhe.digits",
+          "fhe.keyswitch")
 
 
 @pytest.fixture
@@ -61,3 +67,129 @@ def test_device_trace_holds_the_annotation(tmp_path):
         "traceEvents"]}
     assert "fsi_step" in names
     assert any(n and n.startswith("aten::") for n in names)
+
+
+def _events(tmp_path):
+    """The Chrome trace device_trace wrote into tmp_path."""
+    files = list(tmp_path.glob("*.pt.trace.json"))
+    assert len(files) == 1
+    return json.loads(files[0].read_text())["traceEvents"]
+
+
+def _raise(*args, **kwargs):
+    raise AssertionError("record_function entered with no sink active")
+
+
+def test_annotate_off_is_one_shared_noop(monkeypatch):
+    """With no profiler recording and no counting() table, every span is
+    the same module-level no-op: record_function is never made."""
+    monkeypatch.setattr(torch.profiler, "record_function", _raise)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", _raise)
+    spans = {id(profiling.annotate(name)) for name in STAGES}
+    assert spans == {id(profiling._OFF)}
+    with profiling.annotate("fhe.outer"):
+        with profiling.annotate("fhe.inner"):
+            pass
+
+
+def test_counting_counts_and_times_nested_spans(monkeypatch):
+    """Each span adds one and its elapsed perf_counter_ns under its name,
+    nested spans each under their own; the table closes with the block,
+    and an inner counting() block keeps its own table."""
+    now = [0]
+
+    def tick():
+        return now[0]
+
+    monkeypatch.setattr(time, "perf_counter_ns", tick)
+    with profiling.counting() as table:
+        for _ in range(2):
+            with profiling.annotate("fhe.outer"):
+                now[0] += 5
+                with profiling.annotate("fhe.inner"):
+                    now[0] += 7
+                with profiling.annotate("fhe.inner"):
+                    now[0] += 11
+                with profiling.counting() as inner_table:
+                    with profiling.annotate("fhe.inner"):
+                        now[0] += 100
+        assert inner_table == {"fhe.inner": [1, 100]}
+    assert table == {"fhe.outer": [2, 2 * (5 + 7 + 11 + 100)],
+                     "fhe.inner": [4, 2 * (7 + 11)]}
+    assert profiling.annotate("fhe.after") is profiling._OFF
+
+
+def _step(m, log_q, p, generator):
+    """A DeviceContext on the CPU and one batched mul_relin's operands
+    (limbs and a key matrix of the right shapes; the spans do not read
+    the values)."""
+    ctx = FheContext(m=m, log_q=log_q, p=p, generator=generator)
+    dev = DeviceContext(ctx, "cpu")
+    gen = torch.Generator().manual_seed(m)
+    a, b = (torch.randint(0, 1 << 16, (2, 2, ctx.phim, ctx.n_limbs_ct),
+                          generator=gen, dtype=torch.int32)
+            for _ in range(2))
+    mat = torch.randint(0, 2, (2, 3 * ctx.ndigits, ctx.num_primes, ctx.phim),
+                        generator=gen, dtype=torch.int32)
+    return dev, a, b, mat
+
+
+# the wrapper spans of one mul_relin on each family
+CT_WRAPPERS = {"fhe.limbs_to_residues": 1, "fhe.ct_fwd": 1,
+               "fhe.tensor_product": 1, "fhe.ct_inv": 2, "fhe.crt_to_limbs": 2,
+               "fhe.ct_fwd_digits": 1, "fhe.keyswitch_dot": 1}
+DENSE_WRAPPERS = {"fhe.limbs_to_residues": 1, "fhe.modmatmul": 4,
+                  "fhe.tensor_product": 1, "fhe.crt_to_limbs": 2,
+                  "fhe.keyswitch_dot": 1}
+
+
+@pytest.mark.parametrize("ring, wrappers", [
+    pytest.param((256, 80, 257, 3), CT_WRAPPERS, id="m256-ct"),
+    pytest.param((22, 80, 23, 7), DENSE_WRAPPERS, id="m22-dense")])
+def test_mul_relin_spans(ring, wrappers):
+    """One CPU mul_relin under counting(): the request and each stage
+    once, the wrappers of the path it takes (14 spans on either family),
+    each stage inside the request's time; the result is unchanged."""
+    dev, a, b, mat = _step(*ring)
+    plain = dev.mul_relin(a, b, mat)
+    with profiling.counting() as table:
+        out = dev.mul_relin(a, b, mat)
+    assert torch.equal(out, plain)
+    counts = {name: n for name, (n, _) in table.items()}
+    assert counts == dict(dict.fromkeys(STAGES, 1), **wrappers)
+    assert sum(counts.values()) == 14
+    ns = {name: t for name, (_, t) in table.items()}
+    assert sum(ns[s] for s in STAGES[1:]) <= ns["fhe.mul_relin"]
+    assert ns["fhe.ct_fwd_digits" if "fhe.ct_fwd" in wrappers
+              else "fhe.modmatmul"] > 0
+
+
+def test_mul_relin_spans_nest_in_device_trace(tmp_path):
+    """The m = 256 step's spans in a Chrome trace: each stage inside the
+    request, each wrapper inside the stage that calls it."""
+    dev, a, b, mat = _step(256, 80, 257, 3)
+    with profiling.device_trace(str(tmp_path)):
+        dev.mul_relin(a, b, mat)
+    spans = [e for e in _events(tmp_path) if e.get("cat") == "user_annotation"
+             and e["name"].startswith("fhe.")]
+    assert len(spans) == 14
+
+    def parent(e):
+        around = [o for o in spans if o is not e and o["ts"] <= e["ts"]
+                  and e["ts"] + e["dur"] <= o["ts"] + o["dur"]]
+        return min(around, key=lambda o: o["dur"])["name"] if around else None
+
+    assert profiling.annotate("fhe.after") is profiling._OFF
+    got = sorted((e["name"], parent(e)) for e in spans)
+    want = sorted([("fhe.mul_relin", None)]
+                  + [(s, "fhe.mul_relin") for s in STAGES[1:]]
+                  + [("fhe.limbs_to_residues", "fhe.tensor_mul"),
+                     ("fhe.ct_fwd", "fhe.tensor_mul"),
+                     ("fhe.tensor_product", "fhe.tensor_mul"),
+                     ("fhe.ct_inv", "fhe.scale_down"),
+                     ("fhe.crt_to_limbs", "fhe.scale_down"),
+                     ("fhe.ct_fwd_digits", "fhe.digits"),
+                     ("fhe.keyswitch_dot", "fhe.keyswitch"),
+                     ("fhe.ct_inv", "fhe.keyswitch"),
+                     ("fhe.crt_to_limbs", "fhe.keyswitch")])
+    assert got == want

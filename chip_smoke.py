@@ -10,7 +10,8 @@ prints no result line):
   1. device check: refuses to run without CUDA; prints the card's name
      and power limit as nvidia-smi reports them;
   2. build: compiles the CUDA kernels from fhe_si_tpu_torch/csrc
-     (ct_ntt.cu, crt.cu and modular.cu, one nvcc each, started together)
+     (ct_ntt.cu, crt.cu, modular.cu and digits.cu, one nvcc each, started
+     together)
      and prints
      ptxas's report for each kernel (registers, shared memory, spills)
      and, where cuobjdump is found, the static SASS instruction counts of
@@ -46,7 +47,10 @@ prints no result line):
      tensor, on separate 3- and 2-part tensors and at 4 x 4 parts;
      keyswitch_dot at K = 3 x ndigits) against their plain versions on
      every basis of every one of those contexts, with a worst-case row
-     (every residue q - 1), bit for bit;
+     (every residue q - 1), bit for bit; the digit kernel
+     (ops/digits_cuda.py byte_decomp, check_digits) on each context's
+     logQ and digits, at the ciphertext and reconstruction widths, alone
+     and with the keyswitch basis' residues;
   4. the main path at FheContext(m=8192, log_q=80, p=40961, g=3):
      keygen, relinearization key, batched encrypt of 64 pairs, batched
      multiply + relinearize, batched decrypt; every decrypt must equal
@@ -231,10 +235,12 @@ PALLAS = "fhe_si_tpu/ops/ntt_ct_pallas.py"
 NTT = ("ct_fwd", "ct_fwd_digits", "ct_inv")
 CRT = ("crt_to_limbs", "limbs_to_residues")
 MODULAR = ("tensor_product", "keyswitch_dot")
+DIGITS = ("byte_decomp",)
 # the kernels of a path that launches no transform kernel (the dense
 # family, the matmul route): every mul+relin step lifts, multiplies,
-# reconstructs and keyswitches
-NO_TRANSFORM = CRT + MODULAR
+# reconstructs and keyswitches, its digits split by byte_decomp
+# (decompSize <= 3)
+NO_TRANSFORM = CRT + MODULAR + DIGITS
 KERNELS = {   # wrapper -> (source, the TPU code it replaces)
     "ct_fwd": ("fhe_si_tpu_torch/csrc/ct_ntt.cu", f"{PALLAS}:148"),
     "ct_fwd_digits": ("fhe_si_tpu_torch/csrc/ct_ntt.cu", f"{PALLAS}:137"),
@@ -251,6 +257,9 @@ KERNELS = {   # wrapper -> (source, the TPU code it replaces)
     "keyswitch_dot": ("fhe_si_tpu_torch/csrc/modular.cu",
                       "fhe_si_tpu/ops/modular.py:75 (XLA-fused jnp, not "
                       "Pallas)"),
+    "byte_decomp": ("fhe_si_tpu_torch/csrc/digits.cu",
+                    "fhe_si_tpu/ops/limbs.py:236 (XLA-fused jnp, not "
+                    "Pallas)"),
 }
 MAX_ERR = dict.fromkeys(KERNELS, 0)     # kernel vs plain, over phase 3 on
 
@@ -300,16 +309,18 @@ def device_ms(fn, iters: int = 20) -> float | None:
 
 def reset_launches():
     """Every kernel's launch count to 0."""
-    from fhe_si_tpu_torch.ops import crt_cuda, modular_cuda, ntt_ct_cuda
-    for mod in (ntt_ct_cuda, crt_cuda, modular_cuda):
+    from fhe_si_tpu_torch.ops import (crt_cuda, digits_cuda, modular_cuda,
+                                      ntt_ct_cuda)
+    for mod in (ntt_ct_cuda, crt_cuda, modular_cuda, digits_cuda):
         mod.reset_launches()
 
 
 def launch_counts() -> dict:
     """Every kernel's launch count since reset_launches."""
-    from fhe_si_tpu_torch.ops import crt_cuda, modular_cuda, ntt_ct_cuda
+    from fhe_si_tpu_torch.ops import (crt_cuda, digits_cuda, modular_cuda,
+                                      ntt_ct_cuda)
     return dict(ntt_ct_cuda.LAUNCHES, **crt_cuda.LAUNCHES,
-                **modular_cuda.LAUNCHES)
+                **modular_cuda.LAUNCHES, **digits_cuda.LAUNCHES)
 
 
 def crt_bound(name: str, rows: int, L: int, n: int, width: int,
@@ -360,6 +371,17 @@ def modular_bound(name: str, rows: int, L: int, phim: int,
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def digits_bound(rows: int, n: int, nd: int, lk: int,
+                 phim: int) -> tuple[float, str]:
+    """Least time (ms) the card could take for one byte_decomp call: its
+    int32 limbs [rows, phim, n] read and its digits [rows, nd, phim] (or
+    their residues, [rows, nd, lk, phim]) written once each over the HBM
+    rate.  Its operations (a funnel shift and mask a digit, a product and
+    a subtraction a residue) are far below the INT32 rate's bound."""
+    nbytes = 4 * rows * phim * (n + nd * max(lk, 1))
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
 def kernel_bound(name: str, rows: int, L: int, meta) -> tuple[float, str]:
@@ -682,12 +704,38 @@ def check_modular(dc, label, rows=RAGGED_ROWS, bases=("full", "ksw", "lin")):
     torch.cuda.synchronize()
 
 
+def check_digits(dc, label, rows=RAGGED_ROWS):
+    """byte_decomp against its plain version on the card, bit for bit, at
+    dc's logQ and digits: limbs at the ciphertext and the reconstruction
+    widths with a worst-case row (every limb 0xFFFF), the digits alone
+    and their residues modulo the keyswitch basis' primes."""
+    if dc.digit_bits > 24:
+        return
+    import torch
+    from fhe_si_tpu_torch.ops import digits_cuda
+    rng = np.random.default_rng(SEED)
+    q = dc.ksw['q']
+    for n in sorted({dc.n_ct, dc.full['fast_crt']['B'].shape[-1]}):
+        x = rng.integers(0, 1 << 16, size=(rows, dc.phim, n))
+        x[0] = (1 << 16) - 1
+        x = torch.as_tensor(x.astype(np.int32), device=dc.device)
+        for primes in (None, q):
+            args = (x, dc.log_q, dc.digit_bits, dc.ndigits, primes)
+            check_equal("byte_decomp", digits_cuda.byte_decomp(*args),
+                        digits_cuda.byte_decomp_plain(*args))
+    print(f"{label}: byte_decomp == plain ({rows} rows, widths n_ct and "
+          f"the reconstruction's, digits and their residues)")
+
+
 def check_basis_kernels(dc, label, rows=RAGGED_ROWS,
                         bases=("full", "ksw", "lin")):
-    """check_crt and check_modular: every kernel that works on dc's bases
-    (all but the transforms) against its plain version."""
+    """check_crt, check_modular and (where the keyswitch basis is among
+    `bases`) check_digits: every kernel that works on dc's bases (all but
+    the transforms) against its plain version."""
     check_crt(dc, label, rows, bases)
     check_modular(dc, label, rows, bases)
+    if "ksw" in bases:
+        check_digits(dc, label, rows)
 
 
 def _plaintext_mul_job(phim, phim_x, p, a, b):
@@ -950,8 +998,10 @@ def step_cases(dc, batch, ntt=True):
     tensored parts back (ct_inv, then crt_to_limbs with ScaleDown's
     tail), 3 x ndigits digit rows transformed, and 2 keyswitched parts
     back on the ksw basis (ct_inv, crt_to_limbs with the signed
-    reduction), the tensor product of the 2 x 2 lifted parts and the
-    keyswitch dot of the 3 x ndigits digit rows (rows: the batch).
+    reduction), the tensor product of the 2 x 2 lifted parts, the
+    keyswitch dot of the 3 x ndigits digit rows (rows: the batch) and the
+    digit split of the 3 ScaleDown parts (their residues on a ring
+    without the transform kernel).
     ntt=False: the other kernels only (the dense family and the matmul
     route launch no transform kernel)."""
     cases = [("ct_fwd", "full", batch * 4, None),
@@ -962,7 +1012,8 @@ def step_cases(dc, batch, ntt=True):
              ("crt_to_limbs", "ksw", batch * 2, "reduce_signed"),
              ("limbs_to_residues", "full", batch * 4, None),
              ("tensor_product", "full", batch, None),
-             ("keyswitch_dot", "ksw", batch, None)]
+             ("keyswitch_dot", "ksw", batch, None),
+             ("byte_decomp", "ksw", batch * 3, None)]
     return (cases if ntt else []) + other
 
 
@@ -1072,6 +1123,16 @@ def _case(dc, name, basis, rows, tail, rng):
                                       ntt_ct, ntt_ct_cuda)
     T = getattr(dc, basis)
     q_np, meta = T['primes_np'], dc.ct_meta
+    if name == "byte_decomp":
+        from fhe_si_tpu_torch.ops import digits_cuda
+        x = torch.as_tensor(rng.integers(0, 1 << 16, size=(
+            rows, dc.phim, dc.n_ct)).astype(np.int32), device=dc.device)
+        primes = None if dc.use_ct else T['q']
+        args = (x, dc.log_q, dc.digit_bits, dc.ndigits, primes)
+        return (x, lambda k: (digits_cuda.byte_decomp if k else
+                              digits_cuda.byte_decomp_plain)(*args),
+                *digits_bound(rows, dc.n_ct, dc.ndigits,
+                              0 if dc.use_ct else len(q_np), dc.phim))
     if name in MODULAR:
         L = len(q_np)
 
@@ -1335,7 +1396,7 @@ def phase_dense(dev, card):
     # residues through ct_fwd, no ct_fwd_digits
     dc, *_, launches["decomp4"] = lean_path(
         dev, DECOMP4, BATCH_DECOMP4, "decompSize 4",
-        expect=("ct_fwd", "ct_inv") + NO_TRANSFORM)[:5]
+        expect=("ct_fwd", "ct_inv") + CRT + MODULAR)[:5]
     if dc.digit_bits != 32:
         raise AssertionError(f"decompSize 4: {dc.digit_bits}-bit digits")
     del dc
@@ -1875,7 +1936,7 @@ def phase_sharded(dev, card, main_run, codec):
               f"{w['first_call_s']:.3f} s, launches {w['launches']} (ranks "
               "share one card and run at once: not a scaling figure)")
     coeff = worlds["coeff2"]["launches"]
-    if any(coeff[k] for k in NTT) or not all(coeff[k] for k in NO_TRANSFORM):
+    if any(coeff[k] for k in NTT) or not all(coeff[k] for k in CRT + MODULAR):
         raise AssertionError(f"the coeff path launched {coeff}")
     print("worlds: limb = 2 and dp = 2 over gloo == the single rank (NCCL), "
           "block reduce and batched output; coeff = 2 == the unsharded "
@@ -2194,7 +2255,8 @@ def main() -> int:
         ("crt_to_limbs", "full", 14 * 3, "round_down"),
         ("crt_to_limbs", "ksw", 20 * 2, "reduce_signed"),
         ("limbs_to_residues", "full", 14 * 4, None),
-        ("tensor_product", "full", 14, None), ("keyswitch_dot", "ksw", 20, None)])
+        ("tensor_product", "full", 14, None), ("keyswitch_dot", "ksw", 20, None),
+        ("byte_decomp", "ksw", 20 * 2, None)])
     del rdc
     *_, per_step15 = time_step(card, dc15, pairs15, ksw15, out15,
                                "m=32768 path")
@@ -2247,8 +2309,8 @@ def main() -> int:
             max_abs_err=MAX_ERR[name], ms=k_ms, plain_ms=p_ms,
             bound_ms=b_ms, bound_by=b_by, device_ms=d_ms,
             # no PyTorch call computes a transform mod q, a CRT
-            # reconstruction into limbs, a lift of limbs to residues, or
-            # a modular product or dot
+            # reconstruction into limbs, a lift of limbs to residues, a
+            # modular product or dot, or ByteDecomp's digits
             library_ms=None,
             wide_ms=wide_ms[name][0][1], wide_plain_ms=wide_ms[name][0][2],
             m32768_ms=m15_ms[name][0][1], m32768_plain_ms=m15_ms[name][0][2],

@@ -51,8 +51,8 @@ import numpy as np
 import torch
 
 from .context import MAX_KSW_PARTS, FheContext, int_to_limbs
-from .ops import (crt, crt_cuda, limbs as lb, modular, modular_cuda, ntt,
-                  ntt_ct, ntt_ct_cuda, ntt_ct_matmul)
+from .ops import (crt, crt_cuda, digits_cuda, limbs as lb, modular,
+                  modular_cuda, ntt, ntt_ct, ntt_ct_cuda, ntt_ct_matmul)
 from .profiling import annotate
 
 
@@ -463,7 +463,8 @@ class DeviceContext:
         Digits of at most 24 bits (decompSize <= 3) are prime-independent:
         on a Cooley-Tukey ring they go into ct_fwd_digits unreduced; on a
         dense ring they are reduced per prime first (a 24-bit digit times
-        a table entry would leave float64's exact range).  Wider digits
+        a table entry would leave float64's exact range).  Either comes
+        from digits_cuda.byte_decomp, one kernel on the card.  Wider digits
         (decompSize >= 4) ride 16-bit planes (limbs.byte_decomp_planes)
         and become residues by a Horner over the planes, which then take
         the family's forward transform of residues.  The JAX package
@@ -480,14 +481,15 @@ class DeviceContext:
             lead = parts_limbs.shape[:-3]
             rows = k * self.ndigits
             if self.digit_bits <= ntt_ct.MAX_DIGIT_BITS:
-                digs = lb.byte_decomp(parts_limbs, self.log_q, self.digit_bits,
-                                      self.ndigits, self.q_limbs)
-                digs = digs.movedim(-1, -2)               # [..., k, nd, phim]
-                digs = digs.reshape(lead + (rows, self.phim))
+                # [..., k, nd, phim], or [..., k, nd, Lk, phim] of residues
+                digs = digits_cuda.byte_decomp(
+                    parts_limbs.contiguous(), self.log_q, self.digit_bits,
+                    self.ndigits, None if self.use_ct else K['q'])
                 if self.use_ct:
                     return self._ct_ops.ct_fwd_digits(
-                        K['ct'], digs, self.ct_meta, self.digit_bits)
-                res = digs[..., None, :] % K['q']     # [..., rows, Lk, phim]
+                        K['ct'], digs.reshape(lead + (rows, self.phim)),
+                        self.ct_meta, self.digit_bits)
+                res = digs.reshape(lead + (rows,) + digs.shape[-2:])
             else:
                 planes = lb.byte_decomp_planes(parts_limbs, self.log_q,
                                                self.digit_bits, self.ndigits,

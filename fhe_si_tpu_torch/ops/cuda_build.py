@@ -1,12 +1,12 @@
 """The build of the Hopper kernels of fhe_si_tpu_torch/csrc/: each source
 csrc/<name>.cu (CUDA C++ for sm_90a, a plain C interface) becomes one
 library, compiled by nvcc into fhe_si_tpu_torch/_build/ the first time
-it is needed and loaded with ctypes.  ops/ntt_ct_cuda.py, ops/crt_cuda.py
-and ops/modular_cuda.py load their libraries through `library`; `build`
-compiles them all at once.  Nothing is compiled or loaded at import, so
-this module imports on a machine without nvcc.  `on_cuda` is the
-wrappers' dispatch: a CPU tensor takes the plain version, a CUDA tensor
-the kernel.
+it is needed and loaded with ctypes.  ops/ntt_ct_cuda.py, ops/crt_cuda.py,
+ops/modular_cuda.py and ops/digits_cuda.py load their libraries through
+`library`; `build` compiles them all at once.  Nothing is compiled or
+loaded at import, so this module imports on a machine without nvcc.
+`on_cuda` is the wrappers' dispatch: a CPU tensor takes the plain
+version, a CUDA tensor the kernel.
 """
 from __future__ import annotations
 
@@ -20,7 +20,8 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = ("ct_ntt", "crt", "modular")   # csrc/<name>.cu, one library each
+# csrc/<name>.cu, one library each
+SOURCES = ("ct_ntt", "crt", "modular", "digits")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

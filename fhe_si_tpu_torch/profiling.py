@@ -26,11 +26,12 @@ The program's spans (annotate, named fhe.<function>) mark mul+relin's
 request (fhe.mul_relin), its four stages (fhe.tensor_mul, fhe.scale_down,
 fhe.digits, fhe.keyswitch) and each wrapper that launches a hand-written
 kernel (fhe.limbs_to_residues, fhe.crt_to_limbs, fhe.ct_fwd,
-fhe.ct_fwd_digits, fhe.ct_inv, fhe.tensor_product, fhe.keyswitch_dot) or
-the dense transform (fhe.modmatmul), around the whole wrapper.  They go to one sink: an open
-counting() table, else a recording torch.profiler capture (a
-user_annotation event on the clock of the card's kernels).  With
-neither, a span is one shared no-op context and costs two global reads.
+fhe.byte_decomp, fhe.ct_fwd_digits, fhe.ct_inv, fhe.tensor_product,
+fhe.keyswitch_dot) or the dense transform (fhe.modmatmul), around the
+whole wrapper.  They go to one sink: an open counting() table, else a
+recording torch.profiler capture (a user_annotation event on the clock
+of the card's kernels).  With neither, a span is one shared no-op
+context and costs two global reads.
 """
 from __future__ import annotations
 

@@ -5,7 +5,9 @@ the matmul route that takes them, the two limb/CRT kernels
 (ops/crt_cuda.py) in every mode against their plain versions and the
 shapes they refuse, the two evaluation-domain kernels
 (ops/modular_cuda.py: the tensor product, the keyswitch dot) against
-their plain versions and the shapes they refuse, the dense transform
+their plain versions and the shapes they refuse, the digit kernel
+(ops/digits_cuda.py byte_decomp: digits and per-prime residues) against
+its plain version and what it refuses, the dense transform
 family against the same function on the CPU, the multiply + relinearize
 slice (on the
 Cooley-Tukey rings, decompSize 4 included, and on dense rings) and the
@@ -24,8 +26,8 @@ import torch
 
 from fhe_si_tpu_torch import DeviceContext, FheContext, sampling, scheme
 from fhe_si_tpu_torch.hostmath import oracle
-from fhe_si_tpu_torch.ops import (crt, crt_cuda, modular_cuda, ntt_ct,
-                                  ntt_ct_cuda)
+from fhe_si_tpu_torch.ops import (crt, crt_cuda, digits_cuda, modular_cuda,
+                                  ntt_ct, ntt_ct_cuda)
 
 torch.set_num_threads(1)
 
@@ -545,7 +547,7 @@ def test_mul_relin_lifts_two_sources_without_cat(cuda, monkeypatch):
                                   pytest.param((22, 80, 23, 7), id="m22")])
 def test_mul_relin_wrapper_spans_equal_launches(cuda, ring):
     """One mul_relin on the card under profiling.counting(): each kernel
-    wrapper's span count equals its LAUNCHES delta, and the step runs 14
+    wrapper's span count equals its LAUNCHES delta, and the step runs 15
     spans on either family."""
     from fhe_si_tpu_torch import profiling
     m, log_q, p, g = ring
@@ -556,7 +558,7 @@ def test_mul_relin_wrapper_spans_equal_launches(cuda, ring):
     mat = torch.randint(0, 2, (2, 3 * ctx.ndigits, ctx.num_primes, ctx.phim),
                         dtype=torch.int32, device=cuda)
     dev.mul_relin(a, b, mat)
-    mods = (ntt_ct_cuda, crt_cuda, modular_cuda)
+    mods = (ntt_ct_cuda, crt_cuda, modular_cuda, digits_cuda)
     for mod in mods:
         mod.reset_launches()
     with profiling.counting() as table:
@@ -565,7 +567,130 @@ def test_mul_relin_wrapper_spans_equal_launches(cuda, ring):
     launched = {k: n for mod in mods for k, n in mod.LAUNCHES.items()}
     assert {k: table.get("fhe." + k, [0])[0] for k in launched} == launched
     assert sum(launched.values()) > 0
-    assert sum(n for n, _ in table.values()) == 14
+    assert sum(n for n, _ in table.values()) == 15
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ring", [pytest.param((256, 80, 257, 3), id="m256"),
+                                  pytest.param((22, 80, 23, 7), id="m22"),
+                                  pytest.param((8192, 80, 40961, 3),
+                                               id="m8192")])
+def test_mul_relin_launches_byte_decomp_once(cuda, ring):
+    """One mul_relin on the card, on either family, splits its digits with
+    one byte_decomp launch, and its output equals the CPU's."""
+    m, log_q, p, g = ring
+    ctx = FheContext(m=m, log_q=log_q, p=p, generator=g)
+    dev, cpu = DeviceContext(ctx, cuda), DeviceContext(ctx, "cpu")
+    gen = torch.Generator().manual_seed(m)
+    a, b = (torch.randint(0, 1 << 16, (2, 2, ctx.phim, ctx.n_limbs_ct),
+                          generator=gen, dtype=torch.int32) for _ in range(2))
+    mat = torch.randint(0, 2, (2, 3 * ctx.ndigits, ctx.num_primes, ctx.phim),
+                        generator=gen, dtype=torch.int32)
+    digits_cuda.reset_launches()
+    got = dev.mul_relin(a.to(cuda), b.to(cuda), mat.to(cuda))
+    torch.cuda.synchronize()
+    assert digits_cuda.LAUNCHES == {"byte_decomp": 1}
+    assert torch.equal(got.cpu(), cpu.mul_relin(a, b, mat))
+
+
+# (log_q, decompSize, limbs n, phim): logQ a multiple of 16 or not; n the
+# ciphertext width or wider (automorph outputs); phim a multiple of the
+# kernel's 512-coefficient tile, the dense ring's 2002 and ragged widths
+DIGIT_CASES = [pytest.param(80, 3, 6, 4096, id="q80-d3-n6-4096"),
+               pytest.param(80, 2, 6, 4096, id="q80-d2-n6-4096"),
+               pytest.param(80, 1, 6, 4096, id="q80-d1-n6-4096"),
+               pytest.param(80, 3, 17, 4096, id="q80-d3-wide17-4096"),
+               pytest.param(77, 3, 5, 1000, id="q77-d3-n5-1000"),
+               pytest.param(77, 1, 9, 37, id="q77-d1-wide9-37"),
+               pytest.param(170, 3, 11, 2002, id="q170-d3-n11-2002"),
+               pytest.param(170, 2, 11, 2002, id="q170-d2-n11-2002"),
+               pytest.param(213, 3, 14, 513, id="q213-d3-n14-513"),
+               pytest.param(760, 3, 48, 300, id="q760-d3-n48-300")]
+NARROW_Q = [786433, 1032193, 974849, 737281, 786433, 1032193, 974849, 737281,
+            786433, 1032193, 974849, 737281]
+WIDE_Q = [8257537, 7340033, 6684673, 5767169, 8257537, 7340033, 6684673,
+          5767169, 8257537, 7340033, 6684673, 5767169]
+
+
+def _digit_limbs(rng, shape, offset=0):
+    """Random 16-bit limbs of `shape` (every bit above logQ at random, the
+    first coefficient all ones, the second all zeros) on the CPU, and the
+    same on the card `offset` words into a buffer (a contiguous tensor
+    whose first word is not at a 16-byte boundary)."""
+    x = rng.integers(0, 1 << 16, size=shape)
+    x[..., 0, :] = (1 << 16) - 1
+    x[..., 1, :] = 0
+    cpu = torch.as_tensor(x.astype(np.int32))
+    buf = torch.zeros(offset + cpu.numel(), dtype=torch.int32, device="cuda")
+    buf[offset:] = cpu.reshape(-1).cuda()
+    return cpu, buf[offset:].view(shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead", [pytest.param((), id="lead0"),
+                                  pytest.param((3,), id="lead1"),
+                                  pytest.param((2, 2), id="lead2")])
+@pytest.mark.parametrize("log_q, decomp, n, phim", DIGIT_CASES)
+def test_byte_decomp_matches_plain(cuda, log_q, decomp, n, phim, lead):
+    """byte_decomp_kernel against its plain version, bit for bit: the
+    digits of every row, one launch each, also from a buffer one word
+    off a 16-byte boundary."""
+    rng = np.random.default_rng([11, log_q, decomp, n, phim, len(lead)])
+    nd = -(-log_q // (8 * decomp))
+    for offset in (0, 1):
+        cpu, dev = _digit_limbs(rng, lead + (phim, n), offset)
+        digits_cuda.reset_launches()
+        got = digits_cuda.byte_decomp(dev, log_q, 8 * decomp, nd)
+        torch.cuda.synchronize()
+        assert digits_cuda.LAUNCHES == {"byte_decomp": 1}
+        assert got.shape == lead + (nd, phim)
+        assert torch.equal(got.cpu(), digits_cuda.byte_decomp_plain(
+            cpu, log_q, 8 * decomp, nd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("primes", [pytest.param(NARROW_Q, id="narrow"),
+                                    pytest.param(WIDE_Q, id="wide")])
+@pytest.mark.parametrize("log_q, decomp, n, phim", [
+    pytest.param(170, 3, 11, 2002, id="q170-d3-n11-2002"),
+    pytest.param(77, 2, 9, 1000, id="q77-d2-wide9-1000"),
+    pytest.param(80, 1, 6, 4096, id="q80-d1-n6-4096")])
+def test_byte_decomp_residues_match_plain(cuda, log_q, decomp, n, phim,
+                                          primes):
+    """The dense ring's per-prime output, 12 primes on either lane as the
+    keyswitch basis holds them ([Lk, 1]), against the plain version."""
+    rng = np.random.default_rng([12, log_q, decomp, n, phim, primes[0]])
+    nd = -(-log_q // (8 * decomp))
+    q = torch.tensor(primes, dtype=torch.int32)[:, None]
+    for lead in ((), (3,), (2, 2)):
+        cpu, dev = _digit_limbs(rng, lead + (phim, n), len(lead))
+        got = digits_cuda.byte_decomp(dev, log_q, 8 * decomp, nd, q.cuda())
+        assert got.shape == lead + (nd, len(primes), phim)
+        assert torch.equal(got.cpu(), digits_cuda.byte_decomp_plain(
+            cpu, log_q, 8 * decomp, nd, q))
+
+
+@pytest.mark.cuda
+def test_byte_decomp_refusals(cuda):
+    """What the digit kernel does not take raises on the host, with the
+    shape, before any launch: digits above 24 bits, limbs too narrow for
+    logQ or wider than 48, a non-contiguous tensor, another dtype."""
+    x = torch.zeros((2, 256, 6), dtype=torch.int32, device=cuda)
+    digits_cuda.reset_launches()
+    with pytest.raises(ValueError, match=r"\(2, 256, 6\).*32 bits"):
+        digits_cuda.byte_decomp(x, 80, 32, 3)
+    with pytest.raises(ValueError, match=r"\(2, 256, 6\) for logQ 97"):
+        digits_cuda.byte_decomp(x, 97, 24, 5)
+    wide = torch.zeros((2, 256, 49), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match=r"\(2, 256, 49\)"):
+        digits_cuda.byte_decomp(wide, 80, 24, 4)
+    with pytest.raises(ValueError, match=r"\(256, 2, 6\).*contiguous"):
+        digits_cuda.byte_decomp(x.transpose(0, 1), 80, 24, 4)
+    with pytest.raises(ValueError, match=r"\(2, 256, 6\) torch.int64"):
+        digits_cuda.byte_decomp(x.long(), 80, 24, 4)
+    with pytest.raises(ValueError, match="primes"):
+        digits_cuda.byte_decomp(x, 80, 24, 4, torch.tensor([97], device=cuda))
+    assert digits_cuda.LAUNCHES == {"byte_decomp": 0}
 
 
 @pytest.mark.cuda

@@ -137,10 +137,11 @@ def _step(m, log_q, p, generator):
 # the wrapper spans of one mul_relin on each family
 CT_WRAPPERS = {"fhe.limbs_to_residues": 1, "fhe.ct_fwd": 1,
                "fhe.tensor_product": 1, "fhe.ct_inv": 2, "fhe.crt_to_limbs": 2,
-               "fhe.ct_fwd_digits": 1, "fhe.keyswitch_dot": 1}
+               "fhe.byte_decomp": 1, "fhe.ct_fwd_digits": 1,
+               "fhe.keyswitch_dot": 1}
 DENSE_WRAPPERS = {"fhe.limbs_to_residues": 1, "fhe.modmatmul": 4,
                   "fhe.tensor_product": 1, "fhe.crt_to_limbs": 2,
-                  "fhe.keyswitch_dot": 1}
+                  "fhe.byte_decomp": 1, "fhe.keyswitch_dot": 1}
 
 
 @pytest.mark.parametrize("ring, wrappers", [
@@ -148,7 +149,7 @@ DENSE_WRAPPERS = {"fhe.limbs_to_residues": 1, "fhe.modmatmul": 4,
     pytest.param((22, 80, 23, 7), DENSE_WRAPPERS, id="m22-dense")])
 def test_mul_relin_spans(ring, wrappers):
     """One CPU mul_relin under counting(): the request and each stage
-    once, the wrappers of the path it takes (14 spans on either family),
+    once, the wrappers of the path it takes (15 spans on either family),
     each stage inside the request's time; the result is unchanged."""
     dev, a, b, mat = _step(*ring)
     plain = dev.mul_relin(a, b, mat)
@@ -157,7 +158,7 @@ def test_mul_relin_spans(ring, wrappers):
     assert torch.equal(out, plain)
     counts = {name: n for name, (n, _) in table.items()}
     assert counts == dict(dict.fromkeys(STAGES, 1), **wrappers)
-    assert sum(counts.values()) == 14
+    assert sum(counts.values()) == 15
     ns = {name: t for name, (_, t) in table.items()}
     assert sum(ns[s] for s in STAGES[1:]) <= ns["fhe.mul_relin"]
     assert ns["fhe.ct_fwd_digits" if "fhe.ct_fwd" in wrappers
@@ -172,7 +173,7 @@ def test_mul_relin_spans_nest_in_device_trace(tmp_path):
         dev.mul_relin(a, b, mat)
     spans = [e for e in _events(tmp_path) if e.get("cat") == "user_annotation"
              and e["name"].startswith("fhe.")]
-    assert len(spans) == 14
+    assert len(spans) == 15
 
     def parent(e):
         around = [o for o in spans if o is not e and o["ts"] <= e["ts"]
@@ -188,6 +189,7 @@ def test_mul_relin_spans_nest_in_device_trace(tmp_path):
                      ("fhe.tensor_product", "fhe.tensor_mul"),
                      ("fhe.ct_inv", "fhe.scale_down"),
                      ("fhe.crt_to_limbs", "fhe.scale_down"),
+                     ("fhe.byte_decomp", "fhe.digits"),
                      ("fhe.ct_fwd_digits", "fhe.digits"),
                      ("fhe.keyswitch_dot", "fhe.keyswitch"),
                      ("fhe.ct_inv", "fhe.keyswitch"),

@@ -34,24 +34,37 @@ package bit for bit.
 
 The route is plain torch, not a kernel: it runs on the device of the
 tensors it is handed, the CPU included.  CALLS counts its transforms per
-function, as ntt_ct_cuda.LAUNCHES counts the kernel's.
+function, as ntt_ct_cuda.LAUNCHES counts the kernel's, and PRODUCTS the
+stage products (ntt.modmatmul calls) each function runs, two a
+transform.  Spans (profiling.annotate): fhe.route_fwd,
+fhe.route_fwd_digits and fhe.route_inv around the three functions, named
+apart from the kernel wrappers' fhe.ct_*; inside them fhe.route_twiddle
+around each twiddle and fhe.route_reindex around each phim <-> N step,
+beside the stage products' own fhe.modmatmul.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..profiling import annotate
 from . import ntt
 from .ntt_ct import (MAX_DIGIT_BITS, CtMeta, drop_excluded, fold_mod_phim,
                      insert_excluded, pad_to_N)
 
 CALLS = {"ct_fwd": 0, "ct_fwd_digits": 0, "ct_inv": 0}
+PRODUCTS = dict.fromkeys(CALLS, 0)
 DIGIT_MAX = (1 << MAX_DIGIT_BITS) - 1    # the largest keyswitch digit
 
 
 def reset_calls():
     for k in CALLS:
         CALLS[k] = 0
+
+
+def reset_products():
+    for k in PRODUCTS:
+        PRODUCTS[k] = 0
 
 
 def stage_operands(ct_np: dict, q_max: int, device) -> dict:
@@ -86,16 +99,30 @@ def stage_operands(ct_np: dict, q_max: int, device) -> dict:
     return out
 
 
+def _product(name: str, tab, x, q):
+    """One stage product (ntt.modmatmul), counted under PRODUCTS[name]."""
+    PRODUCTS[name] += 1
+    return ntt.modmatmul(tab, x, q)
+
+
 def _twiddle(y, tw, q):
     """y int32 [..., a, L, b] times tw [a, L, b] mod q [L, 1]."""
-    return (y.to(torch.int64) * tw % q).to(torch.int32)
+    with annotate("fhe.route_twiddle"):
+        return (y.to(torch.int64) * tw % q).to(torch.int32)
 
 
-def _fwd_tail(T, y, meta: CtMeta):
+def _reindex(step, *args):
+    """One phim <-> N step of ops/ntt_ct.py (pad_to_N, drop_excluded,
+    insert_excluded, fold_mod_phim) under the route's span."""
+    with annotate("fhe.route_reindex"):
+        return step(*args)
+
+
+def _fwd_tail(T, y, meta: CtMeta, name: str):
     """Twiddle and stage 2 of the forward transform: y [..., c1, L, j2]
     -> [..., L, N] in u = j2 + N2*j1 order."""
     y = _twiddle(y, T['tw'], T['q'])
-    X = ntt.modmatmul(T['t1'], y.transpose(-1, -3), T['q'])  # [.., j2, L, j1]
+    X = _product(name, T['t1'], y.transpose(-1, -3), T['q'])  # [.., j2, L, j1]
     return X.movedim(-3, -1).reshape(X.shape[:-3] + (X.shape[-2], meta.N))
 
 
@@ -104,8 +131,8 @@ def ct_fwd_n(T: dict, x, meta: CtMeta):
     [0, q): evaluations in u order."""
     *lead, L, _ = x.shape
     xs = x.reshape(*lead, L, meta.N2, meta.N1).movedim(-1, -3)
-    return _fwd_tail(T, ntt.modmatmul(T['t2'], xs, T['q']),   # [.., c1, L, j2]
-                     meta)
+    return _fwd_tail(T, _product("ct_fwd", T['t2'], xs,       # [.., c1, L, j2]
+                                 T['q']), meta, "ct_fwd")
 
 
 def ct_fwd_digits_n(T: dict, digits, meta: CtMeta):
@@ -115,8 +142,10 @@ def ct_fwd_digits_n(T: dict, digits, meta: CtMeta):
     *lead, _ = digits.shape
     L = T['q'].shape[0]
     d = digits.reshape(*lead, 1, meta.N2, meta.N1).movedim(-1, -3)
-    y = ntt.modmatmul(T['t2_digits'], d, T['q_digits'])    # [.., c1, 1, L*N2]
-    return _fwd_tail(T, y.reshape(*lead, meta.N1, L, meta.N2), meta)
+    y = _product("ct_fwd_digits", T['t2_digits'], d,   # [.., c1, 1, L*N2]
+                 T['q_digits'])
+    return _fwd_tail(T, y.reshape(*lead, meta.N1, L, meta.N2), meta,
+                     "ct_fwd_digits")
 
 
 def ct_inv_n(T: dict, evals, meta: CtMeta, t2i_key: str = 't2i'):
@@ -124,18 +153,20 @@ def ct_inv_n(T: dict, evals, meta: CtMeta, t2i_key: str = 't2i'):
     order."""
     *lead, L, N = evals.shape
     e = evals.reshape(*lead, L, meta.N1, meta.N2).movedim(-1, -3)
-    z = _twiddle(ntt.modmatmul(T['t1i'], e, T['q']),          # [.., j2, L, c1]
+    z = _twiddle(_product("ct_inv", T['t1i'], e, T['q']),     # [.., j2, L, c1]
                  T['twi'], T['q'])
-    x = ntt.modmatmul(T[t2i_key], z.transpose(-1, -3),        # [.., c1, L, c2]
-                      T['q'])
+    x = _product("ct_inv", T[t2i_key], z.transpose(-1, -3),   # [.., c1, L, c2]
+                 T['q'])
     return x.movedim(-3, -1).reshape(*lead, L, N)
 
 
 def ct_fwd(T: dict, x, meta: CtMeta):
     """Evaluations at the primitive m-th roots (zms order) of residues
     x int32 [..., L, phim] in [0, q) -> [..., L, phim]."""
-    CALLS["ct_fwd"] += 1
-    return drop_excluded(ct_fwd_n(T, pad_to_N(x, meta), meta), meta)
+    with annotate("fhe.route_fwd"):
+        CALLS["ct_fwd"] += 1
+        return _reindex(drop_excluded, ct_fwd_n(
+            T, _reindex(pad_to_N, x, meta), meta), meta)
 
 
 def ct_fwd_digits(T: dict, digits, meta: CtMeta, digit_bits: int):
@@ -143,15 +174,18 @@ def ct_fwd_digits(T: dict, digits, meta: CtMeta, digit_bits: int):
     [0, 2^digit_bits), digit_bits <= 24 -> [..., L, phim]."""
     if digit_bits > MAX_DIGIT_BITS:
         raise NotImplementedError(f"digit radix above 2^{MAX_DIGIT_BITS}")
-    CALLS["ct_fwd_digits"] += 1
-    return drop_excluded(ct_fwd_digits_n(T, pad_to_N(digits, meta), meta),
-                         meta)
+    with annotate("fhe.route_fwd_digits"):
+        CALLS["ct_fwd_digits"] += 1
+        return _reindex(drop_excluded, ct_fwd_digits_n(
+            T, _reindex(pad_to_N, digits, meta), meta), meta)
 
 
 def ct_inv(T: dict, evals, meta: CtMeta, t2i_key: str = 't2i'):
     """Inverse of ct_fwd: the canonical degree<phim representative mod
     Phi_m of evaluations [..., L, phim]; t2i_key='t2i_crt' folds in the
     CRT premultiplier."""
-    CALLS["ct_inv"] += 1
-    return fold_mod_phim(ct_inv_n(T, insert_excluded(evals, meta), meta,
-                                  t2i_key), T['q'], meta)
+    with annotate("fhe.route_inv"):
+        CALLS["ct_inv"] += 1
+        return _reindex(fold_mod_phim, ct_inv_n(
+            T, _reindex(insert_excluded, evals, meta), meta, t2i_key),
+            T['q'], meta)

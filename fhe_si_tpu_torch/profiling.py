@@ -28,7 +28,10 @@ fhe.digits, fhe.keyswitch) and each wrapper that launches a hand-written
 kernel (fhe.limbs_to_residues, fhe.crt_to_limbs, fhe.ct_fwd,
 fhe.byte_decomp, fhe.ct_fwd_digits, fhe.ct_inv, fhe.tensor_product,
 fhe.keyswitch_dot) or the dense transform (fhe.modmatmul), around the
-whole wrapper.  They go to one sink: an open counting() table, else a
+whole wrapper; on the matmul route (ops/ntt_ct_matmul.py) its three
+transforms (fhe.route_fwd, fhe.route_fwd_digits, fhe.route_inv) and,
+inside them, each twiddle (fhe.route_twiddle) and phim <-> N step
+(fhe.route_reindex).  They go to one sink: an open counting() table, else a
 recording torch.profiler capture (a user_annotation event on the clock
 of the card's kernels).  With neither, a span is one shared no-op
 context and costs two global reads.

@@ -12,6 +12,7 @@ import torch
 
 from fhe_si_tpu import profiling as jprofiling
 from fhe_si_tpu_torch import DeviceContext, FheContext, profiling
+from fhe_si_tpu_torch.ops import ntt_ct_matmul
 
 STAGES = ("fhe.mul_relin", "fhe.tensor_mul", "fhe.scale_down", "fhe.digits",
           "fhe.keyswitch")
@@ -119,11 +120,13 @@ def test_counting_counts_and_times_nested_spans(monkeypatch):
     assert profiling.annotate("fhe.after") is profiling._OFF
 
 
-def _step(m, log_q, p, generator):
+def _step(m, log_q, p, generator, use_ct=None):
     """A DeviceContext on the CPU and one batched mul_relin's operands
     (limbs and a key matrix of the right shapes; the spans do not read
-    the values)."""
+    the values); use_ct=True forces the Cooley-Tukey family."""
     ctx = FheContext(m=m, log_q=log_q, p=p, generator=generator)
+    if use_ct is not None:
+        ctx.use_ct = use_ct
     dev = DeviceContext(ctx, "cpu")
     gen = torch.Generator().manual_seed(m)
     a, b = (torch.randint(0, 1 << 16, (2, 2, ctx.phim, ctx.n_limbs_ct),
@@ -194,4 +197,87 @@ def test_mul_relin_spans_nest_in_device_trace(tmp_path):
                      ("fhe.keyswitch_dot", "fhe.keyswitch"),
                      ("fhe.ct_inv", "fhe.keyswitch"),
                      ("fhe.crt_to_limbs", "fhe.keyswitch")])
+    assert got == want
+
+
+# the spans of one mul_relin on the matmul route: its three transforms
+# (1 forward, 2 inverse, 1 of the digits), each with two stage products
+# (fhe.modmatmul), one twiddle and two phim <-> N steps
+ROUTE_WRAPPERS = {"fhe.limbs_to_residues": 1, "fhe.route_fwd": 1,
+                  "fhe.tensor_product": 1, "fhe.route_inv": 2,
+                  "fhe.crt_to_limbs": 2, "fhe.byte_decomp": 1,
+                  "fhe.route_fwd_digits": 1, "fhe.keyswitch_dot": 1,
+                  "fhe.modmatmul": 8, "fhe.route_twiddle": 4,
+                  "fhe.route_reindex": 8}
+M22_ROUTE = (22, 80, 23, 7, True)       # use_ct forced: 11 x 1
+# the transform spans of one route step, one entry per call
+ROUTE_TRANSFORMS = ("fhe.route_fwd", "fhe.route_inv", "fhe.route_fwd_digits",
+                    "fhe.route_inv")
+
+
+def test_mul_relin_route_spans(monkeypatch):
+    """m = 22 on the matmul route (use_ct forced, as
+    tests/test_torch_ct_matmul.py does): with no sink no record_function
+    is made and the call counts its transforms and stage products; under
+    counting() each route span is counted as the code calls it, none of
+    the kernel wrappers' fhe.ct_*, and the result is the untraced one."""
+    dev, a, b, mat = _step(*M22_ROUTE)
+    assert dev.ct_route == "matmul"
+    ntt_ct_matmul.reset_calls()
+    ntt_ct_matmul.reset_products()
+    with monkeypatch.context() as mp:
+        mp.setattr(torch.profiler, "record_function", _raise)
+        mp.setattr(torch.autograd.profiler, "record_function", _raise)
+        plain = dev.mul_relin(a, b, mat)
+    assert ntt_ct_matmul.CALLS == {"ct_fwd": 1, "ct_fwd_digits": 1,
+                                   "ct_inv": 2}
+    assert ntt_ct_matmul.PRODUCTS == {"ct_fwd": 2, "ct_fwd_digits": 2,
+                                      "ct_inv": 4}
+    with profiling.counting() as table:
+        out = dev.mul_relin(a, b, mat)
+    assert torch.equal(out, plain)
+    counts = {name: n for name, (n, _) in table.items()}
+    assert counts == dict(dict.fromkeys(STAGES, 1), **ROUTE_WRAPPERS)
+    assert ntt_ct_matmul.PRODUCTS == {"ct_fwd": 4, "ct_fwd_digits": 4,
+                                      "ct_inv": 8}
+    ns = {name: t for name, (_, t) in table.items()}
+    for route in ("fhe.route_fwd", "fhe.route_fwd_digits", "fhe.route_inv"):
+        assert 0 < ns[route] <= ns["fhe.mul_relin"]
+    ntt_ct_matmul.reset_products()
+    assert set(ntt_ct_matmul.PRODUCTS.values()) == {0}
+
+
+def test_mul_relin_route_spans_nest_in_device_trace(tmp_path):
+    """The route step's spans in a Chrome trace: each transform inside
+    the stage that calls it, each stage product, twiddle and phim <-> N
+    step inside a transform."""
+    dev, a, b, mat = _step(*M22_ROUTE)
+    with profiling.device_trace(str(tmp_path)):
+        dev.mul_relin(a, b, mat)
+    spans = [e for e in _events(tmp_path) if e.get("cat") == "user_annotation"
+             and e["name"].startswith("fhe.")]
+    assert len(spans) == 5 + sum(ROUTE_WRAPPERS.values())
+
+    def parent(e):
+        around = [o for o in spans if o is not e and o["ts"] <= e["ts"]
+                  and e["ts"] + e["dur"] <= o["ts"] + o["dur"]]
+        return min(around, key=lambda o: o["dur"])["name"] if around else None
+
+    got = sorted((e["name"], parent(e)) for e in spans)
+    inner = [("fhe.modmatmul", t) for t in ROUTE_TRANSFORMS for _ in range(2)]
+    inner += [("fhe.route_twiddle", t) for t in ROUTE_TRANSFORMS]
+    inner += [("fhe.route_reindex", t) for t in ROUTE_TRANSFORMS
+              for _ in range(2)]
+    want = sorted([("fhe.mul_relin", None)]
+                  + [(s, "fhe.mul_relin") for s in STAGES[1:]]
+                  + [("fhe.limbs_to_residues", "fhe.tensor_mul"),
+                     ("fhe.route_fwd", "fhe.tensor_mul"),
+                     ("fhe.tensor_product", "fhe.tensor_mul"),
+                     ("fhe.route_inv", "fhe.scale_down"),
+                     ("fhe.crt_to_limbs", "fhe.scale_down"),
+                     ("fhe.byte_decomp", "fhe.digits"),
+                     ("fhe.route_fwd_digits", "fhe.digits"),
+                     ("fhe.keyswitch_dot", "fhe.keyswitch"),
+                     ("fhe.route_inv", "fhe.keyswitch"),
+                     ("fhe.crt_to_limbs", "fhe.keyswitch")] + inner)
     assert got == want

@@ -7,10 +7,11 @@
 // before launching and run the phim <-> N pad, drop and fold around it.
 //
 // Replaces the three Pallas TPU kernels of fhe_si_tpu/ops/ntt_ct_pallas.py
-// with one tensor-core kernel:
-//   fsi_ct_fwd        <- _fwd_res_kernel    (:148)  ct_mma_kernel<false>, S = N2
-//   fsi_ct_fwd_digits <- _fwd_digits_kernel (:137)  ct_mma_kernel<true>,  S = N2
-//   fsi_ct_inv        <- _inv_kernel        (:158)  ct_mma_kernel<false>, S = N1
+// with one tensor-core kernel, ct_mma_kernel<DIGITS, TPW, PINGPONG> (the
+// last argument its schedule, below):
+//   fsi_ct_fwd        <- _fwd_res_kernel    (:148)  DIGITS false, S = N2
+//   fsi_ct_fwd_digits <- _fwd_digits_kernel (:137)  DIGITS true,  S = N2
+//   fsi_ct_inv        <- _inv_kernel        (:158)  DIGITS false, S = N1
 //
 // What they compute (the index maps of fhe_si_tpu_torch/ops/ntt_ct.py
 // ct_*_n):
@@ -108,8 +109,42 @@
 //   keeps the register prefetch: with only 8 warps on an SM, the next
 //   row's loads overlapping the current row's stages matter more, not
 //   less, than at two blocks.
+//
+// ---- two schedules of ct_mma_kernel ----
+// launch_mma picks the schedule from the split (S, R), which the input's
+// shape fixes (fsi_ct_schedule; ops/ntt_ct_cuda.py kernel_schedule
+// mirrors the rule):
+// * sync: everything above, for every split the ping-pong does not take
+//   (m <= 4096, m = 2^15, mixed radix, odd R, S not a multiple of 4).
+// * pingpong: both sides multiples of 64, at most 8192 entries a row, and
+//   the two-row layout inside kSmemMax (m = 8192: 64 x 64; m = 2^14:
+//   64 x 128 and 128 x 64).  What held the sync schedule at m = 8192 was
+//   neither pipe: without its mma.sync a row took 5% less time, without
+//   its reductions 21% less; each row ran split, products and epilogue in
+//   series behind block-wide barriers, and the 16 warps of an SM stalled.
+//   Here one block of two consumer warpgroups runs on each SM; each
+//   warpgroup owns alternate rows of the block's tile and its own B1/B2
+//   planes, and runs a stage's m64 x n64 tile as 2 K-steps x 9 plane
+//   products of asynchronous wgmma.mma_async.m64n64k32.s32.u8.u8 (both
+//   operands K-major in shared memory, the int8 rate only wgmma reaches,
+//   no ldmatrix), one commit group.  While one warpgroup waits for its
+//   products the other's Shoup epilogue issues on the integer pipes;
+//   nothing orders the two (a named-barrier hand-off after issue made a
+//   row no faster, one after the products landed 5-7% slower), and no
+//   block-wide barrier follows the tables' load.  ptxas serializes every wgmma of a
+//   kernel (C7520) if any branch in the row loop depends on the thread, so
+//   the loops around them have compile-time counts, the warpgroup index is
+//   broadcast from lane 0, and the one predicated store is in the asm.  The
+//   planes are stored in core matrices (8 rows x 16 bytes, no swizzle):
+//   the tables re-laid as they are loaded, B1 by the split, B2 by the
+//   stage-1 epilogue.  The arithmetic is the sync schedule's five s32
+//   diagonals and Shoup reductions; the stage-1 twiddle's Shoup product
+//   also reduces the folded diagonals, and every stage's output is
+//   canonical, so the outputs are bit-identical.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -161,13 +196,27 @@ __device__ __forceinline__ uint32_t shoup(uint32_t a, uint32_t w, uint32_t wp, u
 
 __device__ __forceinline__ uint32_t csub(uint32_t r, uint32_t q) { return r >= q ? r - q : r; }
 
-// sum_d acc[d][i] 2^(8d) mod q, canonical (header: "No 64-bit %")
-__device__ __forceinline__ uint32_t reduce_diagonals(const uint32_t (&acc)[5][4], int i,
-                                                     const PrimeConsts& k) {
-  uint32_t s = acc[0][i];
+// s = D_0 + sum_{d=1..4} shoup(D_d, 2^(8d) mod q) < 2^31 + 8q, congruent
+// to sum_d acc[d][i] 2^(8d) (header: "No 64-bit %"); the four shoups'
+// quotients are summed first and multiplied by q once, which leaves s as
+// it is mod 2^32
+template <int N>
+__device__ __forceinline__ uint32_t fold_diagonals(const uint32_t (&acc)[5][N], int i,
+                                                   const PrimeConsts& k) {
+  uint32_t s = acc[0][i], hi = 0;
 #pragma unroll
-  for (int d = 0; d < 4; ++d) s += shoup(acc[d + 1][i], k.c[d], k.cp[d], k.q);
-  return csub(shoup(s, 1u, k.qr, k.q), k.q);
+  for (int d = 0; d < 4; ++d) {
+    s += acc[d + 1][i] * k.c[d];
+    hi += __umulhi(acc[d + 1][i], k.cp[d]);
+  }
+  return s - hi * k.q;
+}
+
+// sum_d acc[d][i] 2^(8d) mod q, canonical
+template <int N>
+__device__ __forceinline__ uint32_t reduce_diagonals(const uint32_t (&acc)[5][N], int i,
+                                                     const PrimeConsts& k) {
+  return csub(shoup(fold_diagonals(acc, i, k), 1u, k.qr, k.q), k.q);
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const uint8_t* p) {
@@ -226,19 +275,33 @@ __device__ __forceinline__ void copy16(void* dst, const void* src, int bytes, in
   for (int i = tid; i < bytes / 16; i += kThreads) d[i] = __ldg(s + i);
 }
 
-// One block per (prime blockIdx.x, tile of rows blockIdx.y).  x is the
-// row [S][R]: digits [rows, N] shared by every prime (DIGITS) or
-// residues/evaluations [rows, L, N]; out [rows, L, N] as [R][S].  TPW:
-// input tiles of 8 columns x 16 rows per warp (a compile-time count, so
-// the prefetched row stays in registers).  Two blocks per SM up to 8
-// tiles; one at 16 (m = 2^15, whose layout leaves one block per SM).
+__device__ __forceinline__ PrimeConsts load_consts(const uint32_t* kcg, int l) {
+  PrimeConsts k;
+  k.q = __ldg(kcg + l * kConsts);
+  k.qr = __ldg(kcg + l * kConsts + 1);
+#pragma unroll
+  for (int d = 0; d < 4; ++d) {
+    k.c[d] = __ldg(kcg + l * kConsts + 2 + d);
+    k.cp[d] = __ldg(kcg + l * kConsts + 6 + d);
+  }
+  return k;
+}
+
+// The sync schedule.  One block per (prime blockIdx.x, tile of rows
+// blockIdx.y).  x is the row [S][R]: digits [rows, N] shared by every
+// prime (DIGITS) or residues/evaluations [rows, L, N]; out [rows, L, N]
+// as [R][S].  TPW: input tiles of 8 columns x 16 rows per warp (a
+// compile-time count, so the prefetched row stays in registers).  Two
+// blocks per SM up to 8 tiles; one at 16 (m = 2^15, whose layout leaves
+// one block per SM).
 template <bool DIGITS, int TPW>
-__global__ void __launch_bounds__(kThreads, TPW > 8 ? 1 : 2)
-ct_mma_kernel(const int32_t* __restrict__ x, const uint8_t* __restrict__ a1g,
-              const uint8_t* __restrict__ a2g, const uint32_t* __restrict__ twg,
-              const uint32_t* __restrict__ kcg, int32_t* __restrict__ out,
-              long long rows, int rows_per_tile, int L, int S, int R) {
-  extern __shared__ __align__(16) uint8_t mma_smem[];
+__device__ __forceinline__ void sync_rows(uint8_t* mma_smem, const int32_t* __restrict__ x,
+                                          const uint8_t* __restrict__ a1g,
+                                          const uint8_t* __restrict__ a2g,
+                                          const uint32_t* __restrict__ twg,
+                                          const uint32_t* __restrict__ kcg,
+                                          int32_t* __restrict__ out, long long rows,
+                                          int rows_per_tile, int L, int S, int R) {
   const Geo G(S, R);
   uint8_t* a1 = mma_smem;
   uint8_t* a2 = a1 + G.a1_bytes();
@@ -256,14 +319,7 @@ ct_mma_kernel(const int32_t* __restrict__ x, const uint8_t* __restrict__ a1g,
   copy16(a2, a2g + static_cast<size_t>(l) * G.a2_bytes(), G.a2_bytes(), tid);
   const uint32_t* twl = twg + static_cast<size_t>(l) * (G.tw_bytes() / 4);
   if (G.tw_shared) copy16(tw, twl, G.tw_bytes(), tid);
-  PrimeConsts k;
-  k.q = __ldg(kcg + l * kConsts);
-  k.qr = __ldg(kcg + l * kConsts + 1);
-#pragma unroll
-  for (int d = 0; d < 4; ++d) {
-    k.c[d] = __ldg(kcg + l * kConsts + 2 + d);
-    k.cp[d] = __ldg(kcg + l * kConsts + 6 + d);
-  }
+  const PrimeConsts k = load_consts(kcg, l);
 
   // Input tiles: a warp takes 8 columns n x 4 groups of 4 rows k, so its
   // loads are whole 32-byte sectors and its plane stores hit 32 banks.
@@ -373,14 +429,320 @@ ct_mma_kernel(const int32_t* __restrict__ x, const uint8_t* __restrict__ a1g,
   }
 }
 
+// ---- the ping-pong schedule (header: "two schedules") ----
+constexpr int kTile = 64;        // a warpgroup's m64 x n64 wgmma tile; the sides' multiple
+
+// Shared memory of one (S, R) transform on the ping-pong schedule: the
+// prime's A1 [3][S][S] and A2 [3][R][R], the twiddle pairs where they fit
+// (Geo's rule and row stride), then each warpgroup's B1 [3][R][S] and
+// B2 [3][S][R]; every plane in core matrices (core_off).
+struct PGeo {
+  int S, R;
+  int tws;
+  bool tw_shared;
+  __host__ __device__ constexpr PGeo(int s, int r)
+      : S(s), R(r), tws(pad_to(2 * r + 16, 4)),
+        tw_shared(planes_bytes() + tw_bytes() <= kSmemMax) {}
+  __host__ __device__ constexpr int a1_bytes() const { return kPlanes * S * S; }
+  __host__ __device__ constexpr int a2_bytes() const { return kPlanes * R * R; }
+  __host__ __device__ constexpr int b_plane() const { return S * R; }   // B1 and B2 alike
+  __host__ __device__ constexpr int wg_bytes() const { return 2 * kPlanes * b_plane(); }
+  __host__ __device__ constexpr int planes_bytes() const {
+    return a1_bytes() + a2_bytes() + 2 * wg_bytes();
+  }
+  __host__ __device__ constexpr int tw_bytes() const { return S * tws * 4; }
+  __host__ __device__ constexpr int tw_smem_bytes() const { return tw_shared ? tw_bytes() : 0; }
+  __host__ __device__ constexpr int smem_bytes() const { return planes_bytes() + tw_smem_bytes(); }
+};
+
+// The split rule (fsi_ct_schedule): sides multiples of 64, a warpgroup's
+// prefetched row at most 16 input tiles a warp (S * R <= 8192), and the
+// planes of two rows inside kSmemMax.
+__host__ __device__ bool pingpong_takes(int S, int R) {
+  return S % kTile == 0 && R % kTile == 0 && S * R <= 8192 &&
+         PGeo(S, R).planes_bytes() <= kSmemMax;
+}
+
+// Byte (r, k) of a K-major operand [rows][K] in core matrices: 8 rows x
+// 16 bytes contiguous, the next 16 bytes of K 128 bytes on (the
+// descriptor's leading offset), the next 8 rows 8 K bytes on (its stride
+// offset).
+__device__ __forceinline__ int core_off(int r, int k, int K) {
+  return (r >> 3) * (8 * K) + (k >> 4) * 128 + (r & 7) * 16 + (k & 15);
+}
+
+// wgmma shared-memory descriptor of the core-matrix layout at p (no swizzle)
+__device__ __forceinline__ uint64_t smem_desc(const uint8_t* p, int K) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) | (static_cast<uint64_t>(128 >> 4) << 16) |
+         (static_cast<uint64_t>((8 * K) >> 4) << 32);
+}
+
+// d (+)= A[64 x 32] B[32 x 64] over u8, s32; acc = 0 starts the sum
+__device__ __forceinline__ void wgmma_u8(uint32_t (&d)[32], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.u8.u8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]),
+        "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]),
+        "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),
+        "+r"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// the accumulators are read only after the wait that precedes this
+__device__ __forceinline__ void fence_acc(uint32_t (&acc)[5][32]) {
+#pragma unroll
+  for (int d = 0; d < 5; ++d)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(acc[d][i])::"memory");
+}
+// generic-proxy stores to shared memory made visible to wgmma
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+// A global store under a predicate inside the asm: a branch that the
+// compiler takes as divergent anywhere in the row loop makes ptxas
+// serialize every wgmma (C7520).
+__device__ __forceinline__ void st_global_if(bool p, int32_t* dst, const uint4& v) {
+  asm volatile(
+      "{\n.reg .pred q;\nsetp.ne.b32 q, %0, 0;\n"
+      "@q st.global.v4.b32 [%1], {%2, %3, %4, %5};\n}\n" ::"r"(static_cast<int>(p)),
+      "l"(dst), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+      : "memory");
+}
+
+// One stage C = A [M][K] @ B [N][K]^T of a warpgroup, both operands
+// K-major in core matrices: m64 x n64 tiles of K / 32 steps x 9 plane
+// products into the five diagonals, one commit group each;
+// epi(acc, m0, n0) reduces a landed tile, whose first row is m0 and
+// first column n0.
+template <int M, int N, int K, typename Epi>
+__device__ __forceinline__ void pingpong_stage(const uint8_t* A, const uint8_t* B, Epi&& epi) {
+  const uint64_t da = smem_desc(A, K), db = smem_desc(B, K);
+#pragma unroll
+  for (int m0 = 0; m0 < M; m0 += kTile)
+#pragma unroll
+    for (int n0 = 0; n0 < N; n0 += kTile) {
+      uint32_t acc[5][32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < K / 32; ++kk)
+#pragma unroll
+        for (int pa = 0; pa < kPlanes; ++pa)
+#pragma unroll
+          for (int pb = 0; pb < kPlanes; ++pb) {
+            // 16-byte units: plane, tile rows (8 rows = 8 K bytes), k step (256 bytes)
+            const uint64_t a = da + ((pa * M * K + m0 * K + kk * 256) >> 4);
+            const uint64_t b = db + ((pb * N * K + n0 * K + kk * 256) >> 4);
+            const bool starts = kk == 0 && (pa == 0 || pb == kPlanes - 1);
+            wgmma_u8(acc[pa + pb], a, b, starts ? 0 : 1);
+          }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_acc(acc);
+      epi(acc, m0, n0);
+    }
+}
+
+// The ping-pong schedule (header) of a row [S][R].  One block per (prime
+// blockIdx.x, tile of rows blockIdx.y), one block an SM; warpgroup wg
+// takes rows row_begin + wg, + 2, ... of the tile.  Every loop around a
+// wgmma has a compile-time count and nothing around one branches on the
+// thread (ptxas would serialize them): a warpgroup without a row of its
+// own in the tile's last pair fetches and transforms the tile's last row
+// again and stores nothing.
+template <bool DIGITS, int S, int R>
+__device__ __forceinline__ void pingpong_rows(uint8_t* mma_smem, const int32_t* __restrict__ x,
+                                              const uint8_t* __restrict__ a1g,
+                                              const uint8_t* __restrict__ a2g,
+                                              const uint32_t* __restrict__ twg,
+                                              const uint32_t* __restrict__ kcg,
+                                              int32_t* __restrict__ out, long long rows,
+                                              int rows_per_tile, int L) {
+  constexpr PGeo G(S, R);
+  constexpr int N = S * R, R8 = R / 8;
+  constexpr int TPW = N / 512;   // input tiles of 8 columns x 16 rows a warp
+  constexpr int Ks1 = pad_to(S, 32) + 16, Ks2 = pad_to(R, 32) + 16;   // the host planes' rows
+  constexpr int kPlane = G.b_plane(), kTws = G.tws;
+  constexpr bool kTwShared = G.tw_shared;
+  uint8_t* a1 = mma_smem;
+  uint8_t* a2 = a1 + G.a1_bytes();
+  uint32_t* tw = reinterpret_cast<uint32_t*>(a2 + G.a2_bytes());
+  const int l = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31;
+  // warpgroup and its warp, broadcast so that the compiler sees them warp-uniform
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int warp = __shfl_sync(0xffffffffu, (tid >> 5) & 3, 0);
+  uint8_t* b1 = reinterpret_cast<uint8_t*>(tw) + G.tw_smem_bytes() + wg * G.wg_bytes();
+  uint8_t* b2 = b1 + kPlanes * kPlane;
+  const long long row_begin = static_cast<long long>(blockIdx.y) * rows_per_tile;
+  const long long row_end = min(rows, row_begin + rows_per_tile);
+
+  // the prime's tables, once per block, the planes re-laid in core matrices
+  const auto load_planes = [&](uint8_t* dst, const uint8_t* src, auto m_, auto ks_) {
+    constexpr int M = decltype(m_)::value, Ks = decltype(ks_)::value, chunks = M / 16;
+    for (int i = tid; i < kPlanes * M * chunks; i += kThreads) {
+      const int c = i % chunks, r = (i / chunks) % M, p = i / (chunks * M);
+      *reinterpret_cast<uint4*>(dst + p * M * M + core_off(r, 16 * c, M)) =
+          __ldg(reinterpret_cast<const uint4*>(src + (p * M + r) * Ks + 16 * c));
+    }
+  };
+  load_planes(a1, a1g + static_cast<size_t>(l) * kPlanes * S * Ks1,
+              std::integral_constant<int, S>(), std::integral_constant<int, Ks1>());
+  load_planes(a2, a2g + static_cast<size_t>(l) * kPlanes * R * Ks2,
+              std::integral_constant<int, R>(), std::integral_constant<int, Ks2>());
+  const uint32_t* twl = twg + static_cast<size_t>(l) * (G.tw_bytes() / 4);
+  if constexpr (kTwShared) copy16(tw, twl, G.tw_bytes(), tid);
+  const PrimeConsts k = load_consts(kcg, l);
+  fence_async_smem();
+  __syncthreads();
+
+  // input tiles as the sync schedule's, over a warpgroup's 4 warps
+  const int nl = lane & 7, kl = lane >> 3;
+  uint32_t pre[TPW][4];
+  const auto fetch = [&](long long row) {
+    const int32_t* in = DIGITS ? x + row * N : x + (row * L + l) * N;
+#pragma unroll
+    for (int s = 0; s < TPW; ++s) {
+      const int tile = warp + 4 * s;
+      const int n = (tile % R8) * 8 + nl, kg = (tile / R8) * 4 + kl;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        pre[s][j] = static_cast<uint32_t>(__ldg(in + (4 * kg + j) * R + n));
+    }
+  };
+  const auto split = [&]() {   // the fetched row as byte planes B1[p][n][k]
+#pragma unroll
+    for (int s = 0; s < TPW; ++s) {
+      const int tile = warp + 4 * s;
+      const int n = (tile % R8) * 8 + nl, kg = (tile / R8) * 4 + kl;
+      uint8_t* dst = b1 + core_off(n, 4 * kg, S);
+#pragma unroll
+      for (int p = 0; p < kPlanes; ++p) {
+        const uint32_t sel = p | ((p + 4) << 4);
+        const uint32_t lo = __byte_perm(pre[s][0], pre[s][1], sel);
+        const uint32_t hi = __byte_perm(pre[s][2], pre[s][3], sel);
+        *reinterpret_cast<uint32_t*>(dst + p * kPlane) = __byte_perm(lo, hi, 0x5410);
+      }
+    }
+  };
+
+  // Both warpgroups run one count of pairs of rows, so that no loop
+  // around a wgmma depends on the thread.  Nothing orders the two: while
+  // one waits for its products the other's reduction issues, and they
+  // fall out of step by themselves.
+  const int pairs = static_cast<int>((row_end - row_begin + 1) / 2);
+
+  const int g = lane >> 2, tq = lane & 3;
+  long long row = row_begin + wg;
+  fetch(min(row, row_end - 1));
+  for (int it = 0; it < pairs; ++it, row += 2) {
+    const bool active = row < row_end;   // the same for a whole warpgroup
+    split();
+    fence_async_smem();
+    bar_sync(1 + wg, 128);   // B1 written; B2 free (the last row's stage 2 has waited)
+    fetch(min(row + 2, row_end - 1));
+
+    // stage 1: C1 = A1 @ in, reduce, twiddle, byte planes into B2[p][m][n]
+    pingpong_stage<S, R, S>(
+        a1, b1,
+        [&](const uint32_t(&acc)[5][32], int m0, int n0) {
+#pragma unroll
+          for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int m = m0 + 16 * warp + g + 8 * h, n = n0 + 8 * j + 2 * tq;
+              const uint32_t s0 = fold_diagonals(acc, 4 * j + 2 * h, k);
+              const uint32_t s1 = fold_diagonals(acc, 4 * j + 2 * h + 1, k);
+              const int o = m * kTws + 2 * n;
+              uint4 w;
+              if constexpr (kTwShared)
+                w = *reinterpret_cast<const uint4*>(tw + o);
+              else
+                w = __ldg(reinterpret_cast<const uint4*>(twl + o));
+              // the twiddle's Shoup product reduces the folded sums too
+              const uint32_t y0 = csub(shoup(s0, w.x, w.y, k.q), k.q);
+              const uint32_t y1 = csub(shoup(s1, w.z, w.w, k.q), k.q);
+              uint8_t* dst = b2 + core_off(m, n, R);
+#pragma unroll
+              for (int p = 0; p < kPlanes; ++p)
+                *reinterpret_cast<uint16_t*>(dst + p * kPlane) =
+                    static_cast<uint16_t>(__byte_perm(y0, y1, p | ((p + 4) << 4)));
+            }
+        });
+    fence_async_smem();
+    bar_sync(1 + wg, 128);   // B2 written; B1 free
+
+    // stage 2: C2 = A2 @ C1^T, reduce, out[m][n] (m < R, n < S)
+    int32_t* orow = out + (row * L + l) * N;
+    pingpong_stage<R, S, R>(
+        a2, b2,
+        [&](const uint32_t(&acc)[5][32], int m0, int n0) {
+#pragma unroll
+          for (int j = 0; j < kTile / 8; ++j) {
+            const uint32_t v0 = reduce_diagonals(acc, 4 * j, k);
+            const uint32_t v1 = reduce_diagonals(acc, 4 * j + 1, k);
+            const uint32_t v2 = reduce_diagonals(acc, 4 * j + 2, k);
+            const uint32_t v3 = reduce_diagonals(acc, 4 * j + 3, k);
+            // lane pairs trade halves, as the sync schedule's stage 2
+            const bool odd = tq & 1;
+            const uint32_t r0 = __shfl_xor_sync(0xffffffffu, odd ? v0 : v2, 1);
+            const uint32_t r1 = __shfl_xor_sync(0xffffffffu, odd ? v1 : v3, 1);
+            const uint4 o = odd ? make_uint4(r0, r1, v2, v3) : make_uint4(v0, v1, r0, r1);
+            const int m = m0 + 16 * warp + g + (odd ? 8 : 0);
+            const int n = n0 + 8 * j + 2 * tq - (odd ? 2 : 0);
+            st_global_if(active, orow + m * S + n, o);
+          }
+        });
+  }
+}
+
+template <bool DIGITS, int TPW, bool PINGPONG>
+__global__ void __launch_bounds__(kThreads, PINGPONG || TPW > 8 ? 1 : 2)
+ct_mma_kernel(const int32_t* __restrict__ x, const uint8_t* __restrict__ a1g,
+              const uint8_t* __restrict__ a2g, const uint32_t* __restrict__ twg,
+              const uint32_t* __restrict__ kcg, int32_t* __restrict__ out,
+              long long rows, int rows_per_tile, int L, int S, int R) {
+  extern __shared__ __align__(128) uint8_t mma_smem[];
+  if constexpr (PINGPONG) {
+    if constexpr (TPW == 8)
+      pingpong_rows<DIGITS, 64, 64>(mma_smem, x, a1g, a2g, twg, kcg, out, rows, rows_per_tile, L);
+    else if (S == 64)
+      pingpong_rows<DIGITS, 64, 128>(mma_smem, x, a1g, a2g, twg, kcg, out, rows, rows_per_tile, L);
+    else
+      pingpong_rows<DIGITS, 128, 64>(mma_smem, x, a1g, a2g, twg, kcg, out, rows, rows_per_tile, L);
+  } else
+    sync_rows<DIGITS, TPW>(mma_smem, x, a1g, a2g, twg, kcg, out, rows, rows_per_tile, L, S, R);
+}
+
 // One wave of blocks: each of the L primes gets ceil(slots / L) tiles of
-// rows, where slots = SMs x resident blocks per SM.
-template <bool DIGITS, int TPW>
+// rows on the sync schedule, where slots = SMs x resident blocks per SM;
+// floor(slots / L) on the ping-pong, whose one block an SM would
+// otherwise leave a second, short wave.
+template <bool DIGITS, int TPW, bool PINGPONG>
 cudaError_t launch_mma_tpw(const int32_t* x, const uint8_t* a1, const uint8_t* a2,
                            const uint32_t* tw, const uint32_t* kc, int32_t* out,
                            long long rows, int L, int S, int R, cudaStream_t stream) {
-  auto kernel = ct_mma_kernel<DIGITS, TPW>;
-  const int smem = Geo(S, R).smem_bytes();
+  auto kernel = ct_mma_kernel<DIGITS, TPW, PINGPONG>;
+  const int smem = PINGPONG ? PGeo(S, R).smem_bytes() : Geo(S, R).smem_bytes();
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
@@ -392,7 +754,7 @@ cudaError_t launch_mma_tpw(const int32_t* x, const uint8_t* a1, const uint8_t* a
     return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const long long slots = static_cast<long long>(sms) * per_sm;
-  const long long tiles = (slots + L - 1) / L;
+  const long long tiles = PINGPONG ? (slots >= L ? slots / L : 1) : (slots + L - 1) / L;
   const long long per_tile = (rows + tiles - 1) / tiles;
   const long long ntiles = (rows + per_tile - 1) / per_tile;
   dim3 grid(static_cast<unsigned>(L), static_cast<unsigned>(ntiles));
@@ -404,24 +766,27 @@ cudaError_t launch_mma_tpw(const int32_t* x, const uint8_t* a1, const uint8_t* a
 template <bool DIGITS>
 cudaError_t launch_mma(const void* x, const void* a1, const void* a2, const void* tw,
                        const void* kc, void* out, long long rows, int L, int S, int R,
-                       void* stream) {
+                       void* stream, bool allow_pingpong = true) {
   if (rows < 0 || rows > 0x7fffffffLL || L < 1 || L > 65535 || S < 2 || R < 2 ||
       S > 1024 || R > 1024)
     return cudaErrorInvalidValue;
   if (rows == 0) return cudaSuccess;
-  const int in_tiles = ((R + 7) / 8) * ((S + 15) / 16);
-  const int tpw = (in_tiles + kWarps - 1) / kWarps;
   const auto args = [&](auto launcher) {
     return launcher(static_cast<const int32_t*>(x), static_cast<const uint8_t*>(a1),
                     static_cast<const uint8_t*>(a2), static_cast<const uint32_t*>(tw),
                     static_cast<const uint32_t*>(kc), static_cast<int32_t*>(out), rows, L, S,
                     R, static_cast<cudaStream_t>(stream));
   };
-  if (tpw <= 1) return args(launch_mma_tpw<DIGITS, 1>);
-  if (tpw <= 2) return args(launch_mma_tpw<DIGITS, 2>);
-  if (tpw <= 4) return args(launch_mma_tpw<DIGITS, 4>);
-  if (tpw <= 8) return args(launch_mma_tpw<DIGITS, 8>);
-  if (tpw <= 16) return args(launch_mma_tpw<DIGITS, 16>);
+  if (allow_pingpong && pingpong_takes(S, R))
+    return S * R <= 4096 ? args(launch_mma_tpw<DIGITS, 8, true>)
+                         : args(launch_mma_tpw<DIGITS, 16, true>);
+  const int in_tiles = ((R + 7) / 8) * ((S + 15) / 16);
+  const int tpw = (in_tiles + kWarps - 1) / kWarps;
+  if (tpw <= 1) return args(launch_mma_tpw<DIGITS, 1, false>);
+  if (tpw <= 2) return args(launch_mma_tpw<DIGITS, 2, false>);
+  if (tpw <= 4) return args(launch_mma_tpw<DIGITS, 4, false>);
+  if (tpw <= 8) return args(launch_mma_tpw<DIGITS, 8, false>);
+  if (tpw <= 16) return args(launch_mma_tpw<DIGITS, 16, false>);
   return cudaErrorInvalidValue;
 }
 
@@ -456,10 +821,25 @@ int fsi_ct_inv(const void* e, const void* a1, const void* a2, const void* tw,
   return launch_mma<false>(e, a1, a2, tw, kc, out, rows, L, N1, N2, stream);
 }
 
-// Dynamic shared memory of the layout chosen for fsi_ct_fwd and
-// fsi_ct_fwd_digits (S = N2, R = N1) and for fsi_ct_inv (S = N1, R = N2),
-// and the current device's per-block limit.
-long long fsi_ct_mma_smem(int S, int R) { return Geo(S, R).smem_bytes(); }
+// The schedule that launch_mma chooses for a row [S][R] (fsi_ct_fwd and
+// fsi_ct_fwd_digits: S = N2, R = N1; fsi_ct_inv: S = N1, R = N2):
+// 1 ping-pong, 0 sync.
+int fsi_ct_schedule(int S, int R) { return pingpong_takes(S, R) ? 1 : 0; }
+
+// Dynamic shared memory of the chosen schedule's layout, and the current
+// device's per-block limit.
+long long fsi_ct_mma_smem(int S, int R) {
+  return pingpong_takes(S, R) ? PGeo(S, R).smem_bytes() : Geo(S, R).smem_bytes();
+}
+
+// The sync schedule on any split it takes, for the tests that hold the
+// two schedules equal: the forward transforms' (digits 1: fsi_ct_fwd_digits)
+// or the inverse's tables and row [S][R].
+int fsi_ct_sync(int digits, const void* x, const void* a1, const void* a2, const void* tw,
+                const void* kc, void* out, long long rows, int L, int S, int R, void* stream) {
+  return digits ? launch_mma<true>(x, a1, a2, tw, kc, out, rows, L, S, R, stream, false)
+                : launch_mma<false>(x, a1, a2, tw, kc, out, rows, L, S, R, stream, false);
+}
 
 int fsi_smem_optin() {
   int dev = 0, bytes = 0;

@@ -3,8 +3,9 @@ csrc/<name>.cu (CUDA C++ for sm_90a, a plain C interface) becomes one
 library, compiled by nvcc into fhe_si_tpu_torch/_build/ the first time
 it is needed and loaded with ctypes.  ops/ntt_ct_cuda.py, ops/crt_cuda.py,
 ops/modular_cuda.py and ops/digits_cuda.py load their libraries through
-`library`; `build` compiles them all at once.  Nothing is compiled or
-loaded at import, so this module imports on a machine without nvcc.
+`library`, whose first call compiles every source at once, as `build`
+does.  Nothing is compiled or loaded at import, so this module imports
+on a machine without nvcc.
 `on_cuda` is the wrappers' dispatch: a CPU tensor takes the plain
 version, a CUDA tensor the kernel.
 """
@@ -81,8 +82,11 @@ def compile_sources(names=SOURCES):
 
 @functools.cache
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built first if need be."""
-    compile_sources((name,))
+    """The loaded library of csrc/<name>.cu.  The first library a process
+    needs builds every source not built yet, all at once: a first run
+    waits for the slowest nvcc (csrc/ct_ntt.cu, 28 s alone on an H100
+    machine's host), not for their sum (64 s)."""
+    compile_sources(SOURCES)
     return ctypes.CDLL(str(_so_path(name)))
 
 

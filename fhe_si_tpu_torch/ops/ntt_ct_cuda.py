@@ -8,7 +8,7 @@ fhe_si_tpu_torch/_build/ and loads the library with ctypes
 (ops/cuda_build.py, which builds every source of csrc/).  Nothing is
 compiled or loaded at import, so this module imports on a machine
 without nvcc.  All three transforms run one tensor-core kernel (int8
-byte planes, mma.sync) on the N-point transform of every ring
+byte planes) on the N-point transform of every ring
 m = 2^a * q^b whose split N1 x N2 it takes (check_kernel_shape: both
 sides at least 2 and the layout inside shared memory; every power of two
 from m = 8 to 2^15, m = 20480 = 128 x 80, m = 13122 = 81 x 81).  Around
@@ -26,7 +26,11 @@ m = p - 1 past p = 4079 gives, and m = 2^16) never reach these wrappers
 from DeviceContext, which sends them to ops/ntt_ct_matmul.py, chosen by
 kernel_takes before any launch.
 LAUNCHES counts the kernel launches of each wrapper (the plain path does
-not count).
+not count), SCHEDULES the same launches by the kernel's schedule: the
+ping-pong on asynchronous wgmma where both sides of the split are
+multiples of 64 and two rows fit (m = 8192 and 2^14), the sync schedule
+(mma.sync) on every other split.  ct_ntt.cu chooses it (fsi_ct_schedule);
+kernel_schedule mirrors the rule.
 
 The wrappers check what the kernels' exactness rests on (ct_ntt.cu
 header): every prime below 2^23, either residue lane, and keyswitch
@@ -48,6 +52,7 @@ from .cuda_build import library, on_cuda
 from .ntt_ct import CtMeta
 
 LAUNCHES = {"ct_fwd": 0, "ct_fwd_digits": 0, "ct_inv": 0}
+SCHEDULES = {"pingpong": 0, "sync": 0}
 
 
 # ---------------------------------------------- tensor-core kernel tables
@@ -122,8 +127,9 @@ def kernel_tables(ct: dict) -> dict:
 
 
 def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, SCHEDULES):
+        for k in counts:
+            counts[k] = 0
 
 
 @functools.cache
@@ -136,6 +142,10 @@ def _lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.fsi_ct_mma_smem.argtypes = [i32, i32]
     lib.fsi_ct_mma_smem.restype = i64
+    lib.fsi_ct_schedule.argtypes = [i32, i32]
+    lib.fsi_ct_schedule.restype = i32
+    lib.fsi_ct_sync.argtypes = [i32] + [ptr] * 6 + [i64, i32, i32, i32, ptr]
+    lib.fsi_ct_sync.restype = ctypes.c_int
     lib.fsi_smem_optin.argtypes = []
     lib.fsi_smem_optin.restype = i32
     return lib
@@ -144,14 +154,35 @@ def _lib() -> ctypes.CDLL:
 SMEM_MAX = 232448       # ct_ntt.cu kSmemMax: an H100 block's opt-in bytes
 
 
+def _pingpong_planes(S: int, R: int) -> int:
+    """ct_ntt.cu PGeo: the prime's A1 and A2 planes and two warpgroups'
+    B1 and B2 planes, unpadded."""
+    return 3 * (S * S + R * R) + 2 * 2 * 3 * S * R
+
+
+def kernel_schedule(S: int, R: int) -> str:
+    """The schedule ct_mma_kernel runs a row [S][R] on (ct_ntt.cu
+    pingpong_takes, which fsi_ct_schedule reports): 'pingpong' where both
+    sides are multiples of 64, S * R <= 8192 and the two-row planes fit
+    in SMEM_MAX (m = 8192: 64 x 64; m = 2^14: 64 x 128 and 128 x 64),
+    'sync' otherwise."""
+    if (S % 64 == 0 and R % 64 == 0 and S * R <= 8192
+            and _pingpong_planes(S, R) <= SMEM_MAX):
+        return "pingpong"
+    return "sync"
+
+
 def kernel_smem(S: int, R: int) -> int:
-    """Dynamic shared memory of ct_mma_kernel for a row [S][R]: Geo's
-    formula in ct_ntt.cu (fsi_ct_mma_smem returns the same number on the
-    card).  The four byte-plane blocks, and the twiddle pairs where the
-    whole layout fits in SMEM_MAX."""
-    ks1, ks2 = _pad(S, 32) + 16, _pad(R, 32) + 16
-    planes = 3 * (_pad(S, 16) * ks1 + _pad(R, 16) * ks2
-                  + _pad(R, 16) * ks1 + _pad(S, 16) * ks2)
+    """Dynamic shared memory of ct_mma_kernel for a row [S][R] on its
+    schedule: PGeo's or Geo's formula in ct_ntt.cu (fsi_ct_mma_smem
+    returns the same number on the card).  The byte-plane blocks, and the
+    twiddle pairs where the whole layout fits in SMEM_MAX."""
+    if kernel_schedule(S, R) == "pingpong":
+        planes = _pingpong_planes(S, R)
+    else:
+        ks1, ks2 = _pad(S, 32) + 16, _pad(R, 32) + 16
+        planes = 3 * (_pad(S, 16) * ks1 + _pad(R, 16) * ks2
+                      + _pad(R, 16) * ks1 + _pad(S, 16) * ks2)
     tw = S * tw_stride(R) * 4
     return planes + tw if planes + tw <= SMEM_MAX else planes
 
@@ -190,8 +221,15 @@ def kernel_takes(meta: CtMeta, limit: int = SMEM_MAX) -> bool:
             and _fits(meta.N1, meta.N2, limit))
 
 
-def _launch(name: str, fn, inp, tabs, out, rows, L, meta: CtMeta):
-    """Check the operands, launch on the current stream, count."""
+@functools.cache
+def _schedule(S: int, R: int) -> str:
+    return ("sync", "pingpong")[_lib().fsi_ct_schedule(S, R)]
+
+
+def _launch(name: str, fn, inp, tabs, out, rows, L, meta: CtMeta, S: int,
+            R: int):
+    """Check the operands, launch on the current stream, count the
+    launch and its schedule."""
     for t in (inp, *tabs, out):
         if t.device != inp.device or not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous tensors "
@@ -207,6 +245,7 @@ def _launch(name: str, fn, inp, tabs, out, rows, L, meta: CtMeta):
     if err:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
     LAUNCHES[name] += 1
+    SCHEDULES[_schedule(S, R)] += 1
     return out
 
 
@@ -253,7 +292,8 @@ def ct_fwd(T: dict, x, meta: CtMeta):
                            meta.N1)
         x = ntt_ct.pad_to_N(x, meta).contiguous()
         out = _launch("ct_fwd", _lib().fsi_ct_fwd, x, tabs,
-                      torch.empty_like(x), x.numel() // (L * meta.N), L, meta)
+                      torch.empty_like(x), x.numel() // (L * meta.N), L, meta,
+                      meta.N2, meta.N1)
         return ntt_ct.drop_excluded(out, meta)
 
 
@@ -275,7 +315,7 @@ def ct_fwd_digits(T: dict, digits, meta: CtMeta, digit_bits: int):
         out = torch.empty(digits.shape[:-1] + (L, meta.N), dtype=torch.int32,
                           device=digits.device)
         out = _launch("ct_fwd_digits", _lib().fsi_ct_fwd_digits, digits, tabs,
-                      out, digits.numel() // meta.N, L, meta)
+                      out, digits.numel() // meta.N, L, meta, meta.N2, meta.N1)
         return ntt_ct.drop_excluded(out, meta)
 
 
@@ -293,5 +333,5 @@ def ct_inv(T: dict, evals, meta: CtMeta, t2i_key: str = 't2i'):
         evals = ntt_ct.insert_excluded(evals, meta).contiguous()
         out = _launch("ct_inv", _lib().fsi_ct_inv, evals, tabs,
                       torch.empty_like(evals),
-                      evals.numel() // (L * meta.N), L, meta)
+                      evals.numel() // (L * meta.N), L, meta, meta.N1, meta.N2)
         return ntt_ct.fold_mod_phim(out, T['q'], meta)

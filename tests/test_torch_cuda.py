@@ -89,9 +89,9 @@ def _kernel_tables(cuda, m, qs):
                   for k, v in dict(ct, **ntt_ct_cuda.kernel_tables(ct)).items()}
 
 
-def _all_transforms_match_plain(cuda, meta, T, seed):
+def _all_transforms_match_plain(cuda, meta, T, seed, schedule="sync"):
     """The three kernels against their plain versions on 37 rows, and the
-    round trip."""
+    round trip, all four launches on `schedule`."""
     rng = np.random.default_rng(seed)
     q = T["q"].cpu().numpy().astype(np.int64)
     x = torch.as_tensor(rng.integers(0, q[:, None], size=(
@@ -109,14 +109,17 @@ def _all_transforms_match_plain(cuda, meta, T, seed):
     torch.cuda.synchronize()
     assert ntt_ct_cuda.LAUNCHES == {"ct_fwd": 1, "ct_fwd_digits": 1,
                                     "ct_inv": 2}
+    other = {"sync": "pingpong", "pingpong": "sync"}[schedule]
+    assert ntt_ct_cuda.SCHEDULES == {schedule: 4, other: 0}
 
 
 @pytest.mark.cuda
 def test_tensor_core_kernel_m16384(cuda):
-    """m = 2^14 (N1 x N2 = 128 x 64, one block per SM), on tables of three
-    primes of both lanes."""
+    """m = 2^14 (N1 x N2 = 128 x 64: the ping-pong schedule, forward
+    64 x 128 with the twiddle in shared memory, inverse 128 x 64 with it
+    in global memory), on tables of three primes of both lanes."""
     meta, T = _kernel_tables(cuda, 1 << 14, [786433, 1032193, 8257537])
-    _all_transforms_match_plain(cuda, meta, T, 14)
+    _all_transforms_match_plain(cuda, meta, T, 14, "pingpong")
 
 
 @pytest.mark.cuda
@@ -125,7 +128,7 @@ def test_tensor_core_kernel_m32768(cuda):
     in global memory, 16 prefetched tiles per warp), on one narrow and one
     wide prime."""
     meta, T = _kernel_tables(cuda, 1 << 15, [786433, 8257537])
-    _all_transforms_match_plain(cuda, meta, T, 15)
+    _all_transforms_match_plain(cuda, meta, T, 15, "sync")
 
 
 @pytest.mark.cuda
@@ -169,7 +172,7 @@ def test_tensor_core_kernel_mixed_radix(cuda, mq):
     versions, phim wide in and out."""
     meta, T = _kernel_tables(cuda, *mq)
     assert meta.q_odd > 1
-    _all_transforms_match_plain(cuda, meta, T, mq[0])
+    _all_transforms_match_plain(cuda, meta, T, mq[0], "sync")
 
 
 @pytest.mark.cuda
@@ -179,10 +182,87 @@ def test_kernel_shape_rule_matches_card(cuda):
     included."""
     lib = ntt_ct_cuda._lib()
     for S, R in ((2, 2), (4, 5), (5, 4), (3, 3), (3, 9), (9, 3), (8, 10),
-                 (81, 81), (80, 128), (128, 80), (64, 64), (128, 128),
-                 (128, 256), (1, 11)):
+                 (81, 81), (80, 128), (128, 80), (64, 64), (64, 128),
+                 (128, 64), (128, 128), (128, 256), (1, 11)):
         assert ntt_ct_cuda.kernel_smem(S, R) == lib.fsi_ct_mma_smem(S, R)
 
+
+@pytest.mark.cuda
+def test_schedule_rule_matches_card(cuda):
+    """kernel_schedule, the Python mirror, is the rule launch_mma applies
+    (fsi_ct_schedule), on the splits of every ring the kernel takes and
+    around the rule's edges."""
+    lib = ntt_ct_cuda._lib()
+    splits = [(S, R) for S in (2, 3, 32, 64, 80, 81, 128, 192, 256)
+              for R in (2, 5, 32, 64, 80, 81, 128, 192)]
+    for S, R in splits:
+        want = ntt_ct_cuda.kernel_schedule(S, R)
+        assert ("sync", "pingpong")[lib.fsi_ct_schedule(S, R)] == want, (S, R)
+    assert ntt_ct_cuda.kernel_schedule(64, 64) == "pingpong"
+
+
+def _sync_schedule(T, x, meta, which, t2i_key="t2i"):
+    """The same transform on the sync schedule (fsi_ct_sync), whatever the
+    split: the forward transforms' row [N2][N1], the inverse's [N1][N2]."""
+    L = T["q"].shape[0]
+    assert x.is_contiguous()
+    if which == "inv":
+        keys, S, R = ("k_t1i", "k_" + t2i_key, "k_twi", "k_consts"), meta.N1, meta.N2
+    else:
+        keys, S, R = ("k_t2", "k_t1", "k_tw", "k_consts"), meta.N2, meta.N1
+    out = torch.empty(x.shape[:1] + (L, meta.N), dtype=torch.int32,
+                      device=x.device)
+    err = ntt_ct_cuda._lib().fsi_ct_sync(
+        int(which == "digits"), x.data_ptr(), *(T[k].data_ptr() for k in keys),
+        out.data_ptr(), x.shape[0], L, S, R,
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prime_bits", [pytest.param(None, id="narrow"),
+                                        pytest.param(23, id="wide")])
+def test_pingpong_matches_plain_and_sync(cuda, prime_bits):
+    """m = 8192, the benchmark's ring, on the ping-pong schedule: every
+    transform (ct_fwd, ct_fwd_digits with digits up to 2^24 - 1, ct_inv
+    with t2i and t2i_crt) bit-identical to the plain twin and to the sync
+    schedule, on the narrow and the wide lane, on random and worst-case
+    operands (every residue q - 1, every digit 2^24 - 1), on 1 row, an odd
+    count that no row tile divides and one past a tile a block."""
+    dc = DeviceContext(_ctx(8192, 40961, prime_bits), cuda)
+    meta = dc.ct_meta
+    assert ntt_ct_cuda.kernel_schedule(meta.N2, meta.N1) == "pingpong"
+    rng = np.random.default_rng(18)
+    ntt_ct_cuda.reset_launches()
+    launches = 0
+    for T in (dc.full, dc.ksw):
+        ct, q = T["ct"], T["primes_np"].astype(np.int64)
+        for rows in (1, RAGGED, 300):
+            for worst in (False, True):
+                shape = (rows, len(q), meta.phim)
+                x = np.broadcast_to(q[:, None] - 1, shape) if worst else \
+                    rng.integers(0, q[:, None], size=shape)
+                x = torch.as_tensor(np.ascontiguousarray(x, np.int32),
+                                    device=cuda)
+                d = torch.as_tensor(np.full((rows, meta.phim), (1 << 24) - 1)
+                                    if worst else rng.integers(
+                                        0, 1 << 24, size=(rows, meta.phim)),
+                                    dtype=torch.int32, device=cuda)
+                ev = ntt_ct_cuda.ct_fwd(ct, x, meta)
+                assert torch.equal(ev, ntt_ct.ct_fwd(ct, x, meta))
+                assert torch.equal(ev, _sync_schedule(ct, x, meta, "fwd"))
+                for key in ("t2i", "t2i_crt"):
+                    z = ntt_ct_cuda.ct_inv(ct, ev, meta, key)
+                    assert torch.equal(z, ntt_ct.ct_inv(ct, ev, meta, key))
+                    assert torch.equal(z, _sync_schedule(ct, ev, meta, "inv",
+                                                         key))
+                ed = ntt_ct_cuda.ct_fwd_digits(ct, d, meta, 24)
+                assert torch.equal(ed, ntt_ct.ct_fwd_digits(ct, d, meta, 24))
+                assert torch.equal(ed, _sync_schedule(ct, d, meta, "digits"))
+                launches += 4
+    torch.cuda.synchronize()
+    assert ntt_ct_cuda.SCHEDULES == {"pingpong": launches, "sync": 0}
 
 @pytest.mark.cuda
 def test_split_with_a_side_of_one_raises(cuda):

@@ -2,7 +2,9 @@
 ct_mma_kernel), on the CPU: the byte planes and Shoup reciprocals that
 ops/ntt_ct_cuda.kernel_tables prepares recombine to the tables; the
 kernel's 32-bit reduction of the five byte diagonals equals % up to and
-past the stated bound (2^57, checked to 2^60); and a numpy emulation of
+past the stated bound (2^57, checked to 2^60), its quotients summed before
+the one multiplication by q; the twiddle's Shoup product on the
+unreduced sum (the ping-pong schedule's stage 1); and a numpy emulation of
 the kernel's arithmetic on those tables (byte-plane products per
 diagonal, the reduction, the twiddle read as 16-byte pairs from the
 padded rows, the same index maps) equals the plain N-point transforms of
@@ -44,16 +46,29 @@ def _csub(r, q):
     return np.where(r >= q, r - q, r)
 
 
-def reduce_diagonals(D, consts):
-    """The kernel's reduce_diagonals(): D [5, ...] s32 diagonals (as
-    uint64), consts one prime's row of prime_consts."""
+def fold_diagonals(D, consts):
+    """The kernel's fold_diagonals(): D [5, ...] s32 diagonals (as
+    uint64), consts one prime's row of prime_consts.  D_0 plus the four
+    products D_d c_d, less q times the sum of their Shoup quotients, all
+    mod 2^32: the same number as the four Shoup products added one by
+    one, which stays below 2^32 (the header's s < 2^31 + 8q)."""
     k = _u32(consts)
-    q, qr, c, cp = k[0], k[1], k[2:6], k[6:10]
-    s = D[0].copy()
+    q, c, cp = k[0], k[2:6], k[6:10]
+    s, hi = D[0].copy(), np.zeros_like(D[0])
     for d in range(4):
-        s = s + _shoup(D[d + 1], c[d], cp[d], q)
-    assert (s < 1 << 32).all()                # the header's s < 2^32
-    return _csub(_shoup(s, 1, qr, q), q)
+        s = (s + D[d + 1] * c[d]) & np.uint64(M32)
+        hi = (hi + ((D[d + 1] * cp[d]) >> np.uint64(32))) & np.uint64(M32)
+    s = (s - hi * q) & np.uint64(M32)
+    one_by_one = D[0] + sum(_shoup(D[d + 1], c[d], cp[d], q) for d in range(4))
+    assert (one_by_one < 1 << 32).all()
+    assert np.array_equal(s, one_by_one)
+    return s
+
+
+def reduce_diagonals(D, consts):
+    """The kernel's reduce_diagonals(): the folded sum, canonical."""
+    k = _u32(consts)
+    return _csub(_shoup(fold_diagonals(D, consts), 1, k[1], k[0]), k[0])
 
 
 @pytest.mark.parametrize("q", PRIMES)
@@ -80,6 +95,25 @@ def test_reduction_equals_mod(q):
     want = [sum(int(D[d, i]) << (8 * d) for d in range(5)) % q
             for i in range(D.shape[1])]
     got = reduce_diagonals(D.astype(np.uint64), consts)
+    assert got.tolist() == want
+
+
+@pytest.mark.parametrize("q", PRIMES)
+def test_twiddle_reduces_the_folded_sum(q):
+    """The ping-pong schedule's stage 1 multiplies the folded diagonals
+    (below 2^32, not reduced) by the twiddle with one Shoup product:
+    csub(shoup(s, w, w')) is s w mod q for every s < 2^32 and w < q, the
+    extremes included."""
+    rng = np.random.default_rng(q + 1)
+    s = np.concatenate([rng.integers(0, 1 << 32, size=20000, dtype=np.int64),
+                        np.array([0, 1, q - 1, q, (1 << 32) - 1,
+                                  (1 << 31) + 8 * q - 1], dtype=np.int64)])
+    w = np.concatenate([rng.integers(0, q, size=20000, dtype=np.int64),
+                        np.array([0, 1, q - 1, q - 1, q - 1, q - 1],
+                                 dtype=np.int64)])
+    wp = nc._reciprocal(w, q)
+    got = _csub(_shoup(s.astype(np.uint64), w, wp, q), np.uint64(q))
+    want = [int(a) * int(b) % q for a, b in zip(s, w)]
     assert got.tolist() == want
 
 
@@ -295,3 +329,66 @@ def test_emulated_kernel_equals_plain_mixed_radix(mq):
     _emulate_fwd_digits(kt, T, meta, digits)
     for key in ('t2i', 't2i_crt'):
         _emulate_inv(kt, T, meta, res, key)
+
+
+# (S, R) -> the schedule ct_mma_kernel runs the row on and its shared
+# memory: ct_ntt.cu pingpong_takes with PGeo (the prime's A1 and A2, two
+# warpgroups' B1 and B2, unpadded), Geo on every other split
+SCHEDULE_RULE = [
+    pytest.param((64, 64, "pingpong", 110592), id="m8192-64x64"),
+    pytest.param((64, 128, "pingpong", 229376), id="m16384-fwd-64x128"),
+    pytest.param((128, 64, "pingpong", 159744), id="m16384-inv-128x64"),
+    pytest.param((128, 128, "sync", 221184), id="m32768-128x128"),
+    pytest.param((80, 128, "sync", 159744), id="m20480-fwd-80x128"),
+    pytest.param((128, 80, "sync", 159744), id="m20480-inv-128x80"),
+    pytest.param((81, 81, "sync", 187344), id="m13122-81x81"),
+    pytest.param((32, 64, "sync", 55296), id="m4096-fwd-32x64"),
+    pytest.param((64, 32, "sync", 57344), id="m4096-inv-64x32"),
+    pytest.param((192, 64, "sync", 221184), id="sides-of-64-past-8192"),
+    pytest.param((4, 5, "sync", 9664), id="m40-4x5")]
+
+
+@pytest.mark.parametrize("rule", SCHEDULE_RULE)
+def test_schedule_rule(rule):
+    """kernel_schedule and kernel_smem, the Python mirror of the rule that
+    launch_mma applies in C (tests/test_torch_cuda.py holds the mirror
+    equal to fsi_ct_schedule and fsi_ct_mma_smem on the card): the
+    ping-pong takes sides that are multiples of 64 with at most 8192
+    entries a row whose two-row planes fit; the ping-pong's 64 x 64 layout
+    is 73,728 bytes of planes and the 36,864-byte twiddle, 128 x 64 leaves
+    its twiddle in global memory as m = 2^15 does."""
+    S, R, schedule, smem = rule
+    assert nc.kernel_schedule(S, R) == schedule
+    assert nc.kernel_smem(S, R) == smem
+    assert smem <= nc.SMEM_MAX
+    if schedule == "pingpong":
+        planes = 3 * (S * S + R * R) + 12 * S * R
+        assert smem in (planes, planes + S * nc.tw_stride(R) * 4)
+
+
+@pytest.mark.parametrize("m,schedule", [
+    (8192, "pingpong"), (1 << 14, "pingpong"), (1 << 15, "sync"),
+    (4096, "sync"), (20480, "sync"), (13122, "sync"), (32, "sync")])
+def test_schedule_of_every_transform(m, schedule):
+    """Both orientations of a ring's split take one schedule: the forward
+    transforms' row [N2][N1] and the inverse's [N1][N2].  m = 8192, the
+    benchmark's ring, and m = 2^14 run the ping-pong; m = 2^15, the
+    mixed-radix splits and m <= 4096 the sync schedule."""
+    N1, N2 = ntt_ct._split(m // 2)
+    assert nc.kernel_schedule(N2, N1) == nc.kernel_schedule(N1, N2) == schedule
+
+
+def test_schedules_count_launches_only():
+    """SCHEDULES has one key a schedule, reset_launches zeroes it with
+    LAUNCHES, and the plain versions that CPU tensors take count in
+    neither."""
+    assert set(nc.SCHEDULES) == {"pingpong", "sync"}
+    nc.SCHEDULES["sync"] += 3
+    nc.reset_launches()
+    assert nc.SCHEDULES == {"pingpong": 0, "sync": 0}
+    meta, ct, _, _ = _prime_tables(32, [97])
+    T = {k: torch.as_tensor(v) for k, v in ct.items()}
+    x = torch.zeros((2, 1, meta.phim), dtype=torch.int32)
+    nc.ct_inv(T, nc.ct_fwd(T, x, meta), meta)
+    assert nc.SCHEDULES == {"pingpong": 0, "sync": 0}
+    assert not any(nc.LAUNCHES.values())

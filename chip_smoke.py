@@ -70,7 +70,8 @@ prints no result line):
      plain version and its bound (the larger of its int32 bytes over the
      HBM rate and its int8 byte products over the int8 tensor-core rate
      for the transforms, its int32 operations over the INT32 rate for
-     the limb/CRT and modular kernels) at the main path's shapes, at the
+     the limb/CRT and modular kernels; the benchmark's yardstick,
+     bench_port/roofline.py) at the main path's shapes, at the
      regression app's wide shapes and at the m = 2^15 path's shapes (with
      4 pairs: its mul+relin step too); at the main path's and the m = 2^15
      path's shapes also with its launches per mul+relin step; each
@@ -186,6 +187,9 @@ from typing import NamedTuple
 
 import numpy as np
 
+from bench_port.roofline import (F64_OPS_PER_S, HBM_BYTES_PER_S, crt_bound,
+                                 modular_bound, ntt_bound)
+
 SEED = 2024
 RAGGED_ROWS = 37           # no block size divides it
 BATCH = 64                 # ciphertext pairs per mul+relin step
@@ -223,14 +227,7 @@ ROUTE_APP = dict(p=8147, generator=3, m=None, dim=4, n=256)
 M16 = dict(m=65536, log_q=120, p=65537, generator=3)
 BATCH16 = 4
 ORACLE_WORKERS = 5      # processes for oracle.plaintext_mul at phim 4072
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 peak bandwidth
 SPIN_CYCLES = 100_000_000       # device_ms's spin: about 50 ms at 1.98 GHz
-INT8_OPS_PER_S = 1979e12        # dense int8 tensor-core rate, H100 SXM
-F64_OPS_PER_S = 67e12           # FP64 tensor-core rate, H100 SXM
-# int32 on the CUDA cores: 132 SMs x 64 INT32 lanes x 1.98 GHz, a
-# multiply-add or a three-input add counted as two operations (as the
-# FP32 rate of 67 TFLOP/s counts a fused multiply-add)
-INT32_OPS_PER_S = 33.5e12
 PALLAS = "fhe_si_tpu/ops/ntt_ct_pallas.py"
 NTT = ("ct_fwd", "ct_fwd_digits", "ct_inv")
 CRT = ("crt_to_limbs", "limbs_to_residues")
@@ -309,68 +306,14 @@ def device_ms(fn, iters: int = 20) -> float | None:
 
 def reset_launches():
     """Every kernel's launch count to 0."""
-    from fhe_si_tpu_torch.ops import (crt_cuda, digits_cuda, modular_cuda,
-                                      ntt_ct_cuda)
-    for mod in (ntt_ct_cuda, crt_cuda, modular_cuda, digits_cuda):
-        mod.reset_launches()
+    from fhe_si_tpu_torch.ops import cuda_build
+    cuda_build.reset_launches()
 
 
 def launch_counts() -> dict:
     """Every kernel's launch count since reset_launches."""
-    from fhe_si_tpu_torch.ops import (crt_cuda, digits_cuda, modular_cuda,
-                                      ntt_ct_cuda)
-    return dict(ntt_ct_cuda.LAUNCHES, **crt_cuda.LAUNCHES,
-                **modular_cuda.LAUNCHES, **digits_cuda.LAUNCHES)
-
-
-def crt_bound(name: str, rows: int, L: int, n: int, width: int,
-              phim: int) -> tuple[float, str]:
-    """Least time (ms) the card could take for one limb/CRT kernel call and
-    what sets it: its int32 input and output moved once each over the HBM
-    rate, or the int32 operations the function needs over the INT32 rate,
-    a multiply-add counted as 2 (also one of 64-bit width, IMAD.WIDE).
-    crt_to_limbs (L residues -> width limbs), per coefficient: for each
-    residue row n multiply-adds of its residue into the limb sums, and 2
-    for its m_r and er terms; then 12 for the wrap count (two reductions
-    mod m_r and the product with P^-1), a multiply-add per limb for its
-    subtraction and 3 per limb for the carry chain (the tail not
-    counted).  limbs_to_residues (n limbs -> L residues): per coefficient
-    and prime n multiply-adds and 12 for the reduction."""
-    coeffs = rows * phim
-    if name == "crt_to_limbs":
-        nbytes = 4 * coeffs * (L + width)
-        ops = coeffs * (L * (2 * n + 4) + 5 * n + 12)
-    else:
-        nbytes = 4 * coeffs * (n + L)
-        ops = coeffs * L * (2 * n + 12)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def modular_bound(name: str, rows: int, L: int, phim: int,
-                  K: int = 0) -> tuple[float, str]:
-    """Least time (ms) the card could take for one modular kernel call and
-    what sets it: its int32 inputs and output moved once each over the HBM
-    rate (the kernel table's 16 bytes a row included), or the int32
-    operations the function needs over the INT32 rate, a multiply or
-    multiply-add of 64-bit width counted as 2 and a reduction of a 64-bit
-    sum as 12 (as crt_bound counts the lift's).  tensor_product of 2 x 2
-    parts, per residue of a part: 2 scalings by p (a multiply and a
-    reduction each), 4 multiply-adds and 3 reductions, 4 words in and 3
-    out; keyswitch_dot of K terms, per residue of the output part pair:
-    2K multiply-adds and 2 reductions, K digit words in (the [2, K]
-    matrix once) and 2 out."""
-    coeffs = rows * L * phim
-    if name == "tensor_product":
-        nbytes = 4 * coeffs * 7 + 16 * L
-        ops = coeffs * (2 * (2 + 12) + 2 * 4 + 12 * 3)
-    else:
-        nbytes = 4 * (coeffs * (K + 2) + 2 * K * L * phim) + 16 * L
-        ops = coeffs * (2 * 2 * K + 2 * 12)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    from fhe_si_tpu_torch.ops import cuda_build
+    return dict(cuda_build.LAUNCHES)
 
 
 def digits_bound(rows: int, n: int, nd: int, lk: int,
@@ -382,20 +325,6 @@ def digits_bound(rows: int, n: int, nd: int, lk: int,
     a subtraction a residue) are far below the INT32 rate's bound."""
     nbytes = 4 * rows * phim * (n + nd * max(lk, 1))
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
-
-
-def kernel_bound(name: str, rows: int, L: int, meta) -> tuple[float, str]:
-    """Least time (ms) the card could take for one call and what sets it:
-    the int32 input and output (phim wide) moved once each over the HBM
-    rate, or the multiply-adds of both stages of the N-point transform
-    (N * (N1 + N2) per row and prime) as 9 int8 byte products of 2
-    operations each over the int8 rate."""
-    n_in = rows * meta.phim if name == "ct_fwd_digits" \
-        else rows * L * meta.phim
-    t_bytes = 4 * (n_in + rows * L * meta.phim) / HBM_BYTES_PER_S * 1e3
-    t_ops = (2 * 9 * rows * L * meta.N * (meta.N1 + meta.N2)
-             / INT8_OPS_PER_S * 1e3)
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def ptxas_report(log: str) -> list[str]:
@@ -1164,7 +1093,8 @@ def _case(dc, name, basis, rows, tail, rng):
                 else (lambda m, x: m.ct_inv(tab, x, meta, 't2i_crt'))
         x = torch.as_tensor(x.astype(np.int32), device=dc.device)
         return (x, lambda k: fn(ntt_ct_cuda if k else ntt_ct, x),
-                *kernel_bound(name, rows, len(q_np), meta))
+                *ntt_bound(name, rows, len(q_np), meta.phim, meta.N, meta.N1,
+                           meta.N2))
     fc, n = T['fast_crt'], T['fast_crt']['B'].shape[-1]
     if name == "crt_to_limbs":
         t = dc.tail(tail) if tail else None

@@ -25,21 +25,19 @@ place, built and loaded like csrc/ct_ntt.cu (cuda_build.library):
 Dispatch: a tensor on the CPU takes the plain version (the *_plain
 functions here, made of ops/crt.py and ops/limbs.py as DeviceContext
 composed them; for the lift, crt.limbs_to_residues itself); a tensor on
-a CUDA device launches the kernel, or raises.  There is no
-fallback.  The host checks dtypes, contiguity, shapes and what the
-kernels' exactness rests on (crt.cu header): at most MAX_ROWS residue
-rows, at most MAX_LIMBS limbs, primes below 2^23, fewer than 2^31
-coefficients a launch.  DeviceContext checks
+a CUDA device launches the kernel (cuda_build.launch), or raises.  There
+is no fallback.  The host checks dtypes, contiguity, shapes and what the
+kernels' exactness rests on (crt.cu header; the limits of cuda_build):
+at most MAX_ROWS residue rows, at most MAX_LIMBS limbs, primes below
+2^23, fewer than 2^31 coefficients a launch.  DeviceContext checks
 its bases' shapes and primes (check_shape, on the host tables) when it
 is built on a CUDA device, so a basis the kernels cannot take raises
 before any path reaches them; kernel_table checks m_r.
-LAUNCHES counts the launches of each kernel, whatever its mode (the
-plain path does not count).
+cuda_build.LAUNCHES counts the launches of each kernel under its
+wrapper's name, crt_to_limbs whatever its mode.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -48,13 +46,9 @@ import torch
 from ..context import int_to_limbs
 from ..profiling import annotate
 from . import crt, limbs as lb
-from .cuda_build import library, on_cuda
+from .cuda_build import (MAX_LIMBS, MAX_ROWS, Q_LIMIT, check_coeffs,
+                         check_primes, launch, on_cuda)
 
-LAUNCHES = {"crt_to_limbs": 0, "limbs_to_residues": 0}
-MAX_ROWS = 64          # crt.cu kMaxRows: the limb sums' bounds
-MAX_LIMBS = 48         # crt.cu kMaxLimbs: the largest register bucket
-Q_LIMIT = 1 << 23      # every prime, m_r included, lies below it
-MAX_COEFFS = 1 << 31   # coefficients a launch: 32-bit tile indices
 HEADER, ROW_WORDS = 8, 4
 PASS_ROW = 28          # crt.cu kPassRow: words a row of the one-pass section
 TAIL_CODES = {None: 0, "round_down": 1, "reduce_signed": 2}
@@ -68,11 +62,6 @@ class Tail(NamedTuple):
     kind: str
     log_q: int
     width: int
-
-
-def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def split_words(rows: int, n: int) -> int:
@@ -162,11 +151,8 @@ def check_shape(name: str, shape, rows: int, n: int, primes=None):
         raise ValueError(f"{name}: input {tuple(shape)} has {rows} residue "
                          f"rows and {n} limbs; the kernel takes at most "
                          f"{MAX_ROWS} rows and {MAX_LIMBS} limbs")
-    if primes is not None and not (
-            2 <= int(np.min(primes)) and int(np.max(primes)) < Q_LIMIT):
-        raise ValueError(f"{name}: input {tuple(shape)}: the kernel takes "
-                         f"primes in [2, 2^23) only, not {int(np.min(primes))}"
-                         f" ... {int(np.max(primes))}")
+    if primes is not None:
+        check_primes(name, shape, primes)
 
 
 def _check_tail(name: str, tail, n: int):
@@ -212,37 +198,6 @@ def crt_to_limbs_plain(res, t, wide: bool = False, tail: Tail | None = None):
 
 
 # ------------------------------------------------------------- launches
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = library("crt")
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for name, args in (
-            ("fsi_crt_partials", [ptr] * 5 + [i64] + [i32] * 3),
-            ("fsi_crt_finish", [ptr] * 5 + [i64] + [i32] * 5),
-            ("fsi_crt_to_limbs", [ptr] * 3 + [i64] + [i32] * 6),
-            ("fsi_limbs_to_residues", [ptr] * 6 + [i32] * 6)):
-        fn = getattr(lib, name)
-        fn.argtypes = args + [ptr]
-        fn.restype = ctypes.c_int
-    return lib
-
-
-def _launch(name: str, fn: str, tensors, ints):
-    """Check the operands, launch on the current stream, count."""
-    dev = tensors[0].device
-    for i, t in enumerate(tensors):
-        if t.device != dev or not t.is_contiguous() or t.dtype != torch.int32:
-            raise ValueError(f"{name}: operand {i} {tuple(t.shape)} is not a "
-                             f"contiguous int32 tensor on {dev}")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(_lib(), fn)(*(t.data_ptr() for t in tensors), *ints,
-                                  stream)
-    if err:
-        raise RuntimeError(f"{name}: CUDA error {err} at launch ({fn})")
-    LAUNCHES[name] += 1
-
-
 def _basis(name: str, t: dict, shape):
     """(rows, n, table) of the basis t, after checking that the kernel
     takes it and that its table was built."""
@@ -254,12 +209,6 @@ def _basis(name: str, t: dict, shape):
                          "build it with crt_cuda.kernel_table (DeviceContext "
                          "does)")
     return rows, n, tab
-
-
-def _check_coeffs(name: str, x, coeffs: int):
-    if coeffs >= MAX_COEFFS:
-        raise ValueError(f"{name}: input {tuple(x.shape)} has {coeffs} "
-                         f"coefficients; a launch takes fewer than 2^31")
 
 
 def _residues(name: str, res, rows: int):
@@ -283,8 +232,8 @@ def crt_partials(res, t: dict, wide: bool = False):
     acc = torch.empty(lead + (phim, n), **opts)
     sig, er = (torch.empty(lead + (phim,), **opts) for _ in range(2))
     if acc.numel():
-        _launch("crt_to_limbs", "fsi_crt_partials", (res, tab, acc, sig, er),
-                (sig.numel(), phim, rows, n))
+        launch("crt_to_limbs", "fsi_crt_partials", (res, tab, acc, sig, er),
+               (sig.numel(), phim, rows, n), int32=True, contiguous=True)
     return acc, sig, er
 
 
@@ -305,11 +254,11 @@ def crt_finish(acc, sig_raw, er, t: dict, wide: bool = False,
     out = torch.empty(sig_raw.shape + (width,), dtype=torch.int32,
                       device=acc.device)
     if out.numel():
-        _launch("crt_to_limbs", "fsi_crt_finish",
-                (acc.contiguous(), sig_raw.contiguous(), er.contiguous(), tab,
-                 out),
-                (sig_raw.numel(), rows, n, TAIL_CODES[tail and tail.kind],
-                 tail.log_q if tail else 0, width))
+        launch("crt_to_limbs", "fsi_crt_finish",
+               (acc.contiguous(), sig_raw.contiguous(), er.contiguous(), tab,
+                out),
+               (sig_raw.numel(), rows, n, TAIL_CODES[tail and tail.kind],
+                tail.log_q if tail else 0, width), int32=True, contiguous=True)
     return out
 
 
@@ -326,14 +275,14 @@ def crt_to_limbs(res, t: dict, wide: bool = False, tail: Tail | None = None):
         res = _residues("crt_to_limbs", res, rows)
         lead, phim = res.shape[:-2], res.shape[-1]
         width = n if tail is None else tail.width
-        _check_coeffs("crt_to_limbs", res, res.numel() // rows)
+        check_coeffs("crt_to_limbs", res.shape, res.numel() // rows)
         out = torch.empty(lead + (phim, width), dtype=torch.int32,
                           device=res.device)
         if out.numel():
-            _launch("crt_to_limbs", "fsi_crt_to_limbs", (res, tab, out),
-                    (out.numel() // width, phim, rows, n,
-                     TAIL_CODES[tail and tail.kind], tail.log_q if tail else 0,
-                     width))
+            launch("crt_to_limbs", "fsi_crt_to_limbs", (res, tab, out),
+                   (out.numel() // width, phim, rows, n,
+                    TAIL_CODES[tail and tail.kind], tail.log_q if tail else 0,
+                    width), int32=True, contiguous=True)
         return out
 
 
@@ -375,13 +324,13 @@ def limbs_to_residues(poly, chunk_tbl, wrap, q, qinv_f, wide: bool = False,
             lead = poly.shape[:-3] + (poly.shape[-3] + second.shape[-3],)
             ka, kb = poly.shape[-3], second.shape[-3]
             poly, b = poly.contiguous(), second.contiguous()
-        _check_coeffs("limbs_to_residues", poly,
-                      (poly.numel() + (b.numel() if kb else 0)) // n)
+        check_coeffs("limbs_to_residues", poly.shape,
+                     (poly.numel() + (b.numel() if kb else 0)) // n)
         out = torch.empty(lead + (L, phim), dtype=torch.int32,
                           device=poly.device)
         if out.numel():
-            _launch("limbs_to_residues", "fsi_limbs_to_residues",
-                    (poly, b, chunk_tbl, q, wrap, out),
-                    (out.numel() // ((ka + kb) * L * phim), ka, kb, phim, L,
-                     n))
+            launch("limbs_to_residues", "fsi_limbs_to_residues",
+                   (poly, b, chunk_tbl, q, wrap, out),
+                   (out.numel() // ((ka + kb) * L * phim), ka, kb, phim, L, n),
+                   int32=True, contiguous=True)
         return out

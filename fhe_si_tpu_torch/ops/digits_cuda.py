@@ -8,7 +8,8 @@ that XLA fuses into one pass on the TPU.  Run eagerly, the plain version
 a dense ring the per-prime `%`) is 21 launches per mul+relin step at
 m = 8192, 38 on the dense ring, each over the whole limb tensor.
 byte_decomp_kernel of fhe_si_tpu_torch/csrc/digits.cu takes its place,
-built and loaded like the other sources of csrc/ (cuda_build.library):
+built and loaded like the other sources of csrc/ (cuda_build.library)
+and launched through cuda_build.launch:
 it reads the limbs once and writes the digits once, in the layout the
 digits' forward transform reads, or, given a table of primes, their
 residues modulo each prime.
@@ -16,32 +17,19 @@ residues modulo each prime.
 Dispatch: a tensor on the CPU takes the plain version (byte_decomp_plain,
 the composition DeviceContext ran before); a tensor on a CUDA device
 launches the kernel, or raises.  There is no fallback.  The host checks
-dtypes, contiguity and what the kernel rests on (digits.cu header): digits
-of at most 24 bits, 16 n >= logQ, at most MAX_LIMBS limbs and MAX_PRIMES
-primes, fewer than 2^31 coefficients a launch.  LAUNCHES counts the
-kernel's launches (the plain path does not count).
+dtypes, contiguity and what the kernel rests on (digits.cu header; the
+limits of cuda_build): digits of at most MAX_DIGIT_BITS bits, 16 n >=
+logQ, at most MAX_LIMBS limbs and MAX_ROWS primes, fewer than 2^31
+coefficients a launch.  cuda_build.LAUNCHES counts the kernel's launches.
 """
 from __future__ import annotations
-
-import ctypes
-import functools
 
 import torch
 
 from ..profiling import annotate
 from . import limbs as lb
-from .cuda_build import library, on_cuda
-
-LAUNCHES = {"byte_decomp": 0}
-MAX_DIGIT_BITS = 24    # a digit and its residues stay in one int32 word
-MAX_LIMBS = 48         # digits.cu kMaxLimbs: the tile in shared memory
-MAX_PRIMES = 64        # digits.cu kMaxPrimes
-MAX_COEFFS = 1 << 31   # coefficients a launch: 32-bit tile indices
-
-
-def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+from .cuda_build import (MAX_DIGIT_BITS, MAX_LIMBS, MAX_ROWS, check_coeffs,
+                         launch, on_cuda)
 
 
 def byte_decomp_plain(parts, log_q: int, digit_bits: int, ndigits: int,
@@ -54,15 +42,6 @@ def byte_decomp_plain(parts, log_q: int, digit_bits: int, ndigits: int,
     if primes is None:
         return digs.contiguous()
     return digs[..., None, :] % primes.reshape(-1, 1)  # [..., nd, Lk, phim]
-
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = library("digits")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.fsi_byte_decomp.argtypes = [ptr] * 3 + [i32] * 7 + [ptr]
-    lib.fsi_byte_decomp.restype = ctypes.c_int
-    return lib
 
 
 def _check(parts, log_q: int, digit_bits: int, ndigits: int, primes):
@@ -81,17 +60,14 @@ def _check(parts, log_q: int, digit_bits: int, ndigits: int, primes):
     if not (1 <= log_q <= 16 * n and n <= MAX_LIMBS):
         raise ValueError(f"byte_decomp: limbs {shape} for logQ {log_q}: the "
                          f"kernel takes 16 n >= logQ and n <= {MAX_LIMBS}")
-    if parts.numel() // n >= MAX_COEFFS:
-        raise ValueError(f"byte_decomp: limbs {shape} hold "
-                         f"{parts.numel() // n} coefficients; a launch takes "
-                         "fewer than 2^31")
+    check_coeffs("byte_decomp", shape, parts.numel() // n)
     if primes is not None and (
             primes.dtype != torch.int32 or primes.device != parts.device
-            or not 1 <= primes.numel() <= MAX_PRIMES):
+            or not 1 <= primes.numel() <= MAX_ROWS):
         raise ValueError(f"byte_decomp: limbs {shape}: primes "
                          f"{tuple(primes.shape)} {primes.dtype} on "
                          f"{primes.device}; the kernel takes 1 to "
-                         f"{MAX_PRIMES} int32 primes on {parts.device}")
+                         f"{MAX_ROWS} int32 primes on {parts.device}")
 
 
 def byte_decomp(parts, log_q: int, digit_bits: int, ndigits: int,
@@ -112,14 +88,7 @@ def byte_decomp(parts, log_q: int, digit_bits: int, ndigits: int,
         out = torch.empty(lead + (ndigits,) + ((lk,) if lk else ()) + (phim,),
                           dtype=torch.int32, device=parts.device)
         if out.numel():
-            with torch.cuda.device(parts.device):
-                stream = torch.cuda.current_stream().cuda_stream
-                err = _lib().fsi_byte_decomp(
-                    parts.data_ptr(), primes.data_ptr() if lk else None,
-                    out.data_ptr(), parts.numel() // (phim * n), phim, n,
-                    log_q, digit_bits, ndigits, lk, stream)
-            if err:
-                raise RuntimeError(f"byte_decomp: CUDA error {err} at launch "
-                                   f"on limbs {tuple(parts.shape)}")
-            LAUNCHES["byte_decomp"] += 1
+            launch("byte_decomp", "fsi_byte_decomp", (parts, primes, out),
+                   (parts.numel() // (phim * n), phim, n, log_q, digit_bits,
+                    ndigits, lk))
         return out

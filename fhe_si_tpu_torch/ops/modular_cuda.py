@@ -10,7 +10,8 @@ versions (the *_plain functions here, made of ops/modular.py as
 DeviceContext composed them) are dozens of launches over the whole
 [..., L, phim] tensor per product.  Two kernels of
 fhe_si_tpu_torch/csrc/modular.cu take their place, built and loaded like
-the other sources of csrc/ (cuda_build.library):
+the other sources of csrc/ (cuda_build.library) and launched through
+cuda_build.launch:
 
   tensor_product  p*a tensored with b, a [..., na, L, phim] and
                   b [..., nb, L, phim] -> [..., na+nb-1, L, phim]; a and b
@@ -29,22 +30,17 @@ and its keyswitch width (check_shape, on the host tables) when it is
 built on a CUDA device.  Both kernels read a basis' kernel_table
 (T['k_mod'], which DeviceContext builds); the plain versions read T's
 q, qinv_f and p_mod_q.
-LAUNCHES counts the launches of each kernel (the plain path does not
-count).
+cuda_build.LAUNCHES counts the launches of each kernel.
 """
 from __future__ import annotations
-
-import ctypes
-import functools
 
 import numpy as np
 import torch
 
 from ..profiling import annotate
 from . import modular
-from .cuda_build import library, on_cuda
+from .cuda_build import check_primes, launch, on_cuda
 
-LAUNCHES = {"tensor_product": 0, "keyswitch_dot": 0}
 # modular.cu kMaxParts: a side of the tensor product.  The repo's callers
 # pass at most 3 (a ScaleDown view of a product times a ciphertext,
 # tests/test_torch_scheme_ops.py add_tensored_tail); 4 is the most parts a
@@ -54,13 +50,7 @@ MAX_PARTS = 4
 # limb/CRT kernels take can make (logQ below 16 * 48 bits in 8-bit digits,
 # decompSize 1: 96 digits); the sum of as many products stays below 2^55.
 MAX_TERMS = 4 * 96
-Q_LIMIT = 1 << 23      # every prime lies below it
 ROW_WORDS = 4          # per row: q, p mod q, floor(2^64 / q) lo, hi
-
-
-def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def kernel_table(primes, p: int) -> np.ndarray:
@@ -77,10 +67,7 @@ def check_shape(name: str, shape, primes, terms: int | None = None):
     """Raise ValueError, with the input's shape, unless every prime of a
     basis (a numpy array) lies in [2, 2^23) and, where given, a dot of
     `terms` terms is within MAX_TERMS."""
-    lo, hi = int(np.min(primes)), int(np.max(primes))
-    if not (2 <= lo and hi < Q_LIMIT):
-        raise ValueError(f"{name}: input {tuple(shape)}: the kernel takes "
-                         f"primes in [2, 2^23) only, not {lo} ... {hi}")
+    check_primes(name, shape, primes)
     if terms is not None and not 1 <= terms <= MAX_TERMS:
         raise ValueError(f"{name}: input {tuple(shape)}: a dot of {terms} "
                          f"terms; the kernel takes at most {MAX_TERMS}")
@@ -110,36 +97,6 @@ def keyswitch_dot_plain(mat, digits, q, qinv_f, wide: bool = False):
 
 
 # ------------------------------------------------------------- launches
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = library("modular")
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for name, args in (
-            ("fsi_tensor_product", [ptr] * 4 + [i64] * 2 + [i32] * 5),
-            ("fsi_keyswitch_dot", [ptr] * 4 + [i32] * 4)):
-        fn = getattr(lib, name)
-        fn.argtypes = args + [ptr]
-        fn.restype = ctypes.c_int
-    return lib
-
-
-def _launch(name: str, fn: str, tensors, ints):
-    """Check the operands' device and type, launch on the current stream,
-    count."""
-    dev = tensors[-1].device
-    for i, t in enumerate(tensors):
-        if t.device != dev or t.dtype != torch.int32:
-            raise ValueError(f"{name}: operand {i} {tuple(t.shape)} is not an "
-                             f"int32 tensor on {dev}")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(_lib(), fn)(*(t.data_ptr() for t in tensors), *ints,
-                                  stream)
-    if err:
-        raise RuntimeError(f"{name}: CUDA error {err} at launch ({fn})")
-    LAUNCHES[name] += 1
-
-
 def _table(name: str, T: dict, shape, L: int):
     tab = T.get('k_mod')
     if tab is None or tuple(tab.shape) != (L, ROW_WORDS):
@@ -152,7 +109,8 @@ def _table(name: str, T: dict, shape, L: int):
 def _parts(x, L: int, phim: int):
     """x [..., k, L, phim] as [R, k, L, phim] whose parts are contiguous
     [L, phim] blocks (a view where x is one, such as a slice of the parts
-    axis), and its lead stride in words."""
+    axis), and its lead stride in words: the kernels read the parts
+    through it, so the launch checks no operand's contiguity."""
     x = x.reshape((-1,) + tuple(x.shape[-3:]))
     if any(s != want for s, want, n in zip(x.stride()[1:], (L * phim, phim, 1),
                                            x.shape[1:]) if n > 1):
@@ -190,8 +148,8 @@ def tensor_product(a, b, T: dict, wide: bool = False):
         out = torch.empty(shape, dtype=torch.int32, device=a.device)
         if out.numel():
             R, na, L, phim = a2.shape
-            _launch("tensor_product", "fsi_tensor_product", (a2, b2, tab, out),
-                    (sa, sb, R, L, phim, na, b2.shape[1]))
+            launch("tensor_product", "fsi_tensor_product", (a2, b2, tab, out),
+                   (sa, sb, R, L, phim, na, b2.shape[1]), int32=True)
         return out
 
 
@@ -224,6 +182,6 @@ def keyswitch_dot(mat, digits, T: dict, wide: bool = False):
         out = torch.empty(shape, dtype=torch.int32, device=digits.device)
         if out.numel():
             R, K, L, phim = dig.shape
-            _launch("keyswitch_dot", "fsi_keyswitch_dot", (mat, dig, tab, out),
-                    (R, L, phim, K))
+            launch("keyswitch_dot", "fsi_keyswitch_dot", (mat, dig, tab, out),
+                   (R, L, phim, K), int32=True)
         return out

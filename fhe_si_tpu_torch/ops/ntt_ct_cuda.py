@@ -25,22 +25,20 @@ splits it cannot take (N x 1 for N prime, as every reference ring
 m = p - 1 past p = 4079 gives, and m = 2^16) never reach these wrappers
 from DeviceContext, which sends them to ops/ntt_ct_matmul.py, chosen by
 kernel_takes before any launch.
-LAUNCHES counts the kernel launches of each wrapper (the plain path does
-not count), SCHEDULES the same launches by the kernel's schedule: the
-ping-pong on asynchronous wgmma where both sides of the split are
-multiples of 64 and two rows fit (m = 8192 and 2^14), the sync schedule
-(mma.sync) on every other split.  ct_ntt.cu chooses it (fsi_ct_schedule);
-kernel_schedule mirrors the rule.
+cuda_build.launch launches the kernel; cuda_build.LAUNCHES counts the
+launches of each wrapper, cuda_build.SCHEDULES the same launches by the
+kernel's schedule: the ping-pong on asynchronous wgmma where both sides
+of the split are multiples of 64 and two rows fit (m = 8192 and 2^14),
+the sync schedule (mma.sync) on every other split.  ct_ntt.cu chooses it
+(fsi_ct_schedule); kernel_schedule mirrors the rule.
 
-The wrappers check what the kernels' exactness rests on (ct_ntt.cu
-header): every prime below 2^23, either residue lane, and keyswitch
-digits of at most 24 bits.  The prime check reads the table's q once
-and marks the tensor, so later launches on the same tables add no
-device-to-host copy.
+What the kernels' exactness rests on (ct_ntt.cu header; the limits of
+cuda_build) is checked on the host: every prime in [2, 2^23), either
+residue lane, by kernel_tables, without whose tables no launch runs;
+keyswitch digits of at most 24 bits by ct_fwd_digits.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
@@ -48,11 +46,8 @@ import torch
 
 from ..profiling import annotate
 from . import ntt_ct
-from .cuda_build import library, on_cuda
+from .cuda_build import MAX_DIGIT_BITS, check_primes, launch, library, on_cuda
 from .ntt_ct import CtMeta
-
-LAUNCHES = {"ct_fwd": 0, "ct_fwd_digits": 0, "ct_inv": 0}
-SCHEDULES = {"pingpong": 0, "sync": 0}
 
 
 # ---------------------------------------------- tensor-core kernel tables
@@ -115,8 +110,10 @@ def kernel_tables(ct: dict) -> dict:
     ntt_ct.ct_tables (and t2i_crt where present): k_<table> byte planes
     of t1, t2, t1i, t2i, t2i_crt; k_tw the forward twiddle transposed to
     the forward transforms' [N2, N1] stage-1 layout, k_twi the inverse one
-    [N1, N2], both with reciprocals; k_consts per prime."""
+    [N1, N2], both with reciprocals; k_consts per prime.  Raises unless
+    every prime lies in [2, 2^23)."""
     q = np.asarray(ct['q'], np.int64).reshape(-1)
+    check_primes("kernel_tables", q.shape, q)
     out = {'k_consts': prime_consts(q),
            'k_tw': twiddle_pairs(np.swapaxes(ct['tw'], 1, 2), q),
            'k_twi': twiddle_pairs(ct['twi'], q)}
@@ -124,31 +121,6 @@ def kernel_tables(ct: dict) -> dict:
         if name in ct:
             out['k_' + name] = byte_planes(ct[name])
     return out
-
-
-def reset_launches():
-    for counts in (LAUNCHES, SCHEDULES):
-        for k in counts:
-            counts[k] = 0
-
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = library("ct_ntt")
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for name in ("fsi_ct_fwd", "fsi_ct_fwd_digits", "fsi_ct_inv"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ptr] * 6 + [i64, i32, i32, i32, ptr]
-        fn.restype = ctypes.c_int
-    lib.fsi_ct_mma_smem.argtypes = [i32, i32]
-    lib.fsi_ct_mma_smem.restype = i64
-    lib.fsi_ct_schedule.argtypes = [i32, i32]
-    lib.fsi_ct_schedule.restype = i32
-    lib.fsi_ct_sync.argtypes = [i32] + [ptr] * 6 + [i64, i32, i32, i32, ptr]
-    lib.fsi_ct_sync.restype = ctypes.c_int
-    lib.fsi_smem_optin.argtypes = []
-    lib.fsi_smem_optin.restype = i32
-    return lib
 
 
 SMEM_MAX = 232448       # ct_ntt.cu kSmemMax: an H100 block's opt-in bytes
@@ -221,50 +193,26 @@ def kernel_takes(meta: CtMeta, limit: int = SMEM_MAX) -> bool:
             and _fits(meta.N1, meta.N2, limit))
 
 
+# the input and the output of a launch (x, four tables, out); the byte
+# planes of the tables are uint8
+_INT32 = (0, 5)
+
+
 @functools.cache
 def _schedule(S: int, R: int) -> str:
-    return ("sync", "pingpong")[_lib().fsi_ct_schedule(S, R)]
+    return ("sync", "pingpong")[library("ct_ntt").fsi_ct_schedule(S, R)]
 
 
-def _launch(name: str, fn, inp, tabs, out, rows, L, meta: CtMeta, S: int,
-            R: int):
-    """Check the operands, launch on the current stream, count the
-    launch and its schedule."""
-    for t in (inp, *tabs, out):
-        if t.device != inp.device or not t.is_contiguous():
-            raise ValueError(f"{name}: operands must be contiguous tensors "
-                             f"on {inp.device}")
-    if inp.dtype != torch.int32 or out.dtype != torch.int32:
-        raise ValueError(f"{name}: input and output must be int32")
-    if rows == 0:
-        return out
-    with torch.cuda.device(inp.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(inp.data_ptr(), *(t.data_ptr() for t in tabs),
-                 out.data_ptr(), rows, L, meta.N1, meta.N2, stream)
-    if err:
-        raise RuntimeError(f"{name}: CUDA error {err} at launch")
-    LAUNCHES[name] += 1
-    SCHEDULES[_schedule(S, R)] += 1
-    return out
-
-
-def _check(name, x, tail: tuple, T: dict):
+def _check(name, x, tail: tuple):
     if tuple(x.shape[-len(tail):]) != tail:
         raise ValueError(f"{name}: expected [..., {', '.join(map(str, tail))}]"
                          f", got {tuple(x.shape)}")
-    q = T['q']
-    if not getattr(q, "_fsi_q_checked", False):
-        if not 2 <= int(q.min()) <= int(q.max()) <= ntt_ct.Q_MAX:
-            raise ValueError(f"{name}: the kernels take primes below "
-                             f"2^{ntt_ct.Q_MAX.bit_length()} only")
-        q._fsi_q_checked = True
 
 
 @functools.cache
 def _smem_limit(device: torch.device) -> int:
     with torch.cuda.device(device):
-        return _lib().fsi_smem_optin()
+        return library("ct_ntt").fsi_smem_optin()
 
 
 def _mma_tables(name, x, T: dict, keys, S: int, R: int):
@@ -286,14 +234,17 @@ def ct_fwd(T: dict, x, meta: CtMeta):
         if not on_cuda(x):
             return ntt_ct.ct_fwd(T, x, meta)
         L = T['q'].shape[0]
-        _check("ct_fwd", x, (L, meta.phim), T)
+        _check("ct_fwd", x, (L, meta.phim))
         tabs = _mma_tables("ct_fwd", x, T,
                            ('k_t2', 'k_t1', 'k_tw', 'k_consts'), meta.N2,
                            meta.N1)
         x = ntt_ct.pad_to_N(x, meta).contiguous()
-        out = _launch("ct_fwd", _lib().fsi_ct_fwd, x, tabs,
-                      torch.empty_like(x), x.numel() // (L * meta.N), L, meta,
-                      meta.N2, meta.N1)
+        out = torch.empty_like(x)
+        if out.numel():
+            launch("ct_fwd", "fsi_ct_fwd", (x, *tabs, out),
+                   (x.numel() // (L * meta.N), L, meta.N1, meta.N2),
+                   int32=_INT32, contiguous=True,
+                   schedule=_schedule(meta.N2, meta.N1))
         return ntt_ct.drop_excluded(out, meta)
 
 
@@ -303,19 +254,21 @@ def ct_fwd_digits(T: dict, digits, meta: CtMeta, digit_bits: int):
     with annotate("fhe.ct_fwd_digits"):
         if not on_cuda(digits):
             return ntt_ct.ct_fwd_digits(T, digits, meta, digit_bits)
-        if digit_bits > ntt_ct.MAX_DIGIT_BITS:
-            raise NotImplementedError(
-                f"digit radix above 2^{ntt_ct.MAX_DIGIT_BITS}")
+        if digit_bits > MAX_DIGIT_BITS:
+            raise NotImplementedError(f"digit radix above 2^{MAX_DIGIT_BITS}")
         L = T['q'].shape[0]
-        _check("ct_fwd_digits", digits, (meta.phim,), T)
+        _check("ct_fwd_digits", digits, (meta.phim,))
         tabs = _mma_tables("ct_fwd_digits", digits, T,
                            ('k_t2', 'k_t1', 'k_tw', 'k_consts'), meta.N2,
                            meta.N1)
         digits = ntt_ct.pad_to_N(digits, meta).contiguous()
         out = torch.empty(digits.shape[:-1] + (L, meta.N), dtype=torch.int32,
                           device=digits.device)
-        out = _launch("ct_fwd_digits", _lib().fsi_ct_fwd_digits, digits, tabs,
-                      out, digits.numel() // meta.N, L, meta, meta.N2, meta.N1)
+        if out.numel():
+            launch("ct_fwd_digits", "fsi_ct_fwd_digits", (digits, *tabs, out),
+                   (digits.numel() // meta.N, L, meta.N1, meta.N2),
+                   int32=_INT32, contiguous=True,
+                   schedule=_schedule(meta.N2, meta.N1))
         return ntt_ct.drop_excluded(out, meta)
 
 
@@ -326,12 +279,15 @@ def ct_inv(T: dict, evals, meta: CtMeta, t2i_key: str = 't2i'):
         if not on_cuda(evals):
             return ntt_ct.ct_inv(T, evals, meta, t2i_key)
         L = T['q'].shape[0]
-        _check("ct_inv", evals, (L, meta.phim), T)
+        _check("ct_inv", evals, (L, meta.phim))
         tabs = _mma_tables("ct_inv", evals, T,
                            ('k_t1i', 'k_' + t2i_key, 'k_twi', 'k_consts'),
                            meta.N1, meta.N2)
         evals = ntt_ct.insert_excluded(evals, meta).contiguous()
-        out = _launch("ct_inv", _lib().fsi_ct_inv, evals, tabs,
-                      torch.empty_like(evals),
-                      evals.numel() // (L * meta.N), L, meta, meta.N1, meta.N2)
+        out = torch.empty_like(evals)
+        if out.numel():
+            launch("ct_inv", "fsi_ct_inv", (evals, *tabs, out),
+                   (evals.numel() // (L * meta.N), L, meta.N1, meta.N2),
+                   int32=_INT32, contiguous=True,
+                   schedule=_schedule(meta.N1, meta.N2))
         return ntt_ct.fold_mod_phim(out, T['q'], meta)

@@ -34,7 +34,7 @@ package bit for bit.
 
 The route is plain torch, not a kernel: it runs on the device of the
 tensors it is handed, the CPU included.  CALLS counts its transforms per
-function, as ntt_ct_cuda.LAUNCHES counts the kernel's, and PRODUCTS the
+function, as cuda_build.LAUNCHES counts the kernel's, and PRODUCTS the
 stage products (ntt.modmatmul calls) each function runs, two a
 transform.  Spans (profiling.annotate): fhe.route_fwd,
 fhe.route_fwd_digits and fhe.route_inv around the three functions, named

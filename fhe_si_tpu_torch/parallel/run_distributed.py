@@ -36,7 +36,7 @@ import torch
 import torch.distributed as dist
 
 from .. import DeviceContext, FheContext, sampling, scheme
-from ..ops import crt_cuda, modular_cuda, ntt_ct_cuda
+from ..ops import cuda_build
 from .mesh import (make_coeff_mesh, make_mesh, shard_batched_parts,
                    shard_matrix)
 from .shard import CoeffShardedPipelines, ShardedPipelines
@@ -120,8 +120,7 @@ def main(argv=None) -> int:
         step = lambda: pipe.batched_mul_relin(a_loc, b_loc, mat_loc)  # noqa: E731
         reduced = None
         _sync(device)
-        for mod in (ntt_ct_cuda, crt_cuda, modular_cuda):
-            mod.reset_launches()
+        cuda_build.reset_launches()
         t0 = time.perf_counter()
         if args.n_coeff:
             out = step()
@@ -129,8 +128,7 @@ def main(argv=None) -> int:
             reduced = pipe.mul_relin_block_reduce(a_loc, b_loc, mat_loc)
         _sync(device)
         first = time.perf_counter() - t0
-        launches = dict(ntt_ct_cuda.LAUNCHES, **crt_cuda.LAUNCHES,
-                        **modular_cuda.LAUNCHES)
+        launches = dict(cuda_build.LAUNCHES)
         if not args.n_coeff:
             out = step()
         best = float("inf")

@@ -107,7 +107,7 @@ def test_unported_configs_raise():
     lane and decompSize >= 4 build (tests/test_torch_dense*.py hold them
     against fhe_si_tpu)."""
     from fhe_si_tpu_torch.doublecrt import DoubleCrt
-    from fhe_si_tpu_torch.ops import ntt_ct_cuda as nc
+    from fhe_si_tpu_torch.ops import cuda_build, ntt_ct_cuda as nc
     with pytest.raises(NotImplementedError, match="prime-power odd part"):
         FheContext(m=3 * 5 * 2048, log_q=80, p=61441, generator=7)
     ctx = FheContext(m=160, log_q=80, p=641, generator=3)
@@ -142,10 +142,10 @@ def test_unported_configs_raise():
     assert dc.ct_route == "matmul"
     T = {k: torch.as_tensor(v)
          for k, v in tct.ct_tables(ctx.m, ctx.primes, ctx.roots)[1].items()}
-    nc.reset_launches()
+    cuda_build.reset_launches()
     ev = nc.ct_fwd(T, x, dc.ct_meta)                  # CPU: the plain version
     assert torch.equal(nc.ct_inv(T, ev, dc.ct_meta), x)
-    assert not any(nc.LAUNCHES.values())
+    assert not any(cuda_build.LAUNCHES.values())
     with pytest.raises(NotImplementedError, match="Cooley-Tukey"):
         DoubleCrt(dc)
 

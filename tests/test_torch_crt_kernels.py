@@ -38,7 +38,7 @@ from fhe_si_tpu.device import device_context
 from fhe_si_tpu.ops import crt as jcrt, limbs as jlb
 from fhe_si_tpu_torch import DeviceContext, FheContext
 from fhe_si_tpu_torch.hostmath import numbth
-from fhe_si_tpu_torch.ops import crt, crt_cuda
+from fhe_si_tpu_torch.ops import crt, crt_cuda, cuda_build
 from fhe_si_tpu_torch.ops.crt_cuda import HEADER, PASS_ROW, ROW_WORDS, Tail
 
 torch.set_num_threads(1)
@@ -528,7 +528,7 @@ def test_kernel_model_at_its_bounds(wide, kernel):
     the model's asserts check the crt.cu header's bounds, and it equals
     the plain versions in every mode."""
     qmax = 1 << (23 if wide else 20)
-    rows, n = crt_cuda.MAX_ROWS, crt_cuda.MAX_LIMBS
+    rows, n = cuda_build.MAX_ROWS, cuda_build.MAX_LIMBS
     primes = np.array(_primes_below(qmax, rows), np.int64)
     rng = np.random.default_rng(14)
     if kernel == "limbs_to_residues":
@@ -602,7 +602,7 @@ def test_pass_model_at_its_bounds(wide, n, tail):
     asserts each bound of the crt.cu header there), then random tables;
     equal to the plain version each time."""
     rng = np.random.default_rng(16)
-    rows = crt_cuda.MAX_ROWS
+    rows = cuda_build.MAX_ROWS
     width = max(1, n - 3)
     t = Tail(tail, 16 * width - 5, width) if tail else None
     for worst in (True, False):
@@ -644,7 +644,7 @@ def test_lift_model_at_odd_and_even_n(wide, n):
     narrow plain version sums 4-bit chunks in int32: n <= 34 there),
     with every limb 0xFFFF and negative values: equal to the plain
     version; the model asserts the header's 2^55 and 2^60."""
-    rows = crt_cuda.MAX_ROWS
+    rows = cuda_build.MAX_ROWS
     primes = np.array(_primes_below(1 << (23 if wide else 20), rows),
                       np.int64)
     rng = np.random.default_rng(17)
@@ -768,7 +768,7 @@ def test_kernel_table_past_its_widths():
     DeviceContext of such a context builds there and runs the plain
     versions."""
     ctx = FheContext(m=256, log_q=800, p=257, generator=3)
-    assert ctx.n_limbs > crt_cuda.MAX_LIMBS
+    assert ctx.n_limbs > cuda_build.MAX_LIMBS
     dc = DeviceContext(ctx, "cpu")
     fc = ctx.fast_crt_tables
     rows, n = fc["B"].shape

@@ -27,7 +27,7 @@ from fhe_si_tpu.hostmath import oracle
 from fhe_si_tpu.ops import ntt_ct as jct
 from fhe_si_tpu_torch import DeviceContext, FheContext, scheme
 from fhe_si_tpu_torch.hostmath import numbth
-from fhe_si_tpu_torch.ops import ntt, ntt_ct as tct, ntt_ct_cuda
+from fhe_si_tpu_torch.ops import cuda_build, ntt, ntt_ct as tct, ntt_ct_cuda
 from fhe_si_tpu_torch.ops import ntt_ct_matmul as route
 
 from test_torch_scheme_ops import run_scheme_parity
@@ -115,7 +115,7 @@ def test_route_matches_jax_on_every_basis(name):
     assert td.ct_route == "matmul" and meta.N2 == 1
     assert tuple(meta) == tuple(jd.ct_meta)
     rng = np.random.default_rng(ctx.m)
-    ntt_ct_cuda.reset_launches()
+    cuda_build.reset_launches()
     route.reset_calls()
     for label, T, JT in _bases(td, jd):
         assert not any(k.startswith("k_") for k in T["ct"]), label
@@ -136,7 +136,7 @@ def test_route_matches_jax_on_every_basis(name):
         assert np.array_equal(got.numpy(), np.asarray(xla_fwd_digits(
             JT["ct"], jnp.asarray(d), jd.ct_meta, 24))), label
     assert route.CALLS == {"ct_fwd": 3, "ct_fwd_digits": 3, "ct_inv": 9}
-    assert not any(ntt_ct_cuda.LAUNCHES.values())
+    assert not any(cuda_build.LAUNCHES.values())
 
 
 def test_route_takes_two_stage_splits_m160():
@@ -225,7 +225,7 @@ def test_m22_forced_scheme_matches_jax_and_oracle():
     ref, ctx, jd, td = _pair("m22")
     out = []
     route.reset_calls()
-    ntt_ct_cuda.reset_launches()
+    cuda_build.reset_launches()
     for sch, c, dev in ((jscheme, ref, ref), (scheme, ctx, td)):
         src = sampling.RandomSource(22)
         sk, pk = sch.keygen(dev, src)
@@ -244,7 +244,7 @@ def test_m22_forced_scheme_matches_jax_and_oracle():
     assert jcts == tcts and jprod == tprod
     assert jdec == tdec == want
     assert td.ct_route == "matmul" and all(route.CALLS.values())
-    assert not any(ntt_ct_cuda.LAUNCHES.values())
+    assert not any(cuda_build.LAUNCHES.values())
     run_scheme_parity(ctx, seed=22)
 
 

@@ -26,8 +26,8 @@ import torch
 
 from fhe_si_tpu_torch import DeviceContext, FheContext, sampling, scheme
 from fhe_si_tpu_torch.hostmath import oracle
-from fhe_si_tpu_torch.ops import (crt, crt_cuda, digits_cuda, modular_cuda,
-                                  ntt_ct, ntt_ct_cuda)
+from fhe_si_tpu_torch.ops import (crt, crt_cuda, cuda_build, digits_cuda,
+                                  modular_cuda, ntt_ct, ntt_ct_cuda)
 
 torch.set_num_threads(1)
 
@@ -43,6 +43,15 @@ DENSE = [pytest.param((22, 80, 23, 7, None), id="m22"),
          pytest.param((22, 80, 23, 7, 23), id="m22-wide"),
          pytest.param((46, 96, 47, 5, None), id="m46"),
          pytest.param((46, 96, 47, 5, 23), id="m46-wide")]
+
+# the wrappers of each kernel source, as cuda_build.LAUNCHES counts them
+NTT = ("ct_fwd", "ct_fwd_digits", "ct_inv")
+CRT = ("crt_to_limbs", "limbs_to_residues")
+MODULAR = ("tensor_product", "keyswitch_dot")
+
+
+def _launched(keys) -> dict:
+    return {k: cuda_build.LAUNCHES[k] for k in keys}
 
 
 @pytest.fixture
@@ -62,7 +71,7 @@ def test_kernels_match_plain(cuda, mp):
     dc = DeviceContext(_ctx(*mp), cuda)
     meta = dc.ct_meta
     rng = np.random.default_rng(8)
-    ntt_ct_cuda.reset_launches()
+    cuda_build.reset_launches()
     for T in (dc.full, dc.ksw, dc.lin):
         q = T["primes_np"]
         x = torch.as_tensor(rng.integers(0, q[:, None], size=(
@@ -78,7 +87,7 @@ def test_kernels_match_plain(cuda, mp):
         assert torch.equal(ntt_ct_cuda.ct_fwd_digits(T["ct"], d, meta, 24),
                            ntt_ct.ct_fwd_digits(T["ct"], d, meta, 24))
     torch.cuda.synchronize()
-    assert all(n > 0 for n in ntt_ct_cuda.LAUNCHES.values())
+    assert all(n > 0 for n in _launched(NTT).values())
 
 
 def _kernel_tables(cuda, m, qs):
@@ -98,7 +107,7 @@ def _all_transforms_match_plain(cuda, meta, T, seed, schedule="sync"):
         RAGGED, len(q), meta.phim)).astype(np.int32), device=cuda)
     d = torch.as_tensor(rng.integers(0, 1 << 24, size=(
         RAGGED, meta.phim)).astype(np.int32), device=cuda)
-    ntt_ct_cuda.reset_launches()
+    cuda_build.reset_launches()
     ev = ntt_ct_cuda.ct_fwd(T, x, meta)
     assert torch.equal(ev, ntt_ct.ct_fwd(T, x, meta))
     assert torch.equal(ntt_ct_cuda.ct_inv(T, ev, meta), x)
@@ -107,10 +116,9 @@ def _all_transforms_match_plain(cuda, meta, T, seed, schedule="sync"):
     assert torch.equal(ntt_ct_cuda.ct_inv(T, ev, meta),
                        ntt_ct.ct_inv(T, ev, meta))
     torch.cuda.synchronize()
-    assert ntt_ct_cuda.LAUNCHES == {"ct_fwd": 1, "ct_fwd_digits": 1,
-                                    "ct_inv": 2}
+    assert _launched(NTT) == {"ct_fwd": 1, "ct_fwd_digits": 1, "ct_inv": 2}
     other = {"sync": "pingpong", "pingpong": "sync"}[schedule]
-    assert ntt_ct_cuda.SCHEDULES == {schedule: 4, other: 0}
+    assert cuda_build.SCHEDULES == {schedule: 4, other: 0}
 
 
 @pytest.mark.cuda
@@ -180,7 +188,7 @@ def test_kernel_shape_rule_matches_card(cuda):
     """check_kernel_shape's shared-memory formula is the kernel's (Geo):
     equal to fsi_ct_mma_smem for every split the tests run, odd sides
     included."""
-    lib = ntt_ct_cuda._lib()
+    lib = cuda_build.library("ct_ntt")
     for S, R in ((2, 2), (4, 5), (5, 4), (3, 3), (3, 9), (9, 3), (8, 10),
                  (81, 81), (80, 128), (128, 80), (64, 64), (64, 128),
                  (128, 64), (128, 128), (128, 256), (1, 11)):
@@ -192,7 +200,7 @@ def test_schedule_rule_matches_card(cuda):
     """kernel_schedule, the Python mirror, is the rule launch_mma applies
     (fsi_ct_schedule), on the splits of every ring the kernel takes and
     around the rule's edges."""
-    lib = ntt_ct_cuda._lib()
+    lib = cuda_build.library("ct_ntt")
     splits = [(S, R) for S in (2, 3, 32, 64, 80, 81, 128, 192, 256)
               for R in (2, 5, 32, 64, 80, 81, 128, 192)]
     for S, R in splits:
@@ -212,7 +220,7 @@ def _sync_schedule(T, x, meta, which, t2i_key="t2i"):
         keys, S, R = ("k_t2", "k_t1", "k_tw", "k_consts"), meta.N2, meta.N1
     out = torch.empty(x.shape[:1] + (L, meta.N), dtype=torch.int32,
                       device=x.device)
-    err = ntt_ct_cuda._lib().fsi_ct_sync(
+    err = cuda_build.library("ct_ntt").fsi_ct_sync(
         int(which == "digits"), x.data_ptr(), *(T[k].data_ptr() for k in keys),
         out.data_ptr(), x.shape[0], L, S, R,
         torch.cuda.current_stream().cuda_stream)
@@ -234,7 +242,7 @@ def test_pingpong_matches_plain_and_sync(cuda, prime_bits):
     meta = dc.ct_meta
     assert ntt_ct_cuda.kernel_schedule(meta.N2, meta.N1) == "pingpong"
     rng = np.random.default_rng(18)
-    ntt_ct_cuda.reset_launches()
+    cuda_build.reset_launches()
     launches = 0
     for T in (dc.full, dc.ksw):
         ct, q = T["ct"], T["primes_np"].astype(np.int64)
@@ -262,7 +270,7 @@ def test_pingpong_matches_plain_and_sync(cuda, prime_bits):
                 assert torch.equal(ed, _sync_schedule(ct, d, meta, "digits"))
                 launches += 4
     torch.cuda.synchronize()
-    assert ntt_ct_cuda.SCHEDULES == {"pingpong": launches, "sync": 0}
+    assert cuda_build.SCHEDULES == {"pingpong": launches, "sync": 0}
 
 @pytest.mark.cuda
 def test_split_with_a_side_of_one_raises(cuda):
@@ -274,14 +282,14 @@ def test_split_with_a_side_of_one_raises(cuda):
     dc = DeviceContext(ctx, cuda)
     T, meta = dc.full["ct"], dc.ct_meta
     x = torch.zeros((2, dc.L, dc.phim), dtype=torch.int32, device=cuda)
-    ntt_ct_cuda.reset_launches()
+    cuda_build.reset_launches()
     for fn in (ntt_ct_cuda.ct_fwd, ntt_ct_cuda.ct_inv):
         with pytest.raises(ValueError,
                            match=r"\(2, 10, 10\) \(N1 x N2 = 11 x 1\)"):
             fn(T, x, meta)
     with pytest.raises(ValueError, match=r"\(2, 10\) \(N1 x N2 = 11 x 1\)"):
         ntt_ct_cuda.ct_fwd_digits(dc.ksw["ct"], x[:, 0], meta, 24)
-    assert not any(ntt_ct_cuda.LAUNCHES.values())
+    assert not any(_launched(NTT).values())
 
 
 # rings whose split the kernel cannot take (N x 1): the matmul route
@@ -306,7 +314,7 @@ def test_matmul_route_on_card_equals_cpu(cuda, ring):
     assert gpu.ct_route == cpu.ct_route == "matmul"
     meta = gpu.ct_meta
     rng = np.random.default_rng(ctx.m)
-    ntt_ct_cuda.reset_launches()
+    cuda_build.reset_launches()
     ntt_ct_matmul.reset_calls()
     for basis in ("full", "ksw", "lin"):
         Tg, Tc = getattr(gpu, basis), getattr(cpu, basis)
@@ -329,9 +337,8 @@ def test_matmul_route_on_card_equals_cpu(cuda, ring):
                                                _slice_round(ctx, cuda))
     torch.cuda.synchronize()
     assert torch.equal(cpu_parts, parts)
-    assert not any(launched[k] for k in ntt_ct_cuda.LAUNCHES)
-    assert all(launched[k] for k in crt_cuda.LAUNCHES)
-    assert all(launched[k] for k in modular_cuda.LAUNCHES)
+    assert not any(launched[k] for k in NTT)
+    assert all(launched[k] for k in CRT + MODULAR)
     assert all(ntt_ct_matmul.CALLS.values())
 
 
@@ -357,8 +364,7 @@ def _slice_round(ctx, device):
     ksw = scheme.KeySwitch.for_relinearization(sk, src)
     msgs = [src.uniform_mod_p(ctx.phim, ctx.p) for _ in range(4)]
     cts = pk.encrypt_batch([scheme.Plaintext(ctx, mm) for mm in msgs], src)
-    for mod in (ntt_ct_cuda, crt_cuda, modular_cuda):
-        mod.reset_launches()
+    cuda_build.reset_launches()
     out = scheme.relin_batch(scheme.mul_batch(list(zip(cts[0::2],
                                                        cts[1::2]))), ksw)
     dec = sk.decrypt_batch(out)
@@ -366,8 +372,7 @@ def _slice_round(ctx, device):
         assert np.array_equal(dec[i].message, oracle.plaintext_mul(
             ctx, msgs[2 * i], msgs[2 * i + 1]))
     return (torch.stack([c.parts for c in out]).cpu(), dec,
-            dict(ntt_ct_cuda.LAUNCHES, **crt_cuda.LAUNCHES,
-                 **modular_cuda.LAUNCHES))
+            _launched(NTT + CRT + MODULAR))
 
 
 @pytest.mark.cuda
@@ -420,9 +425,8 @@ def test_dense_on_card_equals_cpu(cuda, cfg):
     (cpu_parts, _, _), (parts, _, launched) = (_slice_round(ctx, "cpu"),
                                                _slice_round(ctx, cuda))
     assert torch.equal(cpu_parts, parts)
-    assert all(launched[k] == 0 for k in ntt_ct_cuda.LAUNCHES)
-    assert all(launched[k] > 0 for k in crt_cuda.LAUNCHES)
-    assert all(launched[k] > 0 for k in modular_cuda.LAUNCHES)
+    assert all(launched[k] == 0 for k in NTT)
+    assert all(launched[k] > 0 for k in CRT + MODULAR)
 
 
 @pytest.mark.cuda
@@ -435,11 +439,11 @@ def test_app_cli_on_card_matches(cuda, app, tmp_path, capsys):
     cli = importlib.import_module(f"fhe_si_tpu_torch.cli.test_{app}")
     path = str(tmp_path / "data.txt")
     generate(path, 2, 16, seed=5)
-    ntt_ct_cuda.reset_launches()
+    cuda_build.reset_launches()
     assert cli.main(["x", path, "97", "3", "7", "--m=32",
                      f"--device={cuda}"]) == 0
     assert capsys.readouterr().out.rstrip().endswith("MATCH")
-    assert all(n > 0 for n in ntt_ct_cuda.LAUNCHES.values())
+    assert all(n > 0 for n in _launched(NTT).values())
 
 
 def _crt_contexts():
@@ -463,7 +467,7 @@ def test_crt_kernels_match_plain(cuda, which):
     dc = DeviceContext(FheContext(**_crt_contexts()[which]), cuda)
     assert dc.wide == bool(which)
     rng = np.random.default_rng(9)
-    crt_cuda.reset_launches()
+    cuda_build.reset_launches()
     for T in {id(T): T for T in (dc.full, dc.ksw, dc.lin)}.values():
         q, fc = T["primes_np"], T["fast_crt"]
         res = rng.integers(0, q[:, None], size=(RAGGED, len(q), dc.phim))
@@ -488,7 +492,7 @@ def test_crt_kernels_match_plain(cuda, which):
             assert torch.equal(crt_cuda.limbs_to_residues(*args),
                                crt.limbs_to_residues(*args))
     torch.cuda.synchronize()
-    assert all(n > 0 for n in crt_cuda.LAUNCHES.values())
+    assert all(n > 0 for n in _launched(CRT).values())
 
 
 def _synthetic_basis(rows, n, bits, worst, rng, device):
@@ -538,8 +542,8 @@ def test_crt_pass_kernel_at_its_widths(cuda, wide, n):
     (every limb 0xFFFF) with every residue q - 1, then random ones, at a
     phim that leaves a ragged tile."""
     rng = np.random.default_rng(20)
-    rows, width = crt_cuda.MAX_ROWS, n - 3
-    crt_cuda.reset_launches()
+    rows, width = cuda_build.MAX_ROWS, n - 3
+    cuda_build.reset_launches()
     for worst in (True, False):
         primes, t = _synthetic_basis(rows, n, 23 if wide else 20, worst, rng,
                                      cuda)
@@ -555,7 +559,7 @@ def test_crt_pass_kernel_at_its_widths(cuda, wide, n):
             assert torch.equal(crt_cuda.crt_to_limbs(res, t, wide, tail), want)
             assert torch.equal(crt_cuda.crt_finish(*part, t, wide, tail), want)
     torch.cuda.synchronize()
-    assert crt_cuda.LAUNCHES["crt_to_limbs"] == 2 * (1 + 2 * 3)
+    assert cuda_build.LAUNCHES["crt_to_limbs"] == 2 * (1 + 2 * 3)
 
 
 @pytest.mark.cuda
@@ -568,7 +572,7 @@ def test_two_source_lift_on_card(cuda, which):
     dc = DeviceContext(FheContext(**_crt_contexts()[which]), cuda)
     rng = np.random.default_rng(21)
     T, q = dc.full, dc.full["primes_np"]
-    crt_cuda.reset_launches()
+    cuda_build.reset_launches()
     for n in (dc.n_ct, T["fast_crt"]["B"].shape[-1]):
         a = rng.integers(0, 1 << 16, size=(RAGGED, 2, dc.phim, n))
         b = rng.integers(0, 1 << 16, size=(RAGGED, 3, dc.phim, n))
@@ -582,7 +586,7 @@ def test_two_source_lift_on_card(cuda, which):
                            crt.limbs_to_residues(torch.cat([a, b], dim=-3),
                                                  *args))
     torch.cuda.synchronize()
-    assert crt_cuda.LAUNCHES["limbs_to_residues"] == 2
+    assert cuda_build.LAUNCHES["limbs_to_residues"] == 2
 
 
 @pytest.mark.cuda
@@ -638,13 +642,11 @@ def test_mul_relin_wrapper_spans_equal_launches(cuda, ring):
     mat = torch.randint(0, 2, (2, 3 * ctx.ndigits, ctx.num_primes, ctx.phim),
                         dtype=torch.int32, device=cuda)
     dev.mul_relin(a, b, mat)
-    mods = (ntt_ct_cuda, crt_cuda, modular_cuda, digits_cuda)
-    for mod in mods:
-        mod.reset_launches()
+    cuda_build.reset_launches()
     with profiling.counting() as table:
         dev.mul_relin(a, b, mat)
     torch.cuda.synchronize()
-    launched = {k: n for mod in mods for k, n in mod.LAUNCHES.items()}
+    launched = dict(cuda_build.LAUNCHES)
     assert {k: table.get("fhe." + k, [0])[0] for k in launched} == launched
     assert sum(launched.values()) > 0
     assert sum(n for n, _ in table.values()) == 15
@@ -666,10 +668,10 @@ def test_mul_relin_launches_byte_decomp_once(cuda, ring):
                           generator=gen, dtype=torch.int32) for _ in range(2))
     mat = torch.randint(0, 2, (2, 3 * ctx.ndigits, ctx.num_primes, ctx.phim),
                         generator=gen, dtype=torch.int32)
-    digits_cuda.reset_launches()
+    cuda_build.reset_launches()
     got = dev.mul_relin(a.to(cuda), b.to(cuda), mat.to(cuda))
     torch.cuda.synchronize()
-    assert digits_cuda.LAUNCHES == {"byte_decomp": 1}
+    assert cuda_build.LAUNCHES["byte_decomp"] == 1
     assert torch.equal(got.cpu(), cpu.mul_relin(a, b, mat))
 
 
@@ -719,10 +721,10 @@ def test_byte_decomp_matches_plain(cuda, log_q, decomp, n, phim, lead):
     nd = -(-log_q // (8 * decomp))
     for offset in (0, 1):
         cpu, dev = _digit_limbs(rng, lead + (phim, n), offset)
-        digits_cuda.reset_launches()
+        cuda_build.reset_launches()
         got = digits_cuda.byte_decomp(dev, log_q, 8 * decomp, nd)
         torch.cuda.synchronize()
-        assert digits_cuda.LAUNCHES == {"byte_decomp": 1}
+        assert cuda_build.LAUNCHES["byte_decomp"] == 1
         assert got.shape == lead + (nd, phim)
         assert torch.equal(got.cpu(), digits_cuda.byte_decomp_plain(
             cpu, log_q, 8 * decomp, nd))
@@ -756,7 +758,7 @@ def test_byte_decomp_refusals(cuda):
     shape, before any launch: digits above 24 bits, limbs too narrow for
     logQ or wider than 48, a non-contiguous tensor, another dtype."""
     x = torch.zeros((2, 256, 6), dtype=torch.int32, device=cuda)
-    digits_cuda.reset_launches()
+    cuda_build.reset_launches()
     with pytest.raises(ValueError, match=r"\(2, 256, 6\).*32 bits"):
         digits_cuda.byte_decomp(x, 80, 32, 3)
     with pytest.raises(ValueError, match=r"\(2, 256, 6\) for logQ 97"):
@@ -770,7 +772,7 @@ def test_byte_decomp_refusals(cuda):
         digits_cuda.byte_decomp(x.long(), 80, 24, 4)
     with pytest.raises(ValueError, match="primes"):
         digits_cuda.byte_decomp(x, 80, 24, 4, torch.tensor([97], device=cuda))
-    assert digits_cuda.LAUNCHES == {"byte_decomp": 0}
+    assert cuda_build.LAUNCHES["byte_decomp"] == 0
 
 
 @pytest.mark.cuda
@@ -781,15 +783,15 @@ def test_crt_kernel_refusals(cuda):
     the CPU), limbs wider than 48, a tail wider than the value, tables
     without the kernel's basis table."""
     ctx = FheContext(m=256, log_q=800, p=257, generator=3)
-    assert ctx.n_limbs > crt_cuda.MAX_LIMBS
+    assert ctx.n_limbs > cuda_build.MAX_LIMBS
     with pytest.raises(ValueError, match="at most"):
         DeviceContext(ctx, cuda)
     DeviceContext(ctx, "cpu")
     dc = DeviceContext(_ctx(256, 257, None), cuda)
     T, fc = dc.full, dc.full["fast_crt"]
-    crt_cuda.reset_launches()
-    wide = torch.zeros((2, dc.phim, crt_cuda.MAX_LIMBS + 1), dtype=torch.int32,
-                       device=cuda)
+    cuda_build.reset_launches()
+    wide = torch.zeros((2, dc.phim, cuda_build.MAX_LIMBS + 1),
+                       dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match=r"\(2, 128, 49\).*at most"):
         crt_cuda.limbs_to_residues(wide, T["chunk_tbl"],
                                    dc._wrap_const(T["primes_np"], 49), T["q"],
@@ -802,7 +804,7 @@ def test_crt_kernel_refusals(cuda):
     with pytest.raises(ValueError, match="k_crt"):
         crt_cuda.crt_to_limbs(res, {k: v for k, v in fc.items()
                                     if k != "k_crt"})
-    assert all(v == 0 for v in crt_cuda.LAUNCHES.values())
+    assert all(v == 0 for v in _launched(CRT).values())
 
 
 @pytest.mark.cuda
@@ -819,7 +821,7 @@ def test_modular_kernels_match_plain(cuda, mp):
     q - 1), bit for bit."""
     dc = DeviceContext(_ctx(*mp), cuda)
     rng = np.random.default_rng(10)
-    modular_cuda.reset_launches()
+    cuda_build.reset_launches()
 
     def residues(q, *lead):
         x = rng.integers(0, q[:, None], size=lead + (len(q), dc.phim))
@@ -841,7 +843,7 @@ def test_modular_kernels_match_plain(cuda, mp):
                                modular_cuda.keyswitch_dot_plain(mat, dig,
                                                                 *args))
     torch.cuda.synchronize()
-    assert all(n > 0 for n in modular_cuda.LAUNCHES.values())
+    assert all(n > 0 for n in _launched(MODULAR).values())
 
 
 @pytest.mark.cuda
@@ -871,7 +873,7 @@ def test_mul_relin_on_card_launches_modular_kernels(cuda):
             ctx.phim, ctx.p)) for _ in range(4)], src)
         a = torch.stack([c.parts for c in cts[0::2]])
         b = torch.stack([c.parts for c in cts[1::2]])
-        modular_cuda.reset_launches()
+        cuda_build.reset_launches()
         for n in names:
             setattr(modular, n, counted(n))
         try:
@@ -880,7 +882,7 @@ def test_mul_relin_on_card_launches_modular_kernels(cuda):
             for n in names:
                 setattr(modular, n, plain[n])
     torch.cuda.synchronize()
-    assert all(n > 0 for n in modular_cuda.LAUNCHES.values())
+    assert all(n > 0 for n in _launched(MODULAR).values())
     assert not calls
     assert torch.equal(*outs)
 
@@ -892,7 +894,7 @@ def test_modular_kernel_refusals(cuda):
     MAX_TERMS, tables without the kernel table."""
     dc = DeviceContext(_ctx(256, 257, None), cuda)
     T = dc.full
-    modular_cuda.reset_launches()
+    cuda_build.reset_launches()
     x = torch.zeros((2, 5, dc.L, dc.phim), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match=r"1 to 4 parts"):
         modular_cuda.tensor_product(x, x[:, :2], T)
@@ -904,4 +906,4 @@ def test_modular_kernel_refusals(cuda):
     mat = torch.zeros((2, K, dc.L, dc.phim), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="at most 384"):
         modular_cuda.keyswitch_dot(mat, mat[:1], T)
-    assert all(v == 0 for v in modular_cuda.LAUNCHES.values())
+    assert all(v == 0 for v in _launched(MODULAR).values())

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from fhe_si_tpu_torch.hostmath import oracle
-from fhe_si_tpu_torch.ops import digits_cuda
+from fhe_si_tpu_torch.ops import cuda_build, digits_cuda
 
 SEED = 2_718_281_828
 NARROW = [786433, 1032193, 974849, 737281]      # primes below 2^20
@@ -150,11 +150,11 @@ def test_cpu_tensor_counts_no_launch():
     """A CPU tensor takes the plain version: no library is loaded and no
     launch counted; the span is entered once a call."""
     from fhe_si_tpu_torch import profiling
-    digits_cuda.reset_launches()
+    cuda_build.reset_launches()
     x = _limbs(np.random.default_rng(SEED), (2,), 6)
     with profiling.counting() as table:
         digits_cuda.byte_decomp(x, 80, 24, 4)
         digits_cuda.byte_decomp(x, 80, 24, 4, torch.tensor(NARROW,
                                                            dtype=torch.int32))
-    assert digits_cuda.LAUNCHES == {"byte_decomp": 0}
+    assert cuda_build.LAUNCHES["byte_decomp"] == 0
     assert table["fhe.byte_decomp"][0] == 2

@@ -63,7 +63,8 @@ def test_four_ranks_match_one(one, tmp_path):
         assert r["launches"] == {"ct_fwd": 0, "ct_fwd_digits": 0,
                                  "ct_inv": 0, "crt_to_limbs": 0,
                                  "limbs_to_residues": 0,
-                                 "tensor_product": 0, "keyswitch_dot": 0}
+                                 "tensor_product": 0, "keyswitch_dot": 0,
+                                 "byte_decomp": 0}
 
     # the JAX package's shard_map block reduce on the same inputs
     import jax

@@ -19,7 +19,7 @@ import torch
 
 from fhe_si_tpu_torch import DeviceContext, FheContext
 from fhe_si_tpu_torch.hostmath import numbth
-from fhe_si_tpu_torch.ops import ntt_ct, ntt_ct_cuda as nc
+from fhe_si_tpu_torch.ops import cuda_build, ntt_ct, ntt_ct_cuda as nc
 
 torch.set_num_threads(1)
 
@@ -284,6 +284,18 @@ def _prime_tables(m, qs):
     return meta, ct, kt, {k: torch.as_tensor(v) for k, v in kt.items()}
 
 
+@pytest.mark.parametrize("bad", [pytest.param(1 << 23, id="2^23"),
+                                 pytest.param(1, id="1")])
+def test_kernel_tables_refuse_primes_outside_the_kernel(bad):
+    """kernel_tables, without whose tables no launch runs, refuses a prime
+    outside [2, 2^23) on the host primes, with the basis' shape."""
+    _, ct, _, _ = _prime_tables(32, [97, 8257537])
+    ct = dict(ct, q=np.array([[97], [bad]], dtype=ct['q'].dtype))
+    with pytest.raises(ValueError, match=r"kernel_tables: input \(2,\): "
+                       r"the kernel takes primes in \[2, 2\^23\) only"):
+        nc.kernel_tables(ct)
+
+
 @pytest.mark.parametrize("transform", ["ct_fwd", "ct_fwd_digits", "ct_inv"])
 def test_emulated_kernel_equals_plain_m32768(transform):
     """m = 2^15 (N1 = N2 = 128, K = 128 on both stages), the largest
@@ -382,13 +394,13 @@ def test_schedules_count_launches_only():
     """SCHEDULES has one key a schedule, reset_launches zeroes it with
     LAUNCHES, and the plain versions that CPU tensors take count in
     neither."""
-    assert set(nc.SCHEDULES) == {"pingpong", "sync"}
-    nc.SCHEDULES["sync"] += 3
-    nc.reset_launches()
-    assert nc.SCHEDULES == {"pingpong": 0, "sync": 0}
+    assert set(cuda_build.SCHEDULES) == {"pingpong", "sync"}
+    cuda_build.SCHEDULES["sync"] += 3
+    cuda_build.reset_launches()
+    assert cuda_build.SCHEDULES == {"pingpong": 0, "sync": 0}
     meta, ct, _, _ = _prime_tables(32, [97])
     T = {k: torch.as_tensor(v) for k, v in ct.items()}
     x = torch.zeros((2, 1, meta.phim), dtype=torch.int32)
     nc.ct_inv(T, nc.ct_fwd(T, x, meta), meta)
-    assert nc.SCHEDULES == {"pingpong": 0, "sync": 0}
-    assert not any(nc.LAUNCHES.values())
+    assert cuda_build.SCHEDULES == {"pingpong": 0, "sync": 0}
+    assert not any(cuda_build.LAUNCHES.values())

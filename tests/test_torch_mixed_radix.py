@@ -24,7 +24,7 @@ from fhe_si_tpu.hostmath import oracle
 from fhe_si_tpu.ops import ntt_ct as jct
 from fhe_si_tpu_torch import DeviceContext, FheContext, scheme
 from fhe_si_tpu_torch.hostmath import numbth
-from fhe_si_tpu_torch.ops import ntt_ct as tct, ntt_ct_cuda
+from fhe_si_tpu_torch.ops import cuda_build, ntt_ct as tct, ntt_ct_cuda
 
 from test_torch_scheme_ops import run_scheme_parity
 
@@ -77,12 +77,12 @@ def _check_transforms(m, primes, rows, wide=False, seed=0):
     got = tct.ct_fwd_digits(T, torch.from_numpy(d), meta, 24)
     assert np.array_equal(got.numpy(), np.asarray(
         xla_fwd_digits(JT, jnp.asarray(d), jmeta, 24)))
-    ntt_ct_cuda.reset_launches()
+    cuda_build.reset_launches()
     assert torch.equal(ntt_ct_cuda.ct_fwd(T, x, meta), ev)
     assert torch.equal(ntt_ct_cuda.ct_inv(T, ev, meta), x)
     assert torch.equal(ntt_ct_cuda.ct_fwd_digits(T, torch.from_numpy(d),
                                                  meta, 24), got)
-    assert not any(ntt_ct_cuda.LAUNCHES.values())
+    assert not any(cuda_build.LAUNCHES.values())
     return T, meta, d, got
 
 

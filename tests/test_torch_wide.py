@@ -191,15 +191,16 @@ def test_stage_exact_past_the_float64_bound(K, y_bits):
 
 def test_kernel_wrappers_refuse_what_the_kernels_cannot_take():
     """The CUDA wrappers hold the kernels' exactness bounds: primes below
-    2^23 and digits of at most 24 bits."""
+    2^23 (kernel_tables, without whose tables no launch runs) and digits
+    of at most 24 bits."""
     _, td = _devices(32, 97)
     meta = td.ct_meta
-    T = dict(td.full["ct"])
+    T = {k: v.numpy() for k, v in td.full["ct"].items()}
     x = torch.zeros((1, T["q"].shape[0], meta.N), dtype=torch.int32)
-    ntt_ct_cuda._check("ct_fwd", x, tuple(x.shape[1:]), T)
-    T["q"] = T["q"].clone()
+    ntt_ct_cuda.kernel_tables(T)
+    T["q"] = T["q"].copy()
     T["q"][0] = (1 << 23) + 9
-    with pytest.raises(ValueError, match="below 2\\^23"):
-        ntt_ct_cuda._check("ct_fwd", x, tuple(x.shape[1:]), T)
+    with pytest.raises(ValueError, match="2\\^23\\) only"):
+        ntt_ct_cuda.kernel_tables(T)
     with pytest.raises(NotImplementedError, match="2\\^24"):
         tct.ct_fwd_digits(td.full["ct"], x[:, 0], meta, 25)

@@ -10,8 +10,8 @@ prints no result line):
   1. device check: refuses to run without CUDA; prints the card's name
      and power limit as nvidia-smi reports them;
   2. build: compiles the CUDA kernels from fhe_si_tpu_torch/csrc
-     (ct_ntt.cu, crt.cu, modular.cu and digits.cu, one nvcc each, started
-     together)
+     (ct_ntt.cu, crt.cu, modular.cu, digits.cu and route.cu, one nvcc
+     each, started together)
      and prints
      ptxas's report for each kernel (registers, shared memory, spills)
      and, where cuobjdump is found, the static SASS instruction counts of
@@ -149,24 +149,30 @@ prints no result line):
         codec on phase 9's reference-format keys and ciphertexts and an
         m = 8192 ciphertext: the same bytes, both timed;
  11. the matmul route (ops/ntt_ct_matmul.py: exact float64 stage
-     products), which DeviceContext picks for the Cooley-Tukey splits
-     the kernel cannot take, each part with its wall time:
+     products; on a split N x 1 its folded form, one GEMM a transform
+     between the boundary kernels of csrc/route.cu), which DeviceContext
+     picks for the Cooley-Tukey splits the kernel cannot take, each part
+     with its wall time:
      a. at the reference's ring p = 8147 (m = 8146, logQ 170, g = 3:
         4073 x 1, L = 21 narrow): ct_route printed, no kernel table
         built, the route's transforms on the card against the same
         functions on the CPU, bit for bit (forward, raw and prescaled
         inverse, 24-bit digits) on the full chain and both subsets;
      b. mul+relin there at batch 64: every decrypt equal to
-        oracle.plaintext_mul (computed on a pool of processes), no kernel
-        launched, no plain Cooley-Tukey transform, the route's counts
-        moved; then the step and its four stages timed with CUDA events
-        and the route's stage products at the step's shapes against
-        their FP64 bound, the limb/CRT kernels at the step's shapes;
-        peak device memory;
+        oracle.plaintext_mul (computed on a pool of processes), no
+        transform kernel launched, the route's boundary kernels launched,
+        no plain Cooley-Tukey transform, the route's counts moved; then
+        the step and its four stages timed with CUDA events, the
+        limb/CRT, modular and digit kernels at the step's shapes; peak
+        device memory; then, at the route cell's shapes (logQ 188,
+        L = 23, 13 on the keyswitch basis), each transform's route_enter
+        and route_leave held equal to their plain versions on the CPU,
+        then they and its GEMM timed alone (time_route), each against its
+        bound, the kernels beside their plain versions timed on the card;
      c. Test_Statistics at p = 8147 (MATCH) and Test_AddMul 170 8147 3
         --trials 10, the latter in a child process
         (chip_smoke.py --route-cli) started when the phase starts, both
-        on the route with no kernel launched;
+        on the route's folded form with no transform kernel launched;
      d. m = 2^16 (logQ 120, 256 x 128, L = 14 wide): the route on the
         card against the CPU on its full chain and both subsets, and
         mul+relin on 4 pairs, every decrypt right.
@@ -187,8 +193,10 @@ from typing import NamedTuple
 
 import numpy as np
 
+from bench_port import cell as bench_cell
 from bench_port.roofline import (F64_OPS_PER_S, HBM_BYTES_PER_S, crt_bound,
                                  modular_bound, ntt_bound)
+from bench_port.roofline_route import route_bound
 
 SEED = 2024
 RAGGED_ROWS = 37           # no block size divides it
@@ -223,6 +231,8 @@ REF_CANONICAL = dict(m=22, log_q=80, p=23, generator=7)
 # (4073 x 1), and m = 2^16 (256 x 128) at the largest logQ its prime
 # window admits
 ROUTE = dict(m=8146, log_q=170, p=8147, generator=3)
+# the benchmark's route cell's ring (bench_port/configs/route8146_q188.json)
+ROUTE_CELL = bench_cell.load("route8146_q188.b64").config["context"]
 ROUTE_APP = dict(p=8147, generator=3, m=None, dim=4, n=256)
 M16 = dict(m=65536, log_q=120, p=65537, generator=3)
 BATCH16 = 4
@@ -238,6 +248,17 @@ DIGITS = ("byte_decomp",)
 # reconstructs and keyswitches, its digits split by byte_decomp
 # (decompSize <= 3)
 NO_TRANSFORM = CRT + MODULAR + DIGITS
+# the matmul route's boundary kernels (csrc/route.cu), which its folded
+# form (a split N x 1: the rings m = p - 1 past p = 4127) launches around
+# each transform's GEMM; a path on that form launches them besides
+ROUTE_KERNELS = ("route_enter", "route_leave")
+FOLDED = NO_TRANSFORM + ROUTE_KERNELS
+# XLA-fused jnp around the JAX package's stage products, not Pallas
+ROUTE_REPLACES = {
+    "route_enter": "fhe_si_tpu/ops/ntt_ct.py:319-320, :332-333, :350-355, "
+                   ":370-374 (XLA-fused jnp, not Pallas)",
+    "route_leave": "fhe_si_tpu/ops/ntt_ct.py:323, :377-380 (XLA-fused jnp, "
+                   "not Pallas)"}
 KERNELS = {   # wrapper -> (source, the TPU code it replaces)
     "ct_fwd": ("fhe_si_tpu_torch/csrc/ct_ntt.cu", f"{PALLAS}:148"),
     "ct_fwd_digits": ("fhe_si_tpu_torch/csrc/ct_ntt.cu", f"{PALLAS}:137"),
@@ -258,7 +279,8 @@ KERNELS = {   # wrapper -> (source, the TPU code it replaces)
                     "fhe_si_tpu/ops/limbs.py:236 (XLA-fused jnp, not "
                     "Pallas)"),
 }
-MAX_ERR = dict.fromkeys(KERNELS, 0)     # kernel vs plain, over phase 3 on
+# kernel vs plain, over phase 3 on (the route's kernels: time_route)
+MAX_ERR = dict.fromkeys([*KERNELS, *ROUTE_KERNELS], 0)
 
 
 def card_line() -> str:
@@ -324,6 +346,26 @@ def digits_bound(rows: int, n: int, nd: int, lk: int,
     rate.  Its operations (a funnel shift and mask a digit, a product and
     a subtraction a residue) are far below the INT32 rate's bound."""
     nbytes = 4 * rows * phim * (n + nd * max(lk, 1))
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def route_boundary_bound(kernel: str, mode: str, rows: int, L: int,
+                         phim: int, N: int) -> tuple[float, str]:
+    """Least time (ms) the card could take for one call of the matmul
+    route's boundary kernel `kernel` (route_enter, route_leave) around the
+    GEMM of a transform in enter mode `mode`: its operands read and
+    written once each over the HBM rate, 4 B an int32 residue or digit, 8 B
+    a float64 GEMM entry.  route_enter reads [rows, L, phim] residues (or
+    [rows, phim] digits, once for every prime) and writes the [rows, L, N]
+    operand; route_leave reads the [L, N, rows] output and writes
+    [rows, L, phim] residues.  Their few operations an entry (a Shoup
+    product, a float64 quotient and remainder) are far below the INT32
+    and FP64 rates' bounds.  The benchmark has no counterpart: its
+    route_roofline reads the GEMMs alone (bench_port/roofline_route.py)."""
+    n_res = rows * L * phim
+    n_in = rows * phim if mode == "fwd_digits" else n_res
+    nbytes = 8 * rows * L * N + 4 * (n_in if kernel == "route_enter"
+                                     else n_res)
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
@@ -803,7 +845,8 @@ def plain_calls(table: dict, calls: list):
 class PathCounts(NamedTuple):
     """What a block ran besides the kernels (transform_calls)."""
     dense: list      # ops/ntt.modmatmul calls: the dense family's
-    #                  transforms, or the matmul route's stage products
+    #                  transforms, or the two-stage matmul route's stage
+    #                  products (its folded form, N x 1, makes none)
     plain: list      # plain Cooley-Tukey transforms (ops/ntt_ct.py)
     route: dict      # ops/ntt_ct_matmul.CALLS, filled when the block ends
     plain_crt: list  # plain limb/CRT functions on CUDA tensors (PLAIN_CRT)
@@ -831,11 +874,13 @@ def check_launches(label, launches, expect, calls: PathCounts,
     """The kernels in `expect` launched and no other, and no plain
     Cooley-Tukey transform, no plain limb/CRT function (PLAIN_CRT) and no
     plain modular function inside a wrapped mul+relin step
-    (PLAIN_MODULAR) ran on a CUDA tensor.  With route, the block must have run the matmul
-    route (ops/ntt_ct_matmul.py, whose stage products are modmatmul
-    calls) and launched no transform kernel; without, it must not have
-    touched the route, and a run that launched no transform kernel must
-    have gone through the dense transform, and one that did, not."""
+    (PLAIN_MODULAR) ran on a CUDA tensor.  With route, the block must have
+    run the matmul route (ops/ntt_ct_matmul.py) and launched no transform
+    kernel, and either its stage products ran as modmatmul calls or its
+    boundary kernels launched (ROUTE_KERNELS: the folded form), not both;
+    without, it must not have touched the route, and a run that launched
+    no transform kernel must have gone through the dense transform, and
+    one that did, not."""
     n_dense, n_plain = len(calls.dense), len(calls.plain)
     n_crt, n_mod = len(calls.plain_crt), len(calls.plain_modular)
     n_route = sum(calls.route.values())
@@ -848,7 +893,8 @@ def check_launches(label, launches, expect, calls: PathCounts,
             raise AssertionError(f"{label}: {name} launched {n} times")
     ntt = any(name in NTT for name in expect)
     if route:
-        bad = ntt or not n_route or not n_dense
+        folded = any(launches.get(k) for k in ROUTE_KERNELS)
+        bad = ntt or not n_route or folded == bool(n_dense)
     else:
         bad = bool(n_route) or ntt == bool(n_dense)
     if n_plain or n_crt or n_mod or bad:
@@ -1199,7 +1245,7 @@ def check_dense(dc):
     torch.cuda.synchronize()
 
 
-def time_dense(card, calls, label, what="dense transform"):
+def time_dense(card, calls, label):
     """The dense transform (ops/ntt.modmatmul: float64 torch.matmul, then
     mod q) at the shapes of `calls`, the modmatmul calls of one step: each
     distinct (table, input shape) timed on random residues with CUDA
@@ -1229,13 +1275,13 @@ def time_dense(card, calls, label, what="dense transform"):
         t_bytes = ((8 * L * n_out * n_in * len(tab) + 4 * rows * L
                     * (n_in + n_out)) / HBM_BYTES_PER_S * 1e3)
         bound, by = max((t_ops, "operations"), (t_bytes, "bytes"))
-        print(f"[{card}] {what} {label} {tuple(shape)} -> "
+        print(f"[{card}] dense transform {label} {tuple(shape)} -> "
               f"L={L} n_out={n_out}, {len(tab)} matmul(s): {ms:.4f} ms, "
               f"bound {bound:.4f} ms ({by}), share of bound "
               f"{100 * bound / ms:.1f}%, calls per step {n}")
         tot_ms += n * ms
         tot_bound += n * bound
-    print(f"[{card}] {what} {label}: {len(calls)} calls per step, "
+    print(f"[{card}] dense transform {label}: {len(calls)} calls per step, "
           f"{tot_ms:.3f} ms per step against a bound of {tot_bound:.3f} ms")
     return len(calls), tot_ms, tot_bound
 
@@ -1855,7 +1901,9 @@ def phase_sharded(dev, card, main_run, codec):
             raise AssertionError(f"world {label}: block reduce != single rank")
         if w["batched_sha256"] != one["batched_sha256"]:
             raise AssertionError(f"world {label}: batched output != single")
-        if not all(w["launches"].values()):
+        # the m = 8192 step launches every kernel of KERNELS, and no
+        # route boundary kernel (ROUTE_KERNELS)
+        if any((n > 0) != (k in KERNELS) for k, n in w["launches"].items()):
             raise AssertionError(f"world {label}: launches {w['launches']}")
     for label, w in worlds.items():
         if w["batched_sha256"] != w["unsharded_sha256"]:
@@ -1987,11 +2035,132 @@ def check_route(dc, lead_shapes):
                                      "(fwd, inv, inv_crt, digits, round "
                                      f"trip: {same})")
         del tab_cpu
+        form = ("folded: route_enter, one GEMM, route_leave" if 'tw_t2' in tab
+                else f"stages of {len(tab['t1'])} + {len(tab['t2'])} "
+                f"matmul(s) (forward), {len(tab['t2_digits'])} for the digit "
+                "stage")
         print(f"matmul route on the card == CPU: {label} basis={basis} "
-              f"L={len(q_np)} N1xN2={meta.N1}x{meta.N2}, stages of "
-              f"{len(tab['t1'])} + {len(tab['t2'])} matmul(s) (forward), "
-              f"{len(tab['t2_digits'])} for the digit stage")
+              f"L={len(q_np)} N1xN2={meta.N1}x{meta.N2}, {form}")
     torch.cuda.synchronize()
+
+
+def time_route(card, dev, cfg, batch):
+    """The matmul route's folded form at the shapes of one mul+relin step
+    of FheContext(cfg) on `batch` pairs (the four transforms of
+    step_cases), on random operands and the ring's folded twiddles (the
+    GEMM's tables random residues: its time does not depend on them).
+    Each transform's route_enter and route_leave are held equal, bit for
+    bit, to their plain versions (route_cuda.enter_plain, leave_plain) on
+    CPU copies of the same operands, and MAX_ERR keeps the largest
+    difference; then enter, the GEMM and leave are timed alone with CUDA
+    events, three readings of 10 launches, the plain versions on the card
+    in two, and the kernels' device time alone (device_ms).  Each beside
+    its bound: route_boundary_bound for the kernels, the benchmark's
+    route_bound (bench_port/roofline_route.py: the whole transform's, on
+    N x 1 the GEMM's operations and one product an entry) for the GEMM.
+    Returns ((GEMMs per step, ms per step, bound ms per step),
+    {kernel: [(shape, kernel ms, plain ms, bound ms, bound_by, device ms),
+    ...]} in step order)."""
+    import torch
+    from fhe_si_tpu_torch import FheContext
+    from fhe_si_tpu_torch.ops import ntt_ct, route_cuda
+    ctx = FheContext(**cfg)
+    meta, ct = ntt_ct.ct_tables(ctx.m, ctx.primes, ctx.roots)
+    N, phim = meta.N, meta.phim
+    if meta.N2 != 1:
+        raise AssertionError(f"m={ctx.m}: split {meta}, not N x 1")
+    rng = np.random.default_rng(SEED)
+    bases = {"full": np.arange(ctx.num_primes), "ksw": ctx.ksw_rows}
+    steps = [("ct_fwd", "fwd", "full", 4 * batch),
+             ("ct_inv", "inv", "full", 3 * batch),
+             ("ct_inv", "inv", "ksw", 2 * batch),
+             ("ct_fwd_digits", "fwd_digits", "ksw",
+              3 * ctx.ndigits * batch)]
+    rows_out = {k: [] for k in ROUTE_KERNELS}
+    tot_ms = tot_bound = 0.0
+    for name, mode, basis, rows in steps:
+        q = ct['q'][bases[basis]].astype(np.int64)
+        L = len(q)
+        inv = mode == "inv"
+        tw = ct['twi' if inv else 'tw'][bases[basis]][..., 0]
+        one = ct['t2i' if inv else 't2'][bases[basis]][:, 0, 0]
+        tab_cpu = torch.as_tensor(route_cuda.folded_table(tw, one, q))
+        tab = tab_cpu.to(dev)
+        q_cpu = torch.as_tensor(q.astype(np.int32)[:, None])
+        qd = q_cpu.to(dev)
+        if mode == "fwd_digits":
+            x_cpu = rng.integers(0, 1 << 24, (rows, phim))
+        else:
+            x_cpu = rng.integers(0, q[:, None], (rows, L, phim))
+        x_cpu = torch.as_tensor(x_cpu.astype(np.int32))
+        x = x_cpu.to(dev)
+        t1 = (torch.randint(0, int(q.min()), (L, N, N), device=dev)
+              .to(torch.float64))
+        leave_mode = "inv" if inv else "fwd"
+        args = {"route_enter": (x, None if inv else tab, qd, meta, mode),
+                "route_leave": (None, tab if inv else None, qd, meta,
+                                leave_mode)}
+        y = route_cuda.enter(*args["route_enter"])
+        z = torch.matmul(t1, y.permute(1, 2, 0))
+        args["route_leave"] = (z,) + args["route_leave"][1:]
+        cpu = {"route_enter": (x_cpu, None if inv else tab_cpu, q_cpu, meta,
+                               mode),
+               "route_leave": (z.cpu(), tab_cpu if inv else None, q_cpu,
+                               meta, leave_mode)}
+        plain = {"route_enter": route_cuda.enter_plain,
+                 "route_leave": route_cuda.leave_plain}
+        wrapper = {"route_enter": route_cuda.enter,
+                   "route_leave": route_cuda.leave}
+        for k in ROUTE_KERNELS:
+            got = wrapper[k](*args[k]).cpu()
+            want = plain[k](*cpu[k])
+            err = int((got.to(torch.float64) - want.to(torch.float64))
+                      .abs().max())
+            MAX_ERR[k] = max(MAX_ERR[k], err)
+            if got.dtype != want.dtype or err:
+                raise AssertionError(f"{k} of {name} {basis} "
+                                     f"{tuple(args[k][0].shape)}: kernel != "
+                                     f"plain (max abs err {err})")
+        del cpu, got, want
+        gemm_bound = route_bound(name, rows, L, phim, N, meta.N1, meta.N2)
+        pieces = [
+            ("route_enter", lambda: wrapper["route_enter"](
+                *args["route_enter"])) + route_boundary_bound(
+                "route_enter", mode, rows, L, phim, N),
+            ("GEMM", lambda: torch.matmul(t1, y.permute(1, 2, 0)))
+            + gemm_bound,
+            ("route_leave", lambda: wrapper["route_leave"](
+                *args["route_leave"])) + route_boundary_bound(
+                "route_leave", mode, rows, L, phim, N)]
+        for what, fn, bound, by in pieces:
+            for _ in range(2):
+                fn()
+            readings = sorted(cuda_ms(fn, 10) for _ in range(3))
+            ms = readings[1]
+            line = (f"[{card}] matmul route {what} of {name} {basis} "
+                    f"m={ctx.m} ({rows}, {L}, {phim}): {ms:.4f} ms "
+                    f"(readings {', '.join(f'{r:.4f}' for r in readings)})")
+            if what in ROUTE_KERNELS:
+                p_ms = sorted(cuda_ms(lambda: plain[what](*args[what]), 10)
+                              for _ in range(2))[0]
+                d_ms = device_ms(fn)
+                line += (f", plain {p_ms:.4f} ms, device " + (
+                    "not measured (the host was slower than the spin)"
+                    if d_ms is None else f"{d_ms:.4f} ms"))
+                rows_out[what].append((tuple(args[what][0].shape), ms, p_ms,
+                                       bound, by, d_ms))
+            print(f"{line}, bound {bound * 1e3:.1f} us ({by}), share of "
+                  f"bound {100 * bound / ms:.1f}%")
+            tot_ms += ms
+            tot_bound += bound
+        del x, y, z, t1, args
+        torch.cuda.empty_cache()
+    print(f"[{card}] matmul route m={ctx.m} logQ {ctx.log_q} B={batch}: "
+          f"{len(steps)} GEMMs per step, enter + GEMM + leave {tot_ms:.3f} "
+          f"ms per step against a bound of {tot_bound:.3f} ms; boundary "
+          f"kernels == plain, max abs err "
+          f"{max(MAX_ERR[k] for k in ROUTE_KERNELS)}")
+    return (len(steps), tot_ms, tot_bound), rows_out
 
 
 def cli_child(dev, argv) -> int:
@@ -2001,7 +2170,7 @@ def cli_child(dev, argv) -> int:
     oracle products are minutes of host Python."""
     import importlib
     cli = importlib.import_module(f"fhe_si_tpu_torch.cli.{argv[0]}")
-    rc, _, err, _ = run_cli(dev, cli, list(argv), argv[0], NO_TRANSFORM,
+    rc, _, err, _ = run_cli(dev, cli, list(argv), argv[0], FOLDED,
                             route=True)
     sys.stderr.write(err)
     return rc
@@ -2009,8 +2178,9 @@ def cli_child(dev, argv) -> int:
 
 def phase_route(dev, card):
     """Phase 11: the rings on the matmul route (ops/ntt_ct_matmul.py).
-    Returns the route's calls and times per p = 8147 step (time_dense),
-    and the kernel launches of each path, keyed by path."""
+    Returns the route's GEMMs and times per step at the route cell's
+    shapes (time_route), the kernel launches of each path, keyed by path,
+    and time_route's readings of the boundary kernels."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
     import torch
@@ -2051,7 +2221,7 @@ def phase_route(dev, card):
 
             # b. mul+relin at p = 8147, batch 64, the oracle on the pool
             label = f"p={ROUTE['p']} route path"
-            run = lean_path(dev, ROUTE, BATCH, label, expect=NO_TRANSFORM, dc=dc,
+            run = lean_path(dev, ROUTE, BATCH, label, expect=FOLDED, dc=dc,
                             route=True, pool=pool)
             print(f"peak device memory (phase 11a-b): "
                   f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
@@ -2077,7 +2247,7 @@ def phase_route(dev, card):
 
         # c. Test_Statistics at p = 8147 (m = p - 1)
         launches.update(phase_apps(dev, card, ROUTE_APP, "narrow",
-                                   f"_p{ROUTE['p']}", expect=NO_TRANSFORM,
+                                   f"_p{ROUTE['p']}", expect=FOLDED,
                                    route=True,
                                    names=("statistics",)))
         t0 = part("c (Test_Statistics)")
@@ -2097,13 +2267,11 @@ def phase_route(dev, card):
     a, b, _, per_step = time_step(card, dc, pairs, ksw, out, label)
     time_stages(card, dc, a, b, ksw, label)
     time_kernels(card, dev, dc, step_cases(dc, BATCH, ntt=False), per_step)
-    with dense_calls() as calls:
-        dc.mul_relin(a, b, ksw.matrix_evals)
-        torch.cuda.synchronize()
-    step = time_dense(card, calls, f"m={dc.ctx.m} B={BATCH}",
-                      what="matmul route stage product")
+    del run, dc, ksw, pairs, out, a, b
+    torch.cuda.empty_cache()
+    step, route_rows = time_route(card, dev, ROUTE_CELL, BATCH)
     part("b (timing)")
-    return step, launches
+    return step, launches, route_rows
 
 
 def main() -> int:
@@ -2220,7 +2388,8 @@ def main() -> int:
 
     # 11. the matmul route: the splits the kernel cannot take
     t0 = time.perf_counter()
-    (n_route, route_ms, route_bound), route_launches = phase_route(dev, card)
+    ((n_route, route_ms, route_bound_ms), route_launches,
+     route_rows) = phase_route(dev, card)
     print(f"phase 11 wall time: {time.perf_counter() - t0:.2f} s")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -2247,6 +2416,35 @@ def main() -> int:
             m32768_bound_ms=m15_ms[name][0][3],
             m20480_ms=mixed_ms[name][0][1], m20480_plain_ms=mixed_ms[name][0][2],
             m20480_bound_ms=mixed_ms[name][0][3]))
+    # the matmul route's boundary kernels: the forward's shapes of the route
+    # cell's step lead, every transform's in route_cell; no other timed
+    # path runs them
+    for name in ROUTE_KERNELS:
+        by_path = dict(mul_relin=launches[name],
+                       mul_relin_m32768=launches15[name],
+                       mul_relin_m20480=mixed_launches[name],
+                       npz_m8192=npz_launches[name],
+                       mul_relin_sharded=sharded_launches[name],
+                       **{path: n[name] for path, n in
+                          (app_launches | dense_launches
+                           | route_launches).items()})
+        _, k_ms, p_ms, b_ms, b_by, d_ms = route_rows[name][0]
+        kernels.append(dict(
+            name=name, route="cuda", source="fhe_si_tpu_torch/csrc/route.cu",
+            replaces=ROUTE_REPLACES[name],
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            max_abs_err=MAX_ERR[name], ms=k_ms, plain_ms=p_ms,
+            bound_ms=b_ms, bound_by=b_by, device_ms=d_ms,
+            bound_by_config=f"m={ROUTE_CELL['m']} logQ "
+            f"{ROUTE_CELL['log_q']} B={BATCH}",
+            route_cell=[dict(shape=list(shape), ms=k, plain_ms=p, bound_ms=b,
+                             device_ms=d)
+                        for shape, k, p, b, _, d in route_rows[name]],
+            # no PyTorch call reduces a float64 GEMM's output mod q with a
+            # twiddle and the phim <-> N steps, nor builds its operand so
+            library_ms=None, wide_ms=None, wide_plain_ms=None,
+            m32768_ms=None, m32768_plain_ms=None, m32768_bound_ms=None,
+            m20480_ms=None, m20480_plain_ms=None, m20480_bound_ms=None))
 
     # not a kernel of the port: the XLA einsum of the JAX package
     # (fhe_si_tpu/ops/ntt.py modmatmul) is plain float64 torch.matmul here
@@ -2256,13 +2454,15 @@ def main() -> int:
         bound_by_config=f"m={BIG['m']} B={BATCH}")}))
     # nor is the matmul route: the XLA stage products of the JAX package
     # (fhe_si_tpu/ops/ntt_ct.py ct_fwd, ct_fwd_digits, ct_inv) as float64
-    # torch.matmul, on the splits the tensor-core kernel cannot take
+    # torch.matmul, on the splits the tensor-core kernel cannot take (on
+    # N x 1, one a transform between the kernels of csrc/route.cu)
     print(json.dumps({"matmul_route": dict(
         source="fhe_si_tpu_torch/ops/ntt_ct_matmul.py",
         replaces="fhe_si_tpu/ops/ntt_ct.py:327-380 (XLA, not Pallas)",
         matmuls_per_step=n_route, ms_per_step=route_ms,
-        bound_ms_per_step=route_bound,
-        library="torch.matmul", bound_by_config=f"m={ROUTE['m']} B={BATCH}")}))
+        bound_ms_per_step=route_bound_ms, library="torch.matmul",
+        bound_by_config=f"m={ROUTE_CELL['m']} logQ {ROUTE_CELL['log_q']} "
+        f"B={BATCH}")}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,8 @@ narrow chain runs out), for any p below 2^30 and any decompSize:
     versions for CPU tensors; "matmul" (the splits the kernel cannot
     take: N x 1 for N prime, m = 2^16) through ops/ntt_ct_matmul.py,
     exact float64 stage products on either device, as the JAX package
-    runs those splits on XLA;
+    runs those splits on XLA (on N x 1 one GEMM a transform between the
+    boundary kernels of ops/route_cuda.py on CUDA tensors);
   - every other ring with phim <= 4096 (m = p - 1 of the reference,
     m = 22, 46, 31, ...) rides the dense family: one phim x phim table
     per prime and direction (FheContext.ntt_tables), run as exact

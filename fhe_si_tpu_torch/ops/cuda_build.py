@@ -1,9 +1,9 @@
 """The build of the Hopper kernels of fhe_si_tpu_torch/csrc/ and the one
 seam through which the wrappers (ops/ntt_ct_cuda.py, ops/crt_cuda.py,
-ops/modular_cuda.py, ops/digits_cuda.py) reach them.  Each source
-csrc/<name>.cu (CUDA C++ for sm_90a, a plain C interface) becomes one
-library, compiled by nvcc into fhe_si_tpu_torch/_build/ the first time
-it is needed and loaded with ctypes by `library`, whose first call
+ops/modular_cuda.py, ops/digits_cuda.py, ops/route_cuda.py) reach them.
+Each source csrc/<name>.cu (CUDA C++ for sm_90a, a plain C interface)
+becomes one library, compiled by nvcc into fhe_si_tpu_torch/_build/ the
+first time it is needed and loaded with ctypes by `library`, whose first call
 compiles every source at once, as `build` does, and which declares the
 library's entry points from ENTRIES.  Nothing is compiled or loaded at
 import, so this module imports on a machine without nvcc.
@@ -49,6 +49,8 @@ ENTRIES = {
     "modular": {"fsi_tensor_product": [_P] * 4 + [_LL] * 2 + [_I] * 5 + [_P],
                 "fsi_keyswitch_dot": [_P] * 4 + [_I] * 4 + [_P]},
     "digits": {"fsi_byte_decomp": [_P] * 3 + [_I] * 7 + [_P]},
+    "route": {"fsi_route_enter": [_P] * 4 + [_I] * 4 + [_P],
+              "fsi_route_leave": [_P] * 4 + [_I] * 4 + [_P]},
 }
 RESTYPES = {"fsi_ct_mma_smem": _LL}
 SOURCES = tuple(ENTRIES)
@@ -69,7 +71,8 @@ MAX_DIGIT_BITS = 24     # digits below 2^24: ct_ntt.cu's byte planes,
 # launches of each wrapper, and of the transforms by the kernel's schedule
 LAUNCHES = dict.fromkeys(("ct_fwd", "ct_fwd_digits", "ct_inv", "crt_to_limbs",
                           "limbs_to_residues", "tensor_product",
-                          "keyswitch_dot", "byte_decomp"), 0)
+                          "keyswitch_dot", "byte_decomp", "route_enter",
+                          "route_leave"), 0)
 SCHEDULES = {"pingpong": 0, "sync": 0}
 
 

@@ -18,29 +18,42 @@ chosen from the split before any launch (DeviceContext.ct_route):
 
 The tables, the stage order and the phim <-> N steps (pad_to_N,
 drop_excluded, insert_excluded, fold_mod_phim) are those of
-ops/ntt_ct.py; only the stage products differ.  Each stage is one
-ntt.modmatmul (a float64 torch.matmul per prime, lead dims folded into
-its columns, then mod q) on operands that stage_operands makes once from
-the integer tables, the twiddle an int64 product mod q.  A stage sums
-n_in products of a table entry below q_max and an input in [0, y_max]
-(a residue, or a keyswitch digit below 2^24); ntt.needs_split decides
-from that bound, n_in * y_max * (q_max - 1) < 2^53, whether one matmul
-is exact or the table is split at 12 bits into two.  So at p = 8147
-(narrow lane, n_in = 4073) every stage is one matmul, while at m = 2^16
-(wide lane) the residue stage over 256 terms and the digit stage over
-128 split.  Every output is the canonical residue in [0, q), so the route
-equals the plain versions of ops/ntt_ct.py, the kernel and the JAX
-package bit for bit.
+ops/ntt_ct.py; only the stage products differ.  A stage sums n_in
+products of a table entry below q_max and an input in [0, y_max] (a
+residue, or a keyswitch digit below 2^24); ntt.needs_split decides from
+that bound, n_in * y_max * (q_max - 1) < 2^53, whether one matmul is
+exact or the table is split at 12 bits into two.  Every output is the
+canonical residue in [0, q), so the route equals the plain versions of
+ops/ntt_ct.py, the kernel and the JAX package bit for bit.  Two forms,
+chosen by stage_operands from the split and that bound and seen by the
+transforms in the tables it builds:
 
-The route is plain torch, not a kernel: it runs on the device of the
-tensors it is handed, the CPU included.  CALLS counts its transforms per
-function, as cuda_build.LAUNCHES counts the kernel's, and PRODUCTS the
-stage products (ntt.modmatmul calls) each function runs, two a
-transform.  Spans (profiling.annotate): fhe.route_fwd,
+  - N x 1 with one exact N x N matmul (the rings m = p - 1; p = 8147:
+    narrow lane, 4073 terms): stage 1 is a 1 x 1 table, one residue per
+    prime, folded into the twiddle on the host (route_cuda.folded_table:
+    tw * t2, twi * t2i, twi * t2i_crt).  A transform is three steps:
+    route_cuda.enter (pad or insert, the folded twiddle, the float64
+    operand), one torch.matmul of the t1 or t1i operand batched over the
+    primes, route_cuda.leave (the reduction mod q, the folded inverse
+    twiddle, drop or fold).  On a CUDA tensor enter and leave are the
+    kernels of csrc/route.cu; on the CPU their plain versions.
+  - every other split (m = 2^16, m = 4 * 2053, an N x 1 ring whose chain
+    bound splits the N x N table): two stage products, each one
+    ntt.modmatmul (a float64 torch.matmul per prime, lead dims folded
+    into its columns, then mod q), the twiddle an int64 product mod q
+    between them, the phim <-> N steps of ops/ntt_ct.py around them; at
+    m = 2^16 (wide lane) the residue stage over 256 terms and the digit
+    stage over 128 split.
+
+CALLS counts the route's transforms per function, as cuda_build.LAUNCHES
+counts the kernels', and PRODUCTS the stage products (GEMMs, each a
+torch.matmul) each function runs: one a transform on the folded form,
+two on the other.  Spans (profiling.annotate): fhe.route_fwd,
 fhe.route_fwd_digits and fhe.route_inv around the three functions, named
-apart from the kernel wrappers' fhe.ct_*; inside them fhe.route_twiddle
-around each twiddle and fhe.route_reindex around each phim <-> N step,
-beside the stage products' own fhe.modmatmul.
+apart from the kernel wrappers' fhe.ct_*; inside them, on the folded
+form, route_cuda's fhe.route_enter and fhe.route_leave; on the other,
+fhe.route_twiddle around each twiddle and fhe.route_reindex around each
+phim <-> N step, beside the stage products' own fhe.modmatmul.
 """
 from __future__ import annotations
 
@@ -48,7 +61,7 @@ import numpy as np
 import torch
 
 from ..profiling import annotate
-from . import ntt
+from . import ntt, route_cuda
 from .ntt_ct import (MAX_DIGIT_BITS, CtMeta, drop_excluded, fold_mod_phim,
                      insert_excluded, pad_to_N)
 
@@ -73,7 +86,19 @@ def stage_operands(ct_np: dict, q_max: int, device) -> dict:
     q_max:
 
       q          [L, 1] int32 primes
-      t1 t2 t1i t2i t2i_crt   modmatmul operands of each table
+      t1 t1i     modmatmul operands of each table (ops/ntt.operands)
+
+    On a split N x 1 whose N x N product is one exact matmul (the folded
+    form, module header), then the folded twiddles
+    (route_cuda.folded_table, [2, L, N] int32):
+
+      tw_t2        tw * t2, the forward's and the digits'
+      twi_t2i      twi * t2i, the raw inverse's
+      twi_t2i_crt  twi * t2i_crt, the CRT-prescaled inverse's
+
+    On any other split, then:
+
+      t2 t2i t2i_crt   modmatmul operands of each table
       t2_digits  the operands of t2 stacked over the primes, [1, L*N2, N2],
                  for prime-independent digits below 2^24 (one product
                  for every prime); q_digits [1, L*N2] its row primes
@@ -82,14 +107,25 @@ def stage_operands(ct_np: dict, q_max: int, device) -> dict:
       twi        [N2, L, N1] int64, the inverse one in [j2, L, c1]
     """
     q = np.asarray(ct_np['q'], np.int64).reshape(-1)
-    L, N2 = len(q), ct_np['t2'].shape[-1]
+    L, (N1, N2) = len(q), ct_np['tw'].shape[-2:]
+    folded = N2 == 1 and not ntt.needs_split(N1, q_max)
+    keys = ('t1', 't1i') if folded else ('t1', 't2', 't1i', 't2i', 't2i_crt')
     out = {k: ntt.device_operands((ct_np[k][l:l + 1] for l in range(L)), L,
                                   q_max, device)
-           for k in ('t1', 't2', 't1i', 't2i', 't2i_crt') if k in ct_np}
+           for k in keys if k in ct_np}
+    out['q'] = torch.as_tensor(q.astype(np.int32)[:, None], device=device)
+    if folded:
+        out['tw_t2'] = torch.as_tensor(route_cuda.folded_table(
+            ct_np['tw'][..., 0], ct_np['t2'][:, 0, 0], q), device=device)
+        for k in ('t2i', 't2i_crt'):
+            if k in ct_np:
+                out['twi_' + k] = torch.as_tensor(route_cuda.folded_table(
+                    ct_np['twi'][..., 0], ct_np[k][:, 0, 0], q),
+                    device=device)
+        return out
     out['t2_digits'] = tuple(
         t.to(device) for t in ntt.operands(
             np.asarray(ct_np['t2']).reshape(1, L * N2, N2), q_max, DIGIT_MAX))
-    out['q'] = torch.as_tensor(q.astype(np.int32)[:, None], device=device)
     out['q_digits'] = torch.as_tensor(np.repeat(q, N2).astype(np.int32)[None],
                                       device=device)
     out['tw'] = torch.as_tensor(np.ascontiguousarray(np.transpose(
@@ -97,6 +133,26 @@ def stage_operands(ct_np: dict, q_max: int, device) -> dict:
     out['twi'] = torch.as_tensor(np.ascontiguousarray(np.transpose(
         ct_np['twi'], (2, 0, 1))).astype(np.int64), device=device)
     return out
+
+
+def _folded(T: dict, x, meta: CtMeta, mode: str, tab):
+    """A transform of the folded form (module header): route_cuda.enter in
+    `mode` ("fwd", "fwd_digits", "inv"), one GEMM of t1 (t1i for "inv")
+    batched over the primes, route_cuda.leave; tab the folded twiddle,
+    the forward's on entry, the inverse's on leaving.  x [..., L, phim],
+    or [..., phim] digits -> [..., L, phim]."""
+    inv = mode == "inv"
+    keep = 1 if mode == "fwd_digits" else 2
+    lead = x.shape[:-keep]
+    q = T['q']
+    y = route_cuda.enter(x.reshape((-1,) + x.shape[-keep:]),
+                         None if inv else tab, q, meta, mode)  # [R, L, N]
+    PRODUCTS["ct_" + mode] += 1
+    z = torch.matmul(T['t1i' if inv else 't1'][0],
+                     y.permute(1, 2, 0))                     # [L, N, R]
+    return route_cuda.leave(z, tab if inv else None, q, meta,
+                            "inv" if inv else "fwd").reshape(
+        lead + (q.shape[0], meta.phim))
 
 
 def _product(name: str, tab, x, q):
@@ -165,6 +221,8 @@ def ct_fwd(T: dict, x, meta: CtMeta):
     x int32 [..., L, phim] in [0, q) -> [..., L, phim]."""
     with annotate("fhe.route_fwd"):
         CALLS["ct_fwd"] += 1
+        if 'tw_t2' in T:
+            return _folded(T, x, meta, "fwd", T['tw_t2'])
         return _reindex(drop_excluded, ct_fwd_n(
             T, _reindex(pad_to_N, x, meta), meta), meta)
 
@@ -176,6 +234,8 @@ def ct_fwd_digits(T: dict, digits, meta: CtMeta, digit_bits: int):
         raise NotImplementedError(f"digit radix above 2^{MAX_DIGIT_BITS}")
     with annotate("fhe.route_fwd_digits"):
         CALLS["ct_fwd_digits"] += 1
+        if 'tw_t2' in T:
+            return _folded(T, digits, meta, "fwd_digits", T['tw_t2'])
         return _reindex(drop_excluded, ct_fwd_digits_n(
             T, _reindex(pad_to_N, digits, meta), meta), meta)
 
@@ -186,6 +246,8 @@ def ct_inv(T: dict, evals, meta: CtMeta, t2i_key: str = 't2i'):
     CRT premultiplier."""
     with annotate("fhe.route_inv"):
         CALLS["ct_inv"] += 1
+        if 'tw_t2' in T:
+            return _folded(T, evals, meta, "inv", T['twi_' + t2i_key])
         return _reindex(fold_mod_phim, ct_inv_n(
             T, _reindex(insert_excluded, evals, meta), meta, t2i_key),
             T['q'], meta)

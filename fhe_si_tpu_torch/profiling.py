@@ -30,8 +30,9 @@ fhe.byte_decomp, fhe.ct_fwd_digits, fhe.ct_inv, fhe.tensor_product,
 fhe.keyswitch_dot) or the dense transform (fhe.modmatmul), around the
 whole wrapper; on the matmul route (ops/ntt_ct_matmul.py) its three
 transforms (fhe.route_fwd, fhe.route_fwd_digits, fhe.route_inv) and,
-inside them, each twiddle (fhe.route_twiddle) and phim <-> N step
-(fhe.route_reindex).  They go to one sink: an open counting() table, else a
+inside them, on a split N x 1 the boundary kernels' wrappers
+(fhe.route_enter, fhe.route_leave), on any other split each twiddle
+(fhe.route_twiddle) and phim <-> N step (fhe.route_reindex).  They go to one sink: an open counting() table, else a
 recording torch.profiler capture (a user_annotation event on the clock
 of the card's kernels).  With neither, a span is one shared no-op
 context and costs two global reads.

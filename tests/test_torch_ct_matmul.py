@@ -29,6 +29,7 @@ from fhe_si_tpu_torch import DeviceContext, FheContext, scheme
 from fhe_si_tpu_torch.hostmath import numbth
 from fhe_si_tpu_torch.ops import cuda_build, ntt, ntt_ct as tct, ntt_ct_cuda
 from fhe_si_tpu_torch.ops import ntt_ct_matmul as route
+from fhe_si_tpu_torch.ops import route_cuda
 
 from test_torch_scheme_ops import run_scheme_parity
 
@@ -117,8 +118,12 @@ def test_route_matches_jax_on_every_basis(name):
     rng = np.random.default_rng(ctx.m)
     cuda_build.reset_launches()
     route.reset_calls()
+    route.reset_products()
     for label, T, JT in _bases(td, jd):
         assert not any(k.startswith("k_") for k in T["ct"]), label
+        # the folded form: no 1 x 1 stage operands are kept
+        assert {"tw_t2", "twi_t2i", "twi_t2i_crt"} <= set(T["ct"]), label
+        assert not {"t2", "t2i", "t2_digits", "tw"} & set(T["ct"]), label
         q = T["primes_np"]
         x = rng.integers(0, q[:, None], (3, len(q), ctx.phim)).astype(np.int32)
         ev = route.ct_fwd(T["ct"], torch.from_numpy(x), meta)
@@ -136,6 +141,7 @@ def test_route_matches_jax_on_every_basis(name):
         assert np.array_equal(got.numpy(), np.asarray(xla_fwd_digits(
             JT["ct"], jnp.asarray(d), jd.ct_meta, 24))), label
     assert route.CALLS == {"ct_fwd": 3, "ct_fwd_digits": 3, "ct_inv": 9}
+    assert route.PRODUCTS == route.CALLS     # one GEMM a transform
     assert not any(cuda_build.LAUNCHES.values())
 
 
@@ -152,8 +158,11 @@ def test_route_takes_two_stage_splits_m160():
     binv = np.array([3, 5, 7])
     ct = tct.with_crt_premultiplier(ct, binv)
     T = route.stage_operands(ct, max(primes), "cpu")
+    assert "tw_t2" not in T and {"t2", "t2_digits", "tw", "twi"} <= set(T)
     JT = jt.pack()
     rng = np.random.default_rng(160)
+    route.reset_calls()
+    route.reset_products()
     x = rng.integers(0, np.array(primes)[:, None], (2, 3, 3, 64)).astype(
         np.int32)
     ev = route.ct_fwd(T, torch.from_numpy(x), meta)
@@ -171,6 +180,8 @@ def test_route_takes_two_stage_splits_m160():
     assert np.array_equal(
         route.ct_fwd_digits(T, torch.from_numpy(d), meta, 24).numpy(),
         np.asarray(xla_fwd_digits(JT, jnp.asarray(d), jt.meta, 24)))
+    assert route.CALLS == {"ct_fwd": 1, "ct_fwd_digits": 1, "ct_inv": 4}
+    assert route.PRODUCTS == {k: 2 * n for k, n in route.CALLS.items()}
     with pytest.raises(NotImplementedError, match="digit radix"):
         route.ct_fwd_digits(T, torch.from_numpy(d), meta, 25)
 
@@ -188,6 +199,163 @@ def test_stage_split_follows_the_chain_bound(n_in, q_max, y_max, split):
     assert ntt.needs_split(n_in, q_max, y_max) is split
     tab = np.full((1, 2, n_in), q_max - 1, np.int64)
     assert len(ntt.operands(tab, q_max, y_max)) == 1 + split
+
+
+@pytest.mark.parametrize("m,p,g", [(22, 23, 7), (4126, 4127, 5)])
+def test_folded_tables_equal_numpy_products(m, p, g):
+    """stage_operands on a split N x 1 keeps no 1 x 1 stage: its folded
+    twiddles equal tw * t2, twi * t2i and twi * t2i_crt mod q, computed
+    here in Python integers, each beside its Shoup quotient
+    floor(w * 2^32 / q), on the context's tables and on the same tables
+    with random residues in place of the 1 x 1 stages (on the rings
+    m = p - 1 t2 is 1 and t2i is 1/N, so the fold is not an identity
+    only there)."""
+    ctx = FheContext(m=m, log_q=80, p=p, generator=g)
+    meta, ct = tct.ct_tables(m, ctx.primes, ctx.roots)
+    assert (meta.N2, meta.q_odd, meta.phim) == (1, meta.N, meta.N - 1)
+    ct = tct.with_crt_premultiplier(ct, ctx.fast_crt_tables["binv"])
+    q = [int(v) for v in ct["q"]]
+    rng = np.random.default_rng(m)
+    shuffled = dict(ct, **{k: rng.integers(
+        0, np.array(q)[:, None, None], (len(q), 1, 1)).astype(np.int32)
+        for k in ("t2", "t2i", "t2i_crt")})
+    for tabs in (ct, shuffled):
+        T = route.stage_operands(tabs, max(q), "cpu")
+        assert not {"t2", "t2i", "t2i_crt", "t2_digits", "tw", "twi"} \
+            & set(T)
+        for key, tw, one in (("tw_t2", "tw", "t2"), ("twi_t2i", "twi", "t2i"),
+                             ("twi_t2i_crt", "twi", "t2i_crt")):
+            got = T[key].numpy()
+            assert got.shape == (2, len(q), meta.N) and got.dtype == np.int32
+            for l, ql in enumerate(q):
+                want = [int(w) * int(tabs[one][l, 0, 0]) % ql
+                        for w in tabs[tw][l, :, 0]]
+                assert got[0, l].tolist() == want, (key, l)
+                assert got[1, l].view(np.uint32).tolist() == [
+                    (w << 32) // ql for w in want], (key, l)
+
+
+def test_folded_plain_boundaries_at_their_edges():
+    """route_cuda's plain enter and leave (what the CPU runs and the
+    card's kernels are held to) against Python integers at m = 4126
+    (2063 x 1): residues at q - 1, digits at 2^24 - 1, GEMM outputs up to
+    N (q - 1)^2, the padded column, the excluded evaluation u0 and the
+    fold's signs."""
+    ctx = FheContext(**M4126)
+    meta, ct = tct.ct_tables(ctx.m, ctx.primes, ctx.roots)
+    q = np.asarray(ct["q"], np.int64)
+    L, N, phim, u0 = len(q), meta.N, meta.phim, meta.u0
+    tw = route_cuda.folded_table(ct["tw"][..., 0], ct["t2"][:, 0, 0], q)
+    twi = route_cuda.folded_table(ct["twi"][..., 0], ct["t2i"][:, 0, 0], q)
+    qt = torch.from_numpy(q.astype(np.int32)[:, None])
+    rng = np.random.default_rng(4126)
+    R = 3
+    x = rng.integers(0, q[:, None], (R, L, phim))
+    x[0] = q[:, None] - 1
+    d = rng.integers(0, 1 << 24, (R, phim))
+    d[0] = (1 << 24) - 1
+    y = route_cuda.enter_plain(torch.from_numpy(x.astype(np.int32)),
+                               torch.from_numpy(tw), qt, meta, "fwd").numpy()
+    assert y.dtype == np.float64 and y.shape == (R, L, N)
+    assert np.array_equal(y[..., :phim], x * tw[0][:, :phim] % q[:, None])
+    assert not y[..., phim:].any()
+    y = route_cuda.enter_plain(torch.from_numpy(d.astype(np.int32)),
+                               torch.from_numpy(tw), qt, meta,
+                               "fwd_digits").numpy()
+    assert np.array_equal(y[..., :phim],
+                          d[:, None, :] * tw[0][:, :phim] % q[:, None])
+    assert not y[..., phim:].any()
+    y = route_cuda.enter_plain(torch.from_numpy(x.astype(np.int32)), None,
+                               qt, meta, "inv").numpy()
+    assert np.array_equal(np.delete(y, u0, axis=-1), x)
+    assert not y[..., u0].any()
+    # GEMM outputs [L, N, R]: random below N (q - 1)^2, row 0 at the top
+    top = N * (q - 1) ** 2
+    assert top.max() < 1 << 53
+    z = (rng.random((L, N, R)) * top[:, None, None]).astype(np.int64)
+    z[..., 0] = top[:, None]
+    zr = np.transpose(z % q[:, None, None], (2, 0, 1))      # [R, L, N]
+    got = route_cuda.leave_plain(torch.from_numpy(z.astype(np.float64)),
+                                 None, qt, meta, "fwd").numpy()
+    assert np.array_equal(got, np.delete(zr, u0, axis=-1))
+    got = route_cuda.leave_plain(torch.from_numpy(z.astype(np.float64)),
+                                 torch.from_numpy(twi), qt, meta,
+                                 "inv").numpy()
+    w = zr * twi[0] % q[:, None]
+    sign = np.where(np.arange(phim) % 2 == 0, -1, 1)
+    assert np.array_equal(got, (w[..., :phim] + sign * w[..., phim:])
+                          % q[:, None])
+
+
+@pytest.mark.parametrize("q", [2, 3, 11, 4127 * 2 + 1, 786433, 1032193,
+                               (1 << 20) - 3, 8257537, (1 << 23) - 15])
+def test_route_kernel_arithmetic_model(q):
+    """csrc/route.cu's two reductions, modelled in numpy at their widths:
+    leave's float64 v mod q (t = floor(v * fl(1/q)), r = v - t q, which
+    the kernel's fma computes exactly) lands in [-q, 2q) before its one
+    correction each way, for GEMM outputs over [0, 2^53) (the extremes,
+    multiples of q and their neighbours among them); enter's and leave's
+    Shoup product of x < 2^32 by w < q lands in [0, 2q) before its one
+    subtraction."""
+    rng = np.random.default_rng(q)
+    v = rng.integers(0, 1 << 53, 20000, dtype=np.int64)
+    k = rng.integers(0, (1 << 53) // q, 2000, dtype=np.int64)
+    v = np.concatenate([v, k * q, k * q + 1, k * q - 1,
+                        [0, 1, (1 << 53) - 1, (1 << 53) - 2,
+                         (1 << 53) // q * q]])
+    v = v[(v >= 0) & (v < 1 << 53)]
+    t = np.floor(v.astype(np.float64) * (1.0 / q)).astype(np.int64)
+    r = v - t * q
+    assert r.min() >= -q and r.max() < 2 * q
+    r = np.where(r < 0, r + q, r)
+    r = np.where(r >= q, r - q, r)
+    assert np.array_equal(r, v % q)
+    x = np.concatenate([rng.integers(0, 1 << 32, 5000, dtype=np.uint64),
+                        np.array([0, (1 << 24) - 1, q - 1, (1 << 32) - 1],
+                                 np.uint64)])
+    w = rng.integers(0, q, x.size, dtype=np.uint64)
+    w[:3] = q - 1
+    ws = (w << np.uint64(32)) // np.uint64(q)
+    qhat = (x * ws) >> np.uint64(32)            # umulhi: x, ws < 2^32
+    got = (x * w - qhat * np.uint64(q)) & np.uint64(0xFFFFFFFF)
+    assert got.max() < 2 * q
+    got = np.where(got >= q, got - np.uint64(q), got)
+    assert np.array_equal(got, x * w % np.uint64(q))
+
+
+# the route cell's step at batch 64 (m = 8146: N = 4073, phim 4072; 23
+# primes, 13 on the keyswitch basis, 8 digits): (enter mode, rows, L, GB
+# both boundary kernels move, rounded as the route's byte table gives it)
+ROUTE_CELL_BYTES = [("fwd", 256, 23, 0.58), ("fwd_digits", 1536, 13, 1.65),
+                    ("inv", 192, 23, 0.43), ("inv", 128, 13, 0.16)]
+
+
+@pytest.mark.parametrize("mode,rows,L,gb", ROUTE_CELL_BYTES)
+def test_route_boundary_bounds_count_the_cell_bytes(mode, rows, L, gb):
+    """chip_smoke.route_boundary_bound, the boundary kernels' yardstick
+    (the benchmark has none), counts each operand once: 4 B an int32
+    residue in and out (the digits once for every prime), 8 B the
+    float64 GEMM operand written and its output read, over 3.35 TB/s."""
+    import chip_smoke
+    N, phim = 4073, 4072
+    n_in = rows * phim if mode == "fwd_digits" else rows * L * phim
+    want = {"route_enter": 4 * n_in + 8 * rows * L * N,
+            "route_leave": 8 * rows * L * N + 4 * rows * L * phim}
+    for kernel, nbytes in want.items():
+        ms, by = chip_smoke.route_boundary_bound(kernel, mode, rows, L, phim,
+                                                N)
+        assert by == "bytes"
+        assert ms * 3.35e9 == pytest.approx(nbytes, rel=1e-12)
+    assert round(sum(want.values()) / 1e9, 2) == gb
+
+
+def test_route_boundary_bounds_sum_to_the_cell_bound():
+    """The four transforms' boundary bytes: about 2.8 GB, 0.84 ms a call."""
+    import chip_smoke
+    ms = sum(chip_smoke.route_boundary_bound(k, mode, rows, L, 4072, 4073)[0]
+             for mode, rows, L, _ in ROUTE_CELL_BYTES
+             for k in ("route_enter", "route_leave"))
+    assert round(ms, 2) == 0.84
 
 
 def test_forced_route_on_a_power_of_two_ring(monkeypatch):

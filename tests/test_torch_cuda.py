@@ -1,7 +1,9 @@
 """The port on a CUDA card: the three transform kernels against their
 plain PyTorch versions on both residue lanes, on power-of-two and
 mixed-radix rings (odd N1 among them), the splits the kernel refuses and
-the matmul route that takes them, the two limb/CRT kernels
+the matmul route that takes them (its boundary kernels, ops/route_cuda.py,
+against their plain versions at the route cell's shapes), the two
+limb/CRT kernels
 (ops/crt_cuda.py) in every mode against their plain versions and the
 shapes they refuse, the two evaluation-domain kernels
 (ops/modular_cuda.py: the tensor product, the keyswitch dot) against
@@ -20,10 +22,13 @@ is absent:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
 
+from bench_port import cell as bench_cell
 from fhe_si_tpu_torch import DeviceContext, FheContext, sampling, scheme
 from fhe_si_tpu_torch.hostmath import oracle
 from fhe_si_tpu_torch.ops import (crt, crt_cuda, cuda_build, digits_cuda,
@@ -304,8 +309,8 @@ ROUTE_RINGS = [pytest.param((dict(m=22, log_q=80, p=23, generator=7), True),
 def test_matmul_route_on_card_equals_cpu(cuda, ring):
     """m = 22 with use_ct forced (11 x 1) and the reference's m = 4126
     (2063 x 1) ride the matmul route: its transforms of every basis and
-    the mul+relin round on the card equal the CPU's, and no kernel
-    launches."""
+    the mul+relin round on the card equal the CPU's, and no transform
+    kernel launches."""
     from fhe_si_tpu_torch.ops import ntt_ct_matmul
     kw, force = ring
     ctx = FheContext(**kw)
@@ -340,6 +345,146 @@ def test_matmul_route_on_card_equals_cpu(cuda, ring):
     assert not any(launched[k] for k in NTT)
     assert all(launched[k] for k in CRT + MODULAR)
     assert all(ntt_ct_matmul.CALLS.values())
+
+
+# the route cell's ring (bench_port/configs/route8146_q188.json): 4073 x 1,
+# 23 narrow primes, 13 on the keyswitch basis, 8 digits
+ROUTE_CELL = bench_cell.load("route8146_q188.b64").config["context"]
+ROUTE = ("route_enter", "route_leave")
+
+
+@functools.cache
+def _route_cell_tables():
+    """The route cell's folded twiddles on the host, as
+    ntt_ct_matmul.stage_operands makes them (route_cuda.folded_table),
+    for the full chain and the keyswitch basis: {basis: (meta, q, tw_t2,
+    twi_t2i, twi_t2i_crt)}, numpy."""
+    from fhe_si_tpu_torch.ops import route_cuda
+    ctx = FheContext(**ROUTE_CELL)
+    meta, ct = ntt_ct.ct_tables(ctx.m, ctx.primes, ctx.roots)
+    out = {}
+    for basis, rows, binv in (
+            ("full", np.arange(ctx.num_primes), ctx.fast_crt_tables["binv"]),
+            ("ksw", ctx.ksw_rows, ctx.ksw_fast_crt_tables["binv"])):
+        tabs = ntt_ct.with_crt_premultiplier(
+            {k: v[rows] for k, v in ct.items()}, binv)
+        q = tabs["q"].astype(np.int64)
+        out[basis] = (meta, q) + tuple(
+            route_cuda.folded_table(tabs[tw][..., 0], tabs[k][:, 0, 0], q)
+            for tw, k in (("tw", "t2"), ("twi", "t2i"), ("twi", "t2i_crt")))
+    return out
+
+
+# the route cell's four transforms at batch 64: (enter mode, basis, rows)
+ROUTE_STEPS = [pytest.param("fwd", "full", 4 * 64, id="fwd-256x23"),
+               pytest.param("inv", "full", 3 * 64, id="inv-192x23"),
+               pytest.param("inv", "ksw", 2 * 64, id="inv-128x13"),
+               pytest.param("fwd_digits", "ksw", 3 * 8 * 64,
+                            id="digits-1536x13")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,basis,rows", ROUTE_STEPS)
+def test_route_boundary_kernels_match_plain(cuda, mode, basis, rows):
+    """route_enter_kernel and route_leave_kernel (csrc/route.cu) at the
+    route cell's shapes against their plain versions on the CPU, bit for
+    bit: residues at q - 1 and digits at 2^24 - 1 in row 0, the padded
+    column and the excluded evaluation (enter); GEMM outputs random below
+    N (q - 1)^2 with row 0 at that top, the dropped evaluation and the
+    folded columns with both inverse tables (leave).  One launch each."""
+    from fhe_si_tpu_torch.ops import route_cuda
+    meta, q, tw, twi, twi_crt = _route_cell_tables()[basis]
+    L, N = len(q), meta.N
+    rng = np.random.default_rng(rows * L)
+    qc = torch.as_tensor(q.astype(np.int32)[:, None])
+    if mode == "fwd_digits":
+        x = rng.integers(0, 1 << 24, (rows, meta.phim))
+        x[0] = (1 << 24) - 1
+    else:
+        x = rng.integers(0, q[:, None], (rows, L, meta.phim))
+        x[0] = q[:, None] - 1
+    x = torch.as_tensor(x.astype(np.int32))
+    tab = None if mode == "inv" else torch.as_tensor(tw)
+    cuda_build.reset_launches()
+    y = route_cuda.enter(x.to(cuda), None if tab is None else tab.to(cuda),
+                         qc.to(cuda), meta, mode)
+    assert torch.equal(y.cpu(), route_cuda.enter_plain(x, tab, qc, meta, mode))
+    top = N * (q - 1) ** 2
+    z = (rng.random((L, N, rows)) * top[:, None, None]).astype(np.int64)
+    z[..., 0] = top[:, None]
+    z = torch.as_tensor(z.astype(np.float64))
+    leave = "fwd" if mode == "fwd_digits" else mode
+    tabs = [None] if leave == "fwd" else [torch.as_tensor(twi),
+                                          torch.as_tensor(twi_crt)]
+    for t in tabs:
+        got = route_cuda.leave(z.to(cuda), None if t is None else t.to(cuda),
+                               qc.to(cuda), meta, leave)
+        assert torch.equal(got.cpu(),
+                           route_cuda.leave_plain(z, t, qc, meta, leave))
+    torch.cuda.synchronize()
+    assert _launched(ROUTE) == {"route_enter": 1, "route_leave": len(tabs)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ring", ROUTE_RINGS)
+def test_mul_relin_route_launches_boundary_kernels(cuda, ring):
+    """One mul_relin on the route's folded form (11 x 1 forced, 2063 x 1)
+    runs each of its four transforms as one route_enter launch, one GEMM
+    (PRODUCTS: one a transform) and one route_leave launch, no transform
+    kernel, and equals the CPU's step."""
+    from fhe_si_tpu_torch.ops import ntt_ct_matmul
+    kw, force = ring
+    ctx = FheContext(**kw)
+    ctx.use_ct = ctx.use_ct or force
+    dev, cpu = DeviceContext(ctx, cuda), DeviceContext(ctx, "cpu")
+    assert "tw_t2" in dev.full["ct"]
+    gen = torch.Generator().manual_seed(ctx.m)
+    a, b = (torch.randint(0, 1 << 16, (2, 2, ctx.phim, ctx.n_limbs_ct),
+                          generator=gen, dtype=torch.int32) for _ in range(2))
+    mat = torch.randint(0, 2, (2, 3 * ctx.ndigits, ctx.num_primes, ctx.phim),
+                        generator=gen, dtype=torch.int32)
+    cuda_build.reset_launches()
+    ntt_ct_matmul.reset_calls()
+    ntt_ct_matmul.reset_products()
+    got = dev.mul_relin(a.to(cuda), b.to(cuda), mat.to(cuda))
+    torch.cuda.synchronize()
+    assert _launched(ROUTE) == {"route_enter": 4, "route_leave": 4}
+    assert not any(_launched(NTT).values())
+    assert ntt_ct_matmul.CALLS == {"ct_fwd": 1, "ct_fwd_digits": 1,
+                                   "ct_inv": 2}
+    assert ntt_ct_matmul.PRODUCTS == ntt_ct_matmul.CALLS
+    assert torch.equal(got.cpu(), cpu.mul_relin(a, b, mat))
+
+
+@pytest.mark.cuda
+def test_route_boundary_kernel_refusals(cuda):
+    """The wrappers raise, with the shape, before any launch: a split
+    that is not N x 1, an operand of the wrong type or shape, a table of
+    the wrong shape, more primes than the kernels take."""
+    from fhe_si_tpu_torch.ops import route_cuda
+    meta = ntt_ct.CtMeta(11, 1, 10, 11)
+    q = torch.full((3, 1), 23, dtype=torch.int32, device=cuda)
+    tab = torch.zeros((2, 3, 11), dtype=torch.int32, device=cuda)
+    x = torch.zeros((2, 3, 10), dtype=torch.int32, device=cuda)
+    z = torch.zeros((3, 11, 2), dtype=torch.float64, device=cuda)
+    cuda_build.reset_launches()
+    with pytest.raises(ValueError, match=r"route_enter: input \(2, 3, 10\).*"
+                       r"N x 1"):
+        route_cuda.enter(x, tab, q, ntt_ct.CtMeta(5, 2, 10, 11), "fwd")
+    with pytest.raises(ValueError, match=r"route_enter: input \(2, 3, 10\) "
+                       r"torch.int64"):
+        route_cuda.enter(x.long(), tab, q, meta, "fwd")
+    with pytest.raises(ValueError, match=r"route_enter: input \(2, 3, 10\)"):
+        route_cuda.enter(x, tab, q, meta, "fwd_digits")
+    with pytest.raises(ValueError, match=r"route_leave: table \(2, 3, 10\)"):
+        route_cuda.leave(z, tab[..., :10], q, meta, "inv")
+    with pytest.raises(ValueError, match=r"route_leave: input \(3, 11, 2\) "
+                       r"torch.float32"):
+        route_cuda.leave(z.float(), tab, q, meta, "inv")
+    wide = torch.full((65, 1), 23, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="65 primes"):
+        route_cuda.leave(z, None, wide, meta, "fwd")
+    assert not any(_launched(ROUTE).values())
 
 
 @pytest.mark.cuda

@@ -64,7 +64,8 @@ def test_four_ranks_match_one(one, tmp_path):
                                  "ct_inv": 0, "crt_to_limbs": 0,
                                  "limbs_to_residues": 0,
                                  "tensor_product": 0, "keyswitch_dot": 0,
-                                 "byte_decomp": 0}
+                                 "byte_decomp": 0, "route_enter": 0,
+                                 "route_leave": 0}
 
     # the JAX package's shard_map block reduce on the same inputs
     import jax

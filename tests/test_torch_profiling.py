@@ -200,15 +200,15 @@ def test_mul_relin_spans_nest_in_device_trace(tmp_path):
     assert got == want
 
 
-# the spans of one mul_relin on the matmul route: its three transforms
-# (1 forward, 2 inverse, 1 of the digits), each with two stage products
-# (fhe.modmatmul), one twiddle and two phim <-> N steps
+# the spans of one mul_relin on the matmul route's folded form (11 x 1):
+# its four transforms (1 forward, 2 inverse, 1 of the digits), each an
+# enter (fhe.route_enter), one GEMM (no span of its own) and a leave
+# (fhe.route_leave)
 ROUTE_WRAPPERS = {"fhe.limbs_to_residues": 1, "fhe.route_fwd": 1,
                   "fhe.tensor_product": 1, "fhe.route_inv": 2,
                   "fhe.crt_to_limbs": 2, "fhe.byte_decomp": 1,
                   "fhe.route_fwd_digits": 1, "fhe.keyswitch_dot": 1,
-                  "fhe.modmatmul": 8, "fhe.route_twiddle": 4,
-                  "fhe.route_reindex": 8}
+                  "fhe.route_enter": 4, "fhe.route_leave": 4}
 M22_ROUTE = (22, 80, 23, 7, True)       # use_ct forced: 11 x 1
 # the transform spans of one route step, one entry per call
 ROUTE_TRANSFORMS = ("fhe.route_fwd", "fhe.route_inv", "fhe.route_fwd_digits",
@@ -231,15 +231,15 @@ def test_mul_relin_route_spans(monkeypatch):
         plain = dev.mul_relin(a, b, mat)
     assert ntt_ct_matmul.CALLS == {"ct_fwd": 1, "ct_fwd_digits": 1,
                                    "ct_inv": 2}
-    assert ntt_ct_matmul.PRODUCTS == {"ct_fwd": 2, "ct_fwd_digits": 2,
-                                      "ct_inv": 4}
+    assert ntt_ct_matmul.PRODUCTS == {"ct_fwd": 1, "ct_fwd_digits": 1,
+                                      "ct_inv": 2}
     with profiling.counting() as table:
         out = dev.mul_relin(a, b, mat)
     assert torch.equal(out, plain)
     counts = {name: n for name, (n, _) in table.items()}
     assert counts == dict(dict.fromkeys(STAGES, 1), **ROUTE_WRAPPERS)
-    assert ntt_ct_matmul.PRODUCTS == {"ct_fwd": 4, "ct_fwd_digits": 4,
-                                      "ct_inv": 8}
+    assert ntt_ct_matmul.PRODUCTS == {"ct_fwd": 2, "ct_fwd_digits": 2,
+                                      "ct_inv": 4}
     ns = {name: t for name, (_, t) in table.items()}
     for route in ("fhe.route_fwd", "fhe.route_fwd_digits", "fhe.route_inv"):
         assert 0 < ns[route] <= ns["fhe.mul_relin"]
@@ -249,8 +249,7 @@ def test_mul_relin_route_spans(monkeypatch):
 
 def test_mul_relin_route_spans_nest_in_device_trace(tmp_path):
     """The route step's spans in a Chrome trace: each transform inside
-    the stage that calls it, each stage product, twiddle and phim <-> N
-    step inside a transform."""
+    the stage that calls it, each enter and leave inside a transform."""
     dev, a, b, mat = _step(*M22_ROUTE)
     with profiling.device_trace(str(tmp_path)):
         dev.mul_relin(a, b, mat)
@@ -264,10 +263,8 @@ def test_mul_relin_route_spans_nest_in_device_trace(tmp_path):
         return min(around, key=lambda o: o["dur"])["name"] if around else None
 
     got = sorted((e["name"], parent(e)) for e in spans)
-    inner = [("fhe.modmatmul", t) for t in ROUTE_TRANSFORMS for _ in range(2)]
-    inner += [("fhe.route_twiddle", t) for t in ROUTE_TRANSFORMS]
-    inner += [("fhe.route_reindex", t) for t in ROUTE_TRANSFORMS
-              for _ in range(2)]
+    inner = [(s, t) for t in ROUTE_TRANSFORMS
+             for s in ("fhe.route_enter", "fhe.route_leave")]
     want = sorted([("fhe.mul_relin", None)]
                   + [(s, "fhe.mul_relin") for s in STAGES[1:]]
                   + [("fhe.limbs_to_residues", "fhe.tensor_mul"),
@@ -281,3 +278,34 @@ def test_mul_relin_route_spans_nest_in_device_trace(tmp_path):
                      ("fhe.route_inv", "fhe.keyswitch"),
                      ("fhe.crt_to_limbs", "fhe.keyswitch")] + inner)
     assert got == want
+
+
+# the route's spans of one mul_relin on a split with two non-trivial
+# stages (m = 256, 16 x 8, forced onto the route): each transform two
+# stage products (fhe.modmatmul), one twiddle and two phim <-> N steps
+TWO_STAGE_ROUTE = dict(ROUTE_WRAPPERS, **{
+    "fhe.route_enter": 0, "fhe.route_leave": 0, "fhe.modmatmul": 8,
+    "fhe.route_twiddle": 4, "fhe.route_reindex": 8})
+
+
+def test_mul_relin_two_stage_route_spans(monkeypatch):
+    """m = 256 on the matmul route (ntt_ct_cuda.kernel_takes refused, as
+    tests/test_torch_ct_matmul.py forces it): no 1 x 1 stage to fold, so
+    each transform runs two stage products, counted in PRODUCTS, under
+    the route's fhe.modmatmul, fhe.route_twiddle and fhe.route_reindex
+    spans, and no fhe.route_enter or fhe.route_leave."""
+    from fhe_si_tpu_torch.ops import ntt_ct_cuda
+    monkeypatch.setattr(ntt_ct_cuda, "kernel_takes", lambda meta: False)
+    dev, a, b, mat = _step(256, 80, 257, 3)
+    assert dev.ct_route == "matmul" and "tw_t2" not in dev.full["ct"]
+    ntt_ct_matmul.reset_calls()
+    ntt_ct_matmul.reset_products()
+    with profiling.counting() as table:
+        dev.mul_relin(a, b, mat)
+    assert ntt_ct_matmul.CALLS == {"ct_fwd": 1, "ct_fwd_digits": 1,
+                                   "ct_inv": 2}
+    assert ntt_ct_matmul.PRODUCTS == {"ct_fwd": 2, "ct_fwd_digits": 2,
+                                      "ct_inv": 4}
+    counts = {name: n for name, (n, _) in table.items()}
+    want = {k: n for k, n in TWO_STAGE_ROUTE.items() if n}
+    assert counts == dict(dict.fromkeys(STAGES, 1), **want)

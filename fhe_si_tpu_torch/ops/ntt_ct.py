@@ -28,7 +28,11 @@ the degree<N result mod Phi_m by one signed block fold (fold_mod_phim,
 X^(phim+r) = sum_{i<q-1} (-1)^(i+1) X^(i*s+r), s = N/q).  The fold is
 linear, so the CRT premultiplier of t2i_crt may sit before it.  The CUDA
 wrappers run the same helpers around the kernel, which computes only the
-N-point transform.
+N-point transform.  Where they do work (q_odd > 1) each helper opens a
+span of its own name (profiling.annotate: fhe.pad_to_N, fhe.drop_excluded,
+fhe.insert_excluded, fhe.fold_mod_phim) and counts its calls in
+PHIM_STEPS; on m = 2^k they return their input, with no span and no
+count.  A mixed-radix mul+relin counts 2 of each.
 
 The tables are kept as int32 integers (the JAX package splits them into
 int8 digit planes for the MXU, 6 of them on the narrow lane, 9 on the
@@ -57,6 +61,7 @@ import torch
 import torch.nn.functional as F
 
 from ..hostmath import numbth
+from ..profiling import annotate
 from .modular import mod_add
 
 Q_MAX = (1 << 23) - 1    # every chain prime lies below 2^23 (either lane)
@@ -183,11 +188,22 @@ def with_crt_premultiplier(tabs: dict, binv) -> dict:
 
 
 # ------------------------------------------------- phim <-> N (module header)
+PHIM_STEPS = {"pad_to_N": 0, "drop_excluded": 0, "insert_excluded": 0,
+              "fold_mod_phim": 0}
+
+
+def reset_phim_steps():
+    for k in PHIM_STEPS:
+        PHIM_STEPS[k] = 0
+
+
 def pad_to_N(x, meta: CtMeta):
     """[..., phim] coefficients or digits -> [..., N], zeros on top."""
     if meta.q_odd == 1:
         return x
-    return F.pad(x, (0, meta.N - meta.phim))
+    PHIM_STEPS["pad_to_N"] += 1
+    with annotate("fhe.pad_to_N"):
+        return F.pad(x, (0, meta.N - meta.phim))
 
 
 def drop_excluded(full, meta: CtMeta):
@@ -195,22 +211,26 @@ def drop_excluded(full, meta: CtMeta):
     coprime to m (u mod q != u0): a reshape and a column slice."""
     if meta.q_odd == 1:
         return full
-    q, u0 = meta.q_odd, meta.u0
-    g = full.reshape(full.shape[:-1] + (meta.N // q, q))
-    return torch.cat([g[..., :u0], g[..., u0 + 1:]], dim=-1).reshape(
-        full.shape[:-1] + (meta.phim,))
+    PHIM_STEPS["drop_excluded"] += 1
+    with annotate("fhe.drop_excluded"):
+        q, u0 = meta.q_odd, meta.u0
+        g = full.reshape(full.shape[:-1] + (meta.N // q, q))
+        return torch.cat([g[..., :u0], g[..., u0 + 1:]], dim=-1).reshape(
+            full.shape[:-1] + (meta.phim,))
 
 
 def insert_excluded(evals, meta: CtMeta):
     """Inverse of drop_excluded: a zero column at the excluded residue."""
     if meta.q_odd == 1:
         return evals
-    q, u0 = meta.q_odd, meta.u0
-    g = evals.reshape(evals.shape[:-1] + (meta.N // q, q - 1))
-    z = torch.zeros(g.shape[:-1] + (1,), dtype=evals.dtype,
-                    device=evals.device)
-    return torch.cat([g[..., :u0], z, g[..., u0:]], dim=-1).reshape(
-        evals.shape[:-1] + (meta.N,))
+    PHIM_STEPS["insert_excluded"] += 1
+    with annotate("fhe.insert_excluded"):
+        q, u0 = meta.q_odd, meta.u0
+        g = evals.reshape(evals.shape[:-1] + (meta.N // q, q - 1))
+        z = torch.zeros(g.shape[:-1] + (1,), dtype=evals.dtype,
+                        device=evals.device)
+        return torch.cat([g[..., :u0], z, g[..., u0:]], dim=-1).reshape(
+            evals.shape[:-1] + (meta.N,))
 
 
 def fold_mod_phim(z, q, meta: CtMeta):
@@ -218,16 +238,18 @@ def fold_mod_phim(z, q, meta: CtMeta):
     header).  z: residues [..., L, N] in [0, q), q: the primes [L]."""
     if meta.q_odd == 1:
         return z
-    qo, phim = meta.q_odd, meta.phim
-    s = meta.N - phim
-    head = z[..., :phim].reshape(z.shape[:-1] + (qo - 1, s))
-    tail = z[..., None, phim:]                       # [..., L, 1, s]
-    qd = q.reshape(-1, 1, 1)
-    # block i takes the tail with sign (-1)^(i+1): -, +, -, ...; as an
-    # addend, q - tail (in [1, q]) on the minus blocks
-    neg = (torch.arange(qo - 1, device=z.device) % 2 == 0)[:, None]
-    folded = mod_add(head, torch.where(neg, qd - tail, tail), qd)
-    return folded.reshape(z.shape[:-1] + (phim,))
+    PHIM_STEPS["fold_mod_phim"] += 1
+    with annotate("fhe.fold_mod_phim"):
+        qo, phim = meta.q_odd, meta.phim
+        s = meta.N - phim
+        head = z[..., :phim].reshape(z.shape[:-1] + (qo - 1, s))
+        tail = z[..., None, phim:]                       # [..., L, 1, s]
+        qd = q.reshape(-1, 1, 1)
+        # block i takes the tail with sign (-1)^(i+1): -, +, -, ...; as
+        # an addend, q - tail (in [1, q]) on the minus blocks
+        neg = (torch.arange(qo - 1, device=z.device) % 2 == 0)[:, None]
+        folded = mod_add(head, torch.where(neg, qd - tail, tail), qd)
+        return folded.reshape(z.shape[:-1] + (phim,))
 
 
 # ------------------------------------------------------------ plain versions

@@ -32,7 +32,11 @@ whole wrapper; on the matmul route (ops/ntt_ct_matmul.py) its three
 transforms (fhe.route_fwd, fhe.route_fwd_digits, fhe.route_inv) and,
 inside them, on a split N x 1 the boundary kernels' wrappers
 (fhe.route_enter, fhe.route_leave), on any other split each twiddle
-(fhe.route_twiddle) and phim <-> N step (fhe.route_reindex).  They go to one sink: an open counting() table, else a
+(fhe.route_twiddle) and phim <-> N step (fhe.route_reindex); on a
+mixed-radix ring each phim <-> N step of ops/ntt_ct.py under its own
+name (fhe.pad_to_N, fhe.drop_excluded, fhe.insert_excluded,
+fhe.fold_mod_phim), inside the transform's span.  They go to one sink:
+an open counting() table, else a
 recording torch.profiler capture (a user_annotation event on the clock
 of the card's kernels).  With neither, a span is one shared no-op
 context and costs two global reads.

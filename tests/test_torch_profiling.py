@@ -210,6 +210,12 @@ ROUTE_WRAPPERS = {"fhe.limbs_to_residues": 1, "fhe.route_fwd": 1,
                   "fhe.route_fwd_digits": 1, "fhe.keyswitch_dot": 1,
                   "fhe.route_enter": 4, "fhe.route_leave": 4}
 M22_ROUTE = (22, 80, 23, 7, True)       # use_ct forced: 11 x 1
+# m = 22 has an odd part (phim 10, N 11), so the plain enter and leave of
+# the CPU run each phim <-> N step of ops/ntt_ct.py under its own span:
+# the forward and digit enters pad and their leaves drop, the two
+# inverses' enters insert and their leaves fold
+ROUTE_PHIM_STEPS = {"fhe.pad_to_N": 2, "fhe.drop_excluded": 2,
+                    "fhe.insert_excluded": 2, "fhe.fold_mod_phim": 2}
 # the transform spans of one route step, one entry per call
 ROUTE_TRANSFORMS = ("fhe.route_fwd", "fhe.route_inv", "fhe.route_fwd_digits",
                     "fhe.route_inv")
@@ -237,7 +243,8 @@ def test_mul_relin_route_spans(monkeypatch):
         out = dev.mul_relin(a, b, mat)
     assert torch.equal(out, plain)
     counts = {name: n for name, (n, _) in table.items()}
-    assert counts == dict(dict.fromkeys(STAGES, 1), **ROUTE_WRAPPERS)
+    assert counts == dict(dict.fromkeys(STAGES, 1), **ROUTE_WRAPPERS,
+                          **ROUTE_PHIM_STEPS)
     assert ntt_ct_matmul.PRODUCTS == {"ct_fwd": 2, "ct_fwd_digits": 2,
                                       "ct_inv": 4}
     ns = {name: t for name, (_, t) in table.items()}
@@ -255,7 +262,8 @@ def test_mul_relin_route_spans_nest_in_device_trace(tmp_path):
         dev.mul_relin(a, b, mat)
     spans = [e for e in _events(tmp_path) if e.get("cat") == "user_annotation"
              and e["name"].startswith("fhe.")]
-    assert len(spans) == 5 + sum(ROUTE_WRAPPERS.values())
+    assert len(spans) == (5 + sum(ROUTE_WRAPPERS.values())
+                          + sum(ROUTE_PHIM_STEPS.values()))
 
     def parent(e):
         around = [o for o in spans if o is not e and o["ts"] <= e["ts"]
@@ -265,6 +273,10 @@ def test_mul_relin_route_spans_nest_in_device_trace(tmp_path):
     got = sorted((e["name"], parent(e)) for e in spans)
     inner = [(s, t) for t in ROUTE_TRANSFORMS
              for s in ("fhe.route_enter", "fhe.route_leave")]
+    inner += 2 * [("fhe.pad_to_N", "fhe.route_enter"),
+                  ("fhe.drop_excluded", "fhe.route_leave"),
+                  ("fhe.insert_excluded", "fhe.route_enter"),
+                  ("fhe.fold_mod_phim", "fhe.route_leave")]
     want = sorted([("fhe.mul_relin", None)]
                   + [(s, "fhe.mul_relin") for s in STAGES[1:]]
                   + [("fhe.limbs_to_residues", "fhe.tensor_mul"),

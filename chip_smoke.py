@@ -222,6 +222,12 @@ BATCH_LARGE_P = 4
 # the mixed-radix family: bench.py's ct20k_mixedradix ring, 128 x 80
 MIXED = dict(m=20480, log_q=80, p=40961, generator=3)
 BATCH_MIXED = 16
+BATCH_MIXED_CELL = 64       # the benchmark cell mixed20480_q80.b64's batch
+# PERF.md section 6, the traced b64 cell run before the kernel did the
+# phim <-> N steps: each transform's kernel alone, ms per step, and the
+# plain steps around them
+UNFUSED_MIXED_MS = {"ct_fwd": 0.4925, "ct_fwd_digits": 1.2664, "ct_inv": 0.5728,
+                 "steps": 1.741}
 # mixed-radix tables of phase 3: (m, narrow primes, 23-bit primes)
 MIXED_TABLES = [(40, 2, 0), (96, 2, 0), (160, 2, 0), (18, 2, 0), (54, 2, 0),
                 (13122, 1, 0), (20480, 1, 1)]
@@ -1470,42 +1476,87 @@ def phase_mixed(dev, card):
     a, b, _, per_step = time_step(card, dc, pairs, ksw, out, "m=20480 path")
     time_stages(card, dc, a, b, ksw, "m=20480 path")
     kms = time_kernels(card, dev, dc, step_cases(dc, BATCH_MIXED), per_step)
-    time_mixed_helpers(card, dc, BATCH_MIXED)
+    time_mixed_transforms(card, dc, BATCH_MIXED_CELL)
     print(f"peak device memory (phase 8): "
           f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
     print(f"phase 8 wall time: {time.perf_counter() - t0:.2f} s")
     return launches, kms
 
 
-def time_mixed_helpers(card, dc, batch):
-    """The plain phim <-> N steps that the wrappers run around the kernel
-    (ops/ntt_ct.py pad_to_N and drop_excluded around the forward
-    transforms, insert_excluded and fold_mod_phim around ct_inv), timed
-    alone with CUDA events at the shapes of one mul+relin step."""
+def time_mixed_transforms(card, dc, batch):
+    """The four transforms of one mul+relin step at m = 20480 on `batch`
+    pairs (the cell's 64), each through its wrapper, which does the
+    phim <-> N steps in the kernel, held equal to the way the parent of
+    that change ran it, the plain steps of ops/ntt_ct.py (pad_to_N and
+    drop_excluded around the forward transforms, insert_excluded and
+    fold_mod_phim around ct_inv) around the N-point kernel (fsi_ct_sync:
+    the same kernel without the steps).  Each is timed alone on the
+    device (device_ms): the wrapper, the N-point kernel, the plain steps;
+    printed beside UNFUSED_MIXED_MS."""
     import torch
-    from fhe_si_tpu_torch.ops import ntt_ct
+    from fhe_si_tpu_torch.ops import cuda_build, ntt_ct, ntt_ct_cuda
     meta = dc.ct_meta
+    lib = cuda_build.library("ct_ntt")
     rng = np.random.default_rng(SEED)
-
-    def rand(*shape):
-        return torch.as_tensor(rng.integers(0, 40961, size=shape).astype(
-            np.int32), device=dc.device)
+    sums = {"wrapper": 0.0, "kernel": 0.0, "steps": 0.0}
     for name, basis, rows, _ in step_cases(dc, batch)[:4]:
-        T = getattr(dc, basis)['ct']
-        L = T['q'].shape[0]
-        full = rand(rows, L, meta.N)
-        if name == "ct_inv":
-            ev = rand(rows, L, meta.phim)
-            steps = (lambda: ntt_ct.insert_excluded(ev, meta),
-                     lambda: ntt_ct.fold_mod_phim(full, T['q'], meta))
+        T, q = getattr(dc, basis)['ct'], getattr(dc, basis)['primes_np']
+        L, inv = len(q), name == "ct_inv"
+        if name == "ct_fwd_digits":
+            x = rng.integers(0, 1 << dc.digit_bits, size=(rows, meta.phim))
+            run = lambda x: ntt_ct_cuda.ct_fwd_digits(  # noqa: E731
+                T, x, meta, dc.digit_bits)
         else:
-            x = rand(rows, meta.phim) if name == "ct_fwd_digits" \
-                else rand(rows, L, meta.phim)
-            steps = (lambda: ntt_ct.pad_to_N(x, meta),
-                     lambda: ntt_ct.drop_excluded(full, meta))
-        ms = [cuda_ms(f, 10) for f in steps]
+            x = rng.integers(0, q[:, None], size=(rows, L, meta.phim))
+            run = (lambda x: ntt_ct_cuda.ct_inv(T, x, meta, 't2i_crt')) \
+                if inv else (lambda x: ntt_ct_cuda.ct_fwd(T, x, meta))
+        x = torch.as_tensor(x.astype(np.int32), device=dc.device)
+        keys, S, R = ((('k_t1i', 'k_t2i_crt', 'k_twi', 'k_consts'),
+                       meta.N1, meta.N2) if inv else
+                      (('k_t2', 'k_t1', 'k_tw', 'k_consts'), meta.N2, meta.N1))
+
+        def n_point(v):
+            out = torch.empty((rows, L, meta.N), dtype=torch.int32,
+                              device=dc.device)
+            err = lib.fsi_ct_sync(
+                int(name == "ct_fwd_digits"), v.data_ptr(),
+                *(T[k].data_ptr() for k in keys), out.data_ptr(), rows, L, S,
+                R, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"fsi_ct_sync: CUDA error {err}")
+            return out
+        if inv:
+            pre = lambda: ntt_ct.insert_excluded(x, meta).contiguous()  # noqa: E731
+            post = lambda full: ntt_ct.fold_mod_phim(  # noqa: E731
+                full, T['q'], meta)
+        else:
+            pre = lambda: ntt_ct.pad_to_N(x, meta).contiguous()  # noqa: E731
+            post = lambda full: ntt_ct.drop_excluded(full, meta)  # noqa: E731
+        padded = pre()
+        full = n_point(padded)
+        if not torch.equal(run(x), post(full)):
+            raise AssertionError(f"{name} m={dc.ctx.m}: the kernel's phim "
+                                 "<-> N steps != the plain ones")
+        ms = {"wrapper": device_ms(lambda: run(x)),
+              "kernel": device_ms(lambda: n_point(padded)),
+              "pre": device_ms(pre), "post": device_ms(lambda: post(full))}
+        if None in ms.values():
+            raise AssertionError(f"{name}: the host was slower than the spin")
+        ms["steps"] = ms.pop("pre") + ms.pop("post")
+        for k in sums:
+            sums[k] += ms[k]
         print(f"[{card}] {name} m={dc.ctx.m} {basis} rows={rows}: the "
-              f"wrapper's phim <-> N steps {ms[0]:.4f} + {ms[1]:.4f} ms")
+              f"wrapper (steps in the kernel) {ms['wrapper']:.4f} ms; apart: "
+              f"the N-point kernel {ms['kernel']:.4f} + the plain steps "
+              f"{ms['steps']:.4f} ms")
+    was = UNFUSED_MIXED_MS
+    print(f"[{card}] m={dc.ctx.m} B={batch} step's transforms, device ms: "
+          f"the wrappers {sums['wrapper']:.4f}; apart: the N-point kernel "
+          f"{sums['kernel']:.4f} + the plain steps {sums['steps']:.4f}; "
+          f"the traced cell run before the kernel did the steps: the kernel "
+          f"{was['ct_fwd'] + was['ct_fwd_digits'] + was['ct_inv']:.4f} "
+          f"(ct_fwd {was['ct_fwd']}, ct_fwd_digits {was['ct_fwd_digits']}, "
+          f"ct_inv x 2 {was['ct_inv']}) + the steps {was['steps']}")
 
 
 def phase_objects(dev, big_ctx, main_dc):

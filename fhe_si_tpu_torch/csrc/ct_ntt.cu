@@ -4,7 +4,10 @@
 // split has N1, N2 >= 2 and fits in shared memory: every power of two up
 // to m = 2^15, and mixed-radix splits such as 128 x 80 (m = 20480) and
 // 81 x 81 (m = 13122).  The wrappers (ops/ntt_ct_cuda.py) check the split
-// before launching and run the phim <-> N pad, drop and fold around it.
+// before launching; on a mixed-radix ring the kernel also does the
+// phim <-> N pad, drop, insert and fold in its loads and stores (below,
+// "the phim <-> N steps"), so a transform reads and writes phim-wide rows
+// in one launch.
 //
 // Replaces the three Pallas TPU kernels of fhe_si_tpu/ops/ntt_ct_pallas.py
 // with one tensor-core kernel, ct_mma_kernel<DIGITS, TPW, PINGPONG> (the
@@ -141,6 +144,36 @@
 //   diagonals and Shoup reductions; the stage-1 twiddle's Shoup product
 //   also reduces the folded diagonals, and every stage's output is
 //   canonical, so the outputs are bit-identical.
+//
+// ---- the phim <-> N steps ----
+// A ring m = 2^a * q^b with q odd has phim = N (q - 1)/q < N; its
+// transforms take and give phim-wide rows (ops/ntt_ct.py module header:
+// s = N/q, u0 = (q - 1)/2).  The sync schedule does the four index maps
+// there in its fetch and store, chosen at compile time (PHIM; the launch
+// passes phim and q only where phim < N, and every m = 2^k instantiation
+// is the code without them).  The rows already sit whole in registers
+// and shared memory, so no N-wide row crosses device memory:
+// * kPhimFwd (fsi_ct_fwd, fsi_ct_fwd_digits).  Pad: the fetch reads
+//   coefficient c = kk R + n of a row of stride phim, and 0 at c >= phim
+//   (at m = 20480, 80 x 128, the rows kk >= 64), so stage 1's K stops at
+//   the last row that can be nonzero (64 of 96 there).  Drop: stage 2
+//   stores evaluation u = n + S m only where u mod q != u0, at its index
+//   u - ceil((u - u0)/q) of the phim-wide output row, one word at a time
+//   (a group of 4 columns straddles an excluded u or a 16-byte boundary).
+// * kPhimInv (fsi_ct_inv).  Insert: the fetch reads evaluation u = n + R kk
+//   at that compacted index, and 0 where u mod q = u0.  Fold: stage 2
+//   first runs the tiles that hold the tail c = n + S m >= phim and keeps
+//   its s words in shared memory (Geo::fold, 8 KB at m = 20480); after a
+//   barrier it runs the tiles that hold the head c < phim, adds to each
+//   the tail word of c mod s, times (-1)^(floor(c/s) + 1) (as mod_add:
+//   + q - t on the even blocks, + t on the odd, one csub), and stores
+//   only c < phim, in 16-byte vectors where S and phim are multiples of 4.
+//   A tile that holds both runs in both passes (none at 128 x 80, whose
+//   tail is the rows m >= 64).  The next row's stage 2 rewrites the tail
+//   only after the two barriers of its split and stage 1.  The CRT
+//   premultiplier of t2i_crt stays in stage 2's table: the fold is linear.
+// N is below 2^16 for every split whose planes fit a block, so the
+// divisions by q and s are one __umulhi each by ceil(2^32 / d) (divide).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -161,18 +194,21 @@ __host__ __device__ constexpr int pad_to(int x, int a) { return (x + a - 1) / a 
 // (4 mod 8 words: ldmatrix rows and the operand stores are conflict-free);
 // A planes [3][pad16(M)][Ks], B planes transposed, [3][pad16(N)][Ks].
 // The twiddle pairs follow A2 where the whole layout fits in kSmemMax,
-// and stay in global memory otherwise (header: m = 2^15).
+// and stay in global memory otherwise (header: m = 2^15).  The fold's
+// tail (header: "the phim <-> N steps") follows B2.
 struct Geo {
   int S, R;
   int Kp1, Ks1, Mp1, Np1;   // stage 1: A1 [S x S] @ in [S x R]
   int Kp2, Ks2, Mp2, Np2;   // stage 2: A2 [R x R] @ C1^T [R x S]
   int tws;                  // twiddle row stride in words, a multiple of 4: (tw, tw') pairs
+  int fold;                 // bytes of the fold's tail: s words, 16-byte rounded; 0 unfolded
   bool tw_shared;           // the twiddle pairs in shared memory
-  __host__ __device__ Geo(int s, int r)
+  __host__ __device__ Geo(int s, int r, int fold_words = 0)
       : S(s), R(r),
         Kp1(pad_to(s, 32)), Ks1(pad_to(s, 32) + 16), Mp1(pad_to(s, 16)), Np1(pad_to(r, 16)),
         Kp2(pad_to(r, 32)), Ks2(pad_to(r, 32) + 16), Mp2(pad_to(r, 16)), Np2(pad_to(s, 16)),
-        tws(pad_to(2 * r + 16, 4)), tw_shared(planes_bytes() + tw_bytes() <= kSmemMax) {}
+        tws(pad_to(2 * r + 16, 4)), fold(pad_to(4 * fold_words, 16)),
+        tw_shared(planes_bytes() + fold + tw_bytes() <= kSmemMax) {}
   __host__ __device__ int a1_bytes() const { return kPlanes * Mp1 * Ks1; }
   __host__ __device__ int a2_bytes() const { return kPlanes * Mp2 * Ks2; }
   __host__ __device__ int tw_bytes() const { return S * tws * 4; }
@@ -182,8 +218,30 @@ struct Geo {
     return a1_bytes() + a2_bytes() + kPlanes * (b1_plane() + b2_plane());
   }
   __host__ __device__ int tw_smem_bytes() const { return tw_shared ? tw_bytes() : 0; }
-  __host__ __device__ int smem_bytes() const { return planes_bytes() + tw_smem_bytes(); }
+  __host__ __device__ int smem_bytes() const { return planes_bytes() + fold + tw_smem_bytes(); }
 };
+
+// Which phim <-> N steps a sync-schedule launch does (header)
+enum : int { kPhimNone = 0, kPhimFwd = 1, kPhimInv = 2 };
+
+// The ring's phim <-> N geometry, passed by value to every launch (unread
+// where PHIM is kPhimNone)
+struct PhimMap {
+  int P, q, u0, s;    // phim, the odd prime, the excluded residue (q - 1)/2, N/q
+  uint32_t qm, sm;    // ceil(2^32 / q), ceil(2^32 / s)
+};
+
+// floor(a / d) for a, d < 2^16, dm = ceil(2^32 / d): with e = dm d - 2^32
+// < d, a e < 2^32 keeps the quotient exact
+__device__ __forceinline__ int divide(int a, uint32_t dm) {
+  return static_cast<int>(__umulhi(static_cast<uint32_t>(a), dm));
+}
+
+// Evaluation u's index in a phim-wide row, -1 where u mod q = u0
+__device__ __forceinline__ int compact(const PhimMap& ph, int u) {
+  const int qd = divide(u, ph.qm), r = u - qd * ph.q;
+  return r == ph.u0 ? -1 : qd * (ph.q - 1) + r - (r > ph.u0 ? 1 : 0);
+}
 
 struct PrimeConsts {
   uint32_t q, qr, c[4], cp[4];
@@ -287,29 +345,61 @@ __device__ __forceinline__ PrimeConsts load_consts(const uint32_t* kcg, int l) {
   return k;
 }
 
+// Stage 2's tile u of a warp on the sync schedule, for the phim <-> N
+// stores: C2 = A2 @ C1^T reduced, and per n-tile t the lane's four
+// outputs v[t][0..3] at row m[t], columns n[t] .. n[t] + 3 (the lane-pair
+// trade of sync_rows' own store).
+__device__ __forceinline__ void stage2_tile(uint32_t (&v)[2][4], int (&m)[2], int (&n)[2],
+                                            const uint8_t* a2, const uint8_t* b2, const Geo& G,
+                                            const PrimeConsts& k, int u, int lane) {
+  const int nu2 = G.Np2 / 16;
+  const int m0 = (u / nu2) * 16, n0 = (u % nu2) * 16;
+  const int g = lane >> 2, tq = lane & 3;
+  const bool odd = tq & 1;
+  uint32_t acc[2][5][4];
+  mma_tile(acc, a2, G.Mp2 * G.Ks2, b2, G.b2_plane(), G.Ks2, G.Kp2, m0, n0, lane);
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    const uint32_t v0 = reduce_diagonals(acc[t], 0, k), v1 = reduce_diagonals(acc[t], 1, k);
+    const uint32_t v2 = reduce_diagonals(acc[t], 2, k), v3 = reduce_diagonals(acc[t], 3, k);
+    const uint32_t r0 = __shfl_xor_sync(0xffffffffu, odd ? v0 : v2, 1);
+    const uint32_t r1 = __shfl_xor_sync(0xffffffffu, odd ? v1 : v3, 1);
+    v[t][0] = odd ? r0 : v0;
+    v[t][1] = odd ? r1 : v1;
+    v[t][2] = odd ? v2 : r0;
+    v[t][3] = odd ? v3 : r1;
+    m[t] = m0 + g + (odd ? 8 : 0);
+    n[t] = n0 + 8 * t + 2 * tq - (odd ? 2 : 0);
+  }
+}
+
 // The sync schedule.  One block per (prime blockIdx.x, tile of rows
 // blockIdx.y).  x is the row [S][R]: digits [rows, N] shared by every
 // prime (DIGITS) or residues/evaluations [rows, L, N]; out [rows, L, N]
-// as [R][S].  TPW: input tiles of 8 columns x 16 rows per warp (a
+// as [R][S]; with PHIM (header: "the phim <-> N steps") the rows of x and
+// out are phim wide.  TPW: input tiles of 8 columns x 16 rows per warp (a
 // compile-time count, so the prefetched row stays in registers).  Two
 // blocks per SM up to 8 tiles; one at 16 (m = 2^15, whose layout leaves
 // one block per SM).
-template <bool DIGITS, int TPW>
+template <bool DIGITS, int TPW, int PHIM>
 __device__ __forceinline__ void sync_rows(uint8_t* mma_smem, const int32_t* __restrict__ x,
                                           const uint8_t* __restrict__ a1g,
                                           const uint8_t* __restrict__ a2g,
                                           const uint32_t* __restrict__ twg,
                                           const uint32_t* __restrict__ kcg,
                                           int32_t* __restrict__ out, long long rows,
-                                          int rows_per_tile, int L, int S, int R) {
-  const Geo G(S, R);
+                                          int rows_per_tile, int L, int S, int R,
+                                          const PhimMap ph) {
+  const Geo G(S, R, PHIM == kPhimInv ? ph.s : 0);
   uint8_t* a1 = mma_smem;
   uint8_t* a2 = a1 + G.a1_bytes();
   uint32_t* tw = reinterpret_cast<uint32_t*>(a2 + G.a2_bytes());
   uint8_t* b1 = reinterpret_cast<uint8_t*>(tw) + G.tw_smem_bytes();
   uint8_t* b2 = b1 + kPlanes * G.b1_plane();
+  uint32_t* tail = reinterpret_cast<uint32_t*>(b2 + kPlanes * G.b2_plane());   // kPhimInv
   const int l = blockIdx.x;
   const int N = S * R;
+  const int W = PHIM == kPhimNone ? N : ph.P;   // words of an input or output row
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long row_begin = static_cast<long long>(blockIdx.y) * rows_per_tile;
   const long long row_end = min(rows, row_begin + rows_per_tile);
@@ -327,7 +417,7 @@ __device__ __forceinline__ void sync_rows(uint8_t* mma_smem, const int32_t* __re
   const int nl = lane & 7, kl = lane >> 3;
   uint32_t pre[TPW][4];
   auto fetch = [&](long long row) {
-    const int32_t* in = DIGITS ? x + row * N : x + (row * L + l) * N;
+    const int32_t* in = DIGITS ? x + row * W : x + (row * L + l) * W;
 #pragma unroll
     for (int s = 0; s < TPW; ++s) {
       const int tile = warp + kWarps * s;
@@ -335,8 +425,16 @@ __device__ __forceinline__ void sync_rows(uint8_t* mma_smem, const int32_t* __re
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kk = 4 * kg + j;
-        pre[s][j] = (tile < in_tiles && n < R && kk < S)
-                        ? static_cast<uint32_t>(__ldg(in + kk * R + n)) : 0u;
+        if constexpr (PHIM == kPhimNone) {
+          pre[s][j] = (tile < in_tiles && n < R && kk < S)
+                          ? static_cast<uint32_t>(__ldg(in + kk * R + n)) : 0u;
+        } else {
+          // pad: 0 at c >= phim; insert: 0 at the excluded u
+          const int i = kk * R + n;
+          const int at = PHIM == kPhimFwd ? (i < ph.P ? i : -1) : compact(ph, i);
+          pre[s][j] = (tile < in_tiles && n < R && kk < S && at >= 0)
+                          ? static_cast<uint32_t>(__ldg(in + at)) : 0u;
+        }
       }
     }
   };
@@ -357,6 +455,19 @@ __device__ __forceinline__ void sync_rows(uint8_t* mma_smem, const int32_t* __re
       }
     }
   };
+  // pad: the rows kk >= ceil(phim / R) are zero, so stage 1's K ends there
+  const int kp1 = PHIM == kPhimFwd ? pad_to(min(S, (ph.P + R - 1) / R), 32) : G.Kp1;
+  // fold: stage 2's tiles [u_tail, tiles2) hold the tail c >= phim, the
+  // tiles [0, u_head) the head (both bounds rise with u)
+  const int nu2f = G.Np2 / 16, tiles2 = (G.Mp2 / 16) * nu2f;
+  int u_tail = tiles2, u_head = tiles2;
+  if constexpr (PHIM == kPhimInv) {
+    for (int u = tiles2 - 1; u >= 0; --u) {
+      const int m0 = (u / nu2f) * 16, n0 = (u % nu2f) * 16;
+      if ((min(m0 + 16, R) - 1) * S + min(n0 + 16, S) - 1 >= ph.P) u_tail = u;
+      if (m0 * S + n0 >= ph.P) u_head = u;
+    }
+  }
 
   const int g = lane >> 2, tq = lane & 3;
   if (row_begin < row_end) fetch(row_begin);
@@ -370,7 +481,7 @@ __device__ __forceinline__ void sync_rows(uint8_t* mma_smem, const int32_t* __re
     for (int u = warp; u < (G.Mp1 / 16) * nu1; u += kWarps) {
       const int m0 = (u / nu1) * 16, n0 = (u % nu1) * 16;
       uint32_t acc[2][5][4];
-      mma_tile(acc, a1, G.Mp1 * G.Ks1, b1, G.b1_plane(), G.Ks1, G.Kp1, m0, n0, lane);
+      mma_tile(acc, a1, G.Mp1 * G.Ks1, b1, G.b1_plane(), G.Ks1, kp1, m0, n0, lane);
 #pragma unroll
       for (int t = 0; t < 2; ++t)
 #pragma unroll
@@ -395,33 +506,95 @@ __device__ __forceinline__ void sync_rows(uint8_t* mma_smem, const int32_t* __re
     __syncthreads();   // B2 written; B1 free
 
     // stage 2: C2 = A2 @ C1^T, reduce, out[m][n] (m < R, n < S)
-    int32_t* orow = out + (row * L + l) * N;
-    const int nu2 = G.Np2 / 16;
-    for (int u = warp; u < (G.Mp2 / 16) * nu2; u += kWarps) {
-      const int m0 = (u / nu2) * 16, n0 = (u % nu2) * 16;
-      uint32_t acc[2][5][4];
-      mma_tile(acc, a2, G.Mp2 * G.Ks2, b2, G.b2_plane(), G.Ks2, G.Kp2, m0, n0, lane);
+    int32_t* orow = out + (row * L + l) * W;
+    if constexpr (PHIM == kPhimNone) {
+      const int nu2 = G.Np2 / 16;
+      for (int u = warp; u < (G.Mp2 / 16) * nu2; u += kWarps) {
+        const int m0 = (u / nu2) * 16, n0 = (u % nu2) * 16;
+        uint32_t acc[2][5][4];
+        mma_tile(acc, a2, G.Mp2 * G.Ks2, b2, G.b2_plane(), G.Ks2, G.Kp2, m0, n0, lane);
 #pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const uint32_t v0 = reduce_diagonals(acc[t], 0, k), v1 = reduce_diagonals(acc[t], 1, k);
-        const uint32_t v2 = reduce_diagonals(acc[t], 2, k), v3 = reduce_diagonals(acc[t], 3, k);
-        // lane pairs trade halves: the even lane gets 4 consecutive columns
-        // of row g, the odd lane 4 of row g + 8
-        const bool odd = tq & 1;
-        const uint32_t r0 = __shfl_xor_sync(0xffffffffu, odd ? v0 : v2, 1);
-        const uint32_t r1 = __shfl_xor_sync(0xffffffffu, odd ? v1 : v3, 1);
-        const uint4 o = odd ? make_uint4(r0, r1, v2, v3) : make_uint4(v0, v1, r0, r1);
-        const int m = m0 + g + (odd ? 8 : 0);
-        const int n = n0 + 8 * t + 2 * tq - (odd ? 2 : 0);
-        if (m < R) {
-          int32_t* dst = orow + m * S + n;
-          if (S % 4 == 0) {
-            if (n < S) *reinterpret_cast<uint4*>(dst) = o;
-          } else {                     // S % 4 != 0: element stores
-            const uint32_t ov[4] = {o.x, o.y, o.z, o.w};
+        for (int t = 0; t < 2; ++t) {
+          const uint32_t v0 = reduce_diagonals(acc[t], 0, k), v1 = reduce_diagonals(acc[t], 1, k);
+          const uint32_t v2 = reduce_diagonals(acc[t], 2, k), v3 = reduce_diagonals(acc[t], 3, k);
+          // lane pairs trade halves: the even lane gets 4 consecutive columns
+          // of row g, the odd lane 4 of row g + 8
+          const bool odd = tq & 1;
+          const uint32_t r0 = __shfl_xor_sync(0xffffffffu, odd ? v0 : v2, 1);
+          const uint32_t r1 = __shfl_xor_sync(0xffffffffu, odd ? v1 : v3, 1);
+          const uint4 o = odd ? make_uint4(r0, r1, v2, v3) : make_uint4(v0, v1, r0, r1);
+          const int m = m0 + g + (odd ? 8 : 0);
+          const int n = n0 + 8 * t + 2 * tq - (odd ? 2 : 0);
+          if (m < R) {
+            int32_t* dst = orow + m * S + n;
+            if (S % 4 == 0) {
+              if (n < S) *reinterpret_cast<uint4*>(dst) = o;
+            } else {                     // S % 4 != 0: element stores
+              const uint32_t ov[4] = {o.x, o.y, o.z, o.w};
 #pragma unroll
-            for (int j = 0; j < 4; ++j)
-              if (n + j < S) dst[j] = static_cast<int32_t>(ov[j]);
+              for (int j = 0; j < 4; ++j)
+                if (n + j < S) dst[j] = static_cast<int32_t>(ov[j]);
+            }
+          }
+        }
+      }
+    } else if constexpr (PHIM == kPhimFwd) {
+      // drop: evaluation u = n + S m at its compacted index, none at u0
+      for (int u = warp; u < tiles2; u += kWarps) {
+        uint32_t v[2][4];
+        int m[2], n[2];
+        stage2_tile(v, m, n, a2, b2, G, k, u, lane);
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int at = compact(ph, m[t] * S + n[t] + j);
+            if (m[t] < R && n[t] + j < S && at >= 0) orow[at] = static_cast<int32_t>(v[t][j]);
+          }
+      }
+    } else {
+      // fold, first pass: the tail c = n + S m >= phim into shared memory
+      for (int u = u_tail + warp; u < tiles2; u += kWarps) {
+        uint32_t v[2][4];
+        int m[2], n[2];
+        stage2_tile(v, m, n, a2, b2, G, k, u, lane);
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int c = m[t] * S + n[t] + j;
+            if (m[t] < R && n[t] + j < S && c >= ph.P) tail[c - ph.P] = v[t][j];
+          }
+      }
+      __syncthreads();   // the tail staged
+      // second pass: head c plus the tail word of c mod s, signed by block
+      const bool vec = S % 4 == 0 && ph.P % 4 == 0;
+      for (int u = warp; u < u_head; u += kWarps) {
+        uint32_t v[2][4];
+        int m[2], n[2];
+        stage2_tile(v, m, n, a2, b2, G, k, u, lane);
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          const int c = m[t] * S + n[t];
+          if (m[t] < R && n[t] < S && c < ph.P) {
+            int i = divide(c, ph.sm), r = c - i * ph.s;   // c = i s + r
+            uint32_t f[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {   // r stays below s, past phim too
+              const uint32_t w = tail[r];
+              f[j] = csub(v[t][j] + ((i & 1) ? w : k.q - w), k.q);
+              if (++r == ph.s) {
+                r = 0;
+                ++i;
+              }
+            }
+            if (vec) {   // c and the row base multiples of 4, c + 3 < phim
+              *reinterpret_cast<uint4*>(orow + c) = make_uint4(f[0], f[1], f[2], f[3]);
+            } else {
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                if (n[t] + j < S && c + j < ph.P) orow[c + j] = static_cast<int32_t>(f[j]);
+            }
           }
         }
       }
@@ -715,12 +888,13 @@ __device__ __forceinline__ void pingpong_rows(uint8_t* mma_smem, const int32_t* 
   }
 }
 
-template <bool DIGITS, int TPW, bool PINGPONG>
+template <bool DIGITS, int TPW, bool PINGPONG, int PHIM>
 __global__ void __launch_bounds__(kThreads, PINGPONG || TPW > 8 ? 1 : 2)
 ct_mma_kernel(const int32_t* __restrict__ x, const uint8_t* __restrict__ a1g,
               const uint8_t* __restrict__ a2g, const uint32_t* __restrict__ twg,
               const uint32_t* __restrict__ kcg, int32_t* __restrict__ out,
-              long long rows, int rows_per_tile, int L, int S, int R) {
+              long long rows, int rows_per_tile, int L, int S, int R, PhimMap ph) {
+  static_assert(!PINGPONG || PHIM == kPhimNone, "the ping-pong takes m = 2^k only");
   extern __shared__ __align__(128) uint8_t mma_smem[];
   if constexpr (PINGPONG) {
     if constexpr (TPW == 8)
@@ -730,19 +904,22 @@ ct_mma_kernel(const int32_t* __restrict__ x, const uint8_t* __restrict__ a1g,
     else
       pingpong_rows<DIGITS, 128, 64>(mma_smem, x, a1g, a2g, twg, kcg, out, rows, rows_per_tile, L);
   } else
-    sync_rows<DIGITS, TPW>(mma_smem, x, a1g, a2g, twg, kcg, out, rows, rows_per_tile, L, S, R);
+    sync_rows<DIGITS, TPW, PHIM>(mma_smem, x, a1g, a2g, twg, kcg, out, rows, rows_per_tile, L, S,
+                                 R, ph);
 }
 
 // One wave of blocks: each of the L primes gets ceil(slots / L) tiles of
 // rows on the sync schedule, where slots = SMs x resident blocks per SM;
 // floor(slots / L) on the ping-pong, whose one block an SM would
 // otherwise leave a second, short wave.
-template <bool DIGITS, int TPW, bool PINGPONG>
+template <bool DIGITS, int TPW, bool PINGPONG, int PHIM>
 cudaError_t launch_mma_tpw(const int32_t* x, const uint8_t* a1, const uint8_t* a2,
                            const uint32_t* tw, const uint32_t* kc, int32_t* out,
-                           long long rows, int L, int S, int R, cudaStream_t stream) {
-  auto kernel = ct_mma_kernel<DIGITS, TPW, PINGPONG>;
-  const int smem = PINGPONG ? PGeo(S, R).smem_bytes() : Geo(S, R).smem_bytes();
+                           long long rows, int L, int S, int R, const PhimMap& ph,
+                           cudaStream_t stream) {
+  auto kernel = ct_mma_kernel<DIGITS, TPW, PINGPONG, PHIM>;
+  const int smem = PINGPONG ? PGeo(S, R).smem_bytes()
+                            : Geo(S, R, PHIM == kPhimInv ? ph.s : 0).smem_bytes();
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
@@ -759,14 +936,16 @@ cudaError_t launch_mma_tpw(const int32_t* x, const uint8_t* a1, const uint8_t* a
   const long long ntiles = (rows + per_tile - 1) / per_tile;
   dim3 grid(static_cast<unsigned>(L), static_cast<unsigned>(ntiles));
   kernel<<<grid, kThreads, smem, stream>>>(x, a1, a2, tw, kc, out, rows,
-                                           static_cast<int>(per_tile), L, S, R);
+                                           static_cast<int>(per_tile), L, S, R, ph);
   return cudaGetLastError();
 }
 
-template <bool DIGITS>
+// PHIM: the phim <-> N steps of the launch (kPhimNone on m = 2^k, and on
+// the ping-pong, which takes only m = 8192 and 2^14)
+template <bool DIGITS, int PHIM = kPhimNone>
 cudaError_t launch_mma(const void* x, const void* a1, const void* a2, const void* tw,
                        const void* kc, void* out, long long rows, int L, int S, int R,
-                       void* stream, bool allow_pingpong = true) {
+                       void* stream, bool allow_pingpong = true, PhimMap ph = PhimMap{}) {
   if (rows < 0 || rows > 0x7fffffffLL || L < 1 || L > 65535 || S < 2 || R < 2 ||
       S > 1024 || R > 1024)
     return cudaErrorInvalidValue;
@@ -775,66 +954,90 @@ cudaError_t launch_mma(const void* x, const void* a1, const void* a2, const void
     return launcher(static_cast<const int32_t*>(x), static_cast<const uint8_t*>(a1),
                     static_cast<const uint8_t*>(a2), static_cast<const uint32_t*>(tw),
                     static_cast<const uint32_t*>(kc), static_cast<int32_t*>(out), rows, L, S,
-                    R, static_cast<cudaStream_t>(stream));
+                    R, ph, static_cast<cudaStream_t>(stream));
   };
-  if (allow_pingpong && pingpong_takes(S, R))
-    return S * R <= 4096 ? args(launch_mma_tpw<DIGITS, 8, true>)
-                         : args(launch_mma_tpw<DIGITS, 16, true>);
+  if constexpr (PHIM == kPhimNone)
+    if (allow_pingpong && pingpong_takes(S, R))
+      return S * R <= 4096 ? args(launch_mma_tpw<DIGITS, 8, true, kPhimNone>)
+                           : args(launch_mma_tpw<DIGITS, 16, true, kPhimNone>);
   const int in_tiles = ((R + 7) / 8) * ((S + 15) / 16);
   const int tpw = (in_tiles + kWarps - 1) / kWarps;
-  if (tpw <= 1) return args(launch_mma_tpw<DIGITS, 1, false>);
-  if (tpw <= 2) return args(launch_mma_tpw<DIGITS, 2, false>);
-  if (tpw <= 4) return args(launch_mma_tpw<DIGITS, 4, false>);
-  if (tpw <= 8) return args(launch_mma_tpw<DIGITS, 8, false>);
-  if (tpw <= 16) return args(launch_mma_tpw<DIGITS, 16, false>);
+  if (tpw <= 1) return args(launch_mma_tpw<DIGITS, 1, false, PHIM>);
+  if (tpw <= 2) return args(launch_mma_tpw<DIGITS, 2, false, PHIM>);
+  if (tpw <= 4) return args(launch_mma_tpw<DIGITS, 4, false, PHIM>);
+  if (tpw <= 8) return args(launch_mma_tpw<DIGITS, 8, false, PHIM>);
+  if (tpw <= 16) return args(launch_mma_tpw<DIGITS, 16, false, PHIM>);
   return cudaErrorInvalidValue;
+}
+
+// A transform of rows phim words wide on the N-point split S x R: the
+// kernel without the phim <-> N steps where phim = N (m = 2^k), else with
+// them (kFwd: pad and drop; otherwise insert and fold), for phim =
+// N (q - 1)/q, q odd, N/q >= 2 and N < 2^16 (the quotients of divide);
+// any other (phim, q) is refused.
+template <bool DIGITS, int kFwd>
+cudaError_t launch_phim(const void* x, const void* a1, const void* a2, const void* tw,
+                        const void* kc, void* out, long long rows, int L, int S, int R,
+                        int phim, int q, void* stream) {
+  const int N = S * R;
+  if (phim == N) return launch_mma<DIGITS>(x, a1, a2, tw, kc, out, rows, L, S, R, stream);
+  if (q < 3 || q % 2 == 0 || N >= 65536 || N % q != 0 || N / q < 2 || phim != N - N / q)
+    return cudaErrorInvalidValue;
+  const int s = N / q;
+  const PhimMap ph{phim, q, (q - 1) / 2, s, 0xffffffffu / q + 1, 0xffffffffu / s + 1};
+  return launch_mma<DIGITS, kFwd ? kPhimFwd : kPhimInv>(x, a1, a2, tw, kc, out, rows, L, S, R,
+                                                        stream, false, ph);
 }
 
 }  // namespace
 
 extern "C" {
 
-// x [rows, L, N] residues in [0, q); out [rows, L, N] evaluations.
-// a1 / a2: the byte planes of t2 / t1, tw: the transposed twiddle with its
-// reciprocals, kc: the per-prime constants (ops/ntt_ct_cuda.py
-// kernel_tables).
+// x [rows, L, phim] residues in [0, q); out [rows, L, phim] evaluations
+// (phim = N on m = 2^k; q_odd, the odd prime of a mixed-radix m, read only
+// where phim < N).  a1 / a2: the byte planes of t2 / t1, tw: the
+// transposed twiddle with its reciprocals, kc: the per-prime constants
+// (ops/ntt_ct_cuda.py kernel_tables).
 int fsi_ct_fwd(const void* x, const void* a1, const void* a2, const void* tw,
-               const void* kc, void* out, long long rows, int L, int N1, int N2,
-               void* stream) {
-  return launch_mma<false>(x, a1, a2, tw, kc, out, rows, L, N2, N1, stream);
+               const void* kc, void* out, long long rows, int L, int N1, int N2, int phim,
+               int q_odd, void* stream) {
+  return launch_phim<false, 1>(x, a1, a2, tw, kc, out, rows, L, N2, N1, phim, q_odd, stream);
 }
 
-// x [rows, N] digits below 2^24 shared by every prime; out [rows, L, N].
-// The tables of fsi_ct_fwd.
+// x [rows, phim] digits below 2^24 shared by every prime; out
+// [rows, L, phim].  The tables of fsi_ct_fwd.
 int fsi_ct_fwd_digits(const void* x, const void* a1, const void* a2, const void* tw,
                       const void* kc, void* out, long long rows, int L, int N1,
-                      int N2, void* stream) {
-  return launch_mma<true>(x, a1, a2, tw, kc, out, rows, L, N2, N1, stream);
+                      int N2, int phim, int q_odd, void* stream) {
+  return launch_phim<true, 1>(x, a1, a2, tw, kc, out, rows, L, N2, N1, phim, q_odd, stream);
 }
 
-// e [rows, L, N] evaluations; out [rows, L, N] coefficients in [0, q).
-// a1 / a2: the byte planes of t1i / t2i (or t2i_crt), tw: twi with its
-// reciprocals, kc: the per-prime constants.
+// e [rows, L, phim] evaluations; out [rows, L, phim] coefficients in
+// [0, q), reduced mod Phi_m.  a1 / a2: the byte planes of t1i / t2i (or
+// t2i_crt), tw: twi with its reciprocals, kc: the per-prime constants.
 int fsi_ct_inv(const void* e, const void* a1, const void* a2, const void* tw,
-               const void* kc, void* out, long long rows, int L, int N1, int N2,
-               void* stream) {
-  return launch_mma<false>(e, a1, a2, tw, kc, out, rows, L, N1, N2, stream);
+               const void* kc, void* out, long long rows, int L, int N1, int N2, int phim,
+               int q_odd, void* stream) {
+  return launch_phim<false, 0>(e, a1, a2, tw, kc, out, rows, L, N1, N2, phim, q_odd, stream);
 }
 
 // The schedule that launch_mma chooses for a row [S][R] (fsi_ct_fwd and
 // fsi_ct_fwd_digits: S = N2, R = N1; fsi_ct_inv: S = N1, R = N2):
-// 1 ping-pong, 0 sync.
+// 1 ping-pong, 0 sync.  No mixed-radix split is one the ping-pong takes
+// (sides that are multiples of 64 and N <= 8192 make N a power of two).
 int fsi_ct_schedule(int S, int R) { return pingpong_takes(S, R) ? 1 : 0; }
 
-// Dynamic shared memory of the chosen schedule's layout, and the current
-// device's per-block limit.
-long long fsi_ct_mma_smem(int S, int R) {
-  return pingpong_takes(S, R) ? PGeo(S, R).smem_bytes() : Geo(S, R).smem_bytes();
+// Dynamic shared memory of the chosen schedule's layout, with the fold's
+// tail of fold_words words (fsi_ct_inv on a mixed-radix ring: s = N/q;
+// 0 otherwise), and the current device's per-block limit.
+long long fsi_ct_mma_smem(int S, int R, int fold_words) {
+  return fold_words == 0 && pingpong_takes(S, R) ? PGeo(S, R).smem_bytes()
+                                                 : Geo(S, R, fold_words).smem_bytes();
 }
 
 // The sync schedule on any split it takes, for the tests that hold the
 // two schedules equal: the forward transforms' (digits 1: fsi_ct_fwd_digits)
-// or the inverse's tables and row [S][R].
+// or the inverse's tables and row [S][R], N wide.
 int fsi_ct_sync(int digits, const void* x, const void* a1, const void* a2, const void* tw,
                 const void* kc, void* out, long long rows, int L, int S, int R, void* stream) {
   return digits ? launch_mma<true>(x, a1, a2, tw, kc, out, rows, L, S, R, stream, false)

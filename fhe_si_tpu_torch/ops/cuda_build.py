@@ -34,14 +34,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_CT = [_P] * 6 + [_LL, _I, _I, _I, _P]
+_CT = [_P] * 6 + [_LL] + [_I] * 5 + [_P]
 # csrc/<name>.cu, one library each: the argument types of each entry point
 # of its extern "C" block (a launch's last argument is the stream).  Each
 # returns an int, a launch its CUDA error code, except as RESTYPES says.
 ENTRIES = {
     "ct_ntt": {"fsi_ct_fwd": _CT, "fsi_ct_fwd_digits": _CT, "fsi_ct_inv": _CT,
-               "fsi_ct_sync": [_I] + _CT, "fsi_ct_schedule": [_I, _I],
-               "fsi_ct_mma_smem": [_I, _I], "fsi_smem_optin": []},
+               "fsi_ct_sync": [_I] + [_P] * 6 + [_LL] + [_I] * 3 + [_P],
+               "fsi_ct_schedule": [_I, _I],
+               "fsi_ct_mma_smem": [_I] * 3, "fsi_smem_optin": []},
     "crt": {"fsi_crt_partials": [_P] * 5 + [_LL] + [_I] * 3 + [_P],
             "fsi_crt_finish": [_P] * 5 + [_LL] + [_I] * 5 + [_P],
             "fsi_crt_to_limbs": [_P] * 3 + [_LL] + [_I] * 6 + [_P],

@@ -27,12 +27,15 @@ the excluded u (insert_excluded), runs the N-point inverse and reduces
 the degree<N result mod Phi_m by one signed block fold (fold_mod_phim,
 X^(phim+r) = sum_{i<q-1} (-1)^(i+1) X^(i*s+r), s = N/q).  The fold is
 linear, so the CRT premultiplier of t2i_crt may sit before it.  The CUDA
-wrappers run the same helpers around the kernel, which computes only the
-N-point transform.  Where they do work (q_odd > 1) each helper opens a
-span of its own name (profiling.annotate: fhe.pad_to_N, fhe.drop_excluded,
-fhe.insert_excluded, fhe.fold_mod_phim) and counts its calls in
-PHIM_STEPS; on m = 2^k they return their input, with no span and no
-count.  A mixed-radix mul+relin counts 2 of each.
+kernel of ntt_ct_cuda.py does the same four index maps in its loads and
+stores (ntt_ct_cuda.PHIM_FUSED counts those launches), so on the card
+these helpers run only on the matmul route and where the fold does not
+fit the kernel (ntt_ct_cuda.folds_in_kernel).  Where they do work
+(q_odd > 1) each helper opens a span of its own name (profiling.annotate:
+fhe.pad_to_N, fhe.drop_excluded, fhe.insert_excluded, fhe.fold_mod_phim)
+and counts its calls in PHIM_STEPS; on m = 2^k they return their input,
+with no span and no count.  A mixed-radix mul+relin on the CPU counts 2
+of each, on the card's kernel route 0.
 
 The tables are kept as int32 integers (the JAX package splits them into
 int8 digit planes for the MXU, 6 of them on the narrow lane, 9 on the

@@ -11,12 +11,16 @@ without nvcc.  All three transforms run one tensor-core kernel (int8
 byte planes) on the N-point transform of every ring
 m = 2^a * q^b whose split N1 x N2 it takes (check_kernel_shape: both
 sides at least 2 and the layout inside shared memory; every power of two
-from m = 8 to 2^15, m = 20480 = 128 x 80, m = 13122 = 81 x 81).  Around
-the launch the wrappers run the plain phim <-> N helpers of ops/ntt_ct.py
-(pad and drop forward, insert and fold inverse), no-ops on m = 2^k.  The
-kernel reads the byte planes and Shoup reciprocals that kernel_tables
-prepares here on the host and DeviceContext keeps beside the tables
-(T['ct']); tables without them raise on a CUDA tensor.
+from m = 8 to 2^15, m = 20480 = 128 x 80, m = 13122 = 81 x 81).  On a
+mixed-radix ring (phim < N) the kernel also does the phim <-> N steps
+of ops/ntt_ct.py in its loads and stores (pad and drop forward, insert
+and fold inverse; ct_ntt.cu, "the phim <-> N steps"), so each wrapper
+launches once on phim-wide tensors and runs no plain op; PHIM_FUSED
+counts those launches.  The inverse's fold keeps N/q words in shared
+memory, which check_kernel_shape counts (fold_words).  The kernel reads
+the byte planes and Shoup reciprocals that kernel_tables prepares here
+on the host and DeviceContext keeps beside the tables (T['ct']); tables
+without them raise on a CUDA tensor.
 
 Dispatch: a tensor on the CPU takes the plain version of ops/ntt_ct.py;
 a tensor on a CUDA device launches the kernel, or raises.  There is no
@@ -144,42 +148,52 @@ def kernel_schedule(S: int, R: int) -> str:
     return "sync"
 
 
-def kernel_smem(S: int, R: int) -> int:
+def kernel_smem(S: int, R: int, fold: int = 0) -> int:
     """Dynamic shared memory of ct_mma_kernel for a row [S][R] on its
     schedule: PGeo's or Geo's formula in ct_ntt.cu (fsi_ct_mma_smem
-    returns the same number on the card).  The byte-plane blocks, and the
-    twiddle pairs where the whole layout fits in SMEM_MAX."""
-    if kernel_schedule(S, R) == "pingpong":
+    returns the same number on the card).  The byte-plane blocks, the
+    fold's tail of `fold` words rounded up to 16 bytes (the inverse on a
+    mixed-radix ring, fold_words(meta); only the sync schedule folds),
+    and the twiddle pairs where the whole layout fits in SMEM_MAX."""
+    if not fold and kernel_schedule(S, R) == "pingpong":
         planes = _pingpong_planes(S, R)
     else:
         ks1, ks2 = _pad(S, 32) + 16, _pad(R, 32) + 16
         planes = 3 * (_pad(S, 16) * ks1 + _pad(R, 16) * ks2
                       + _pad(R, 16) * ks1 + _pad(S, 16) * ks2)
+        planes += _pad(4 * fold, 16)
     tw = S * tw_stride(R) * 4
     return planes + tw if planes + tw <= SMEM_MAX else planes
 
 
-def _fits(S: int, R: int, limit: int) -> bool:
-    return min(S, R) >= 2 and kernel_smem(S, R) <= limit
+def fold_words(meta: CtMeta) -> int:
+    """Words of the inverse's fold that ct_mma_kernel keeps in shared
+    memory: the tail s = N/q of a mixed-radix ring, 0 on m = 2^k."""
+    return meta.N // meta.q_odd if meta.q_odd > 1 else 0
+
+
+def _fits(S: int, R: int, limit: int, fold: int = 0) -> bool:
+    return min(S, R) >= 2 and kernel_smem(S, R, fold) <= limit
 
 
 def check_kernel_shape(name: str, shape, S: int, R: int,
-                       limit: int = SMEM_MAX):
+                       limit: int = SMEM_MAX, fold: int = 0):
     """Raise ValueError, with the input's shape, unless ct_mma_kernel
-    takes a row [S][R] (S = N2, R = N1 forward; S = N1, R = N2 inverse):
-    both sides at least 2 and the layout inside `limit` bytes of shared
+    takes a row [S][R] (S = N2, R = N1 forward; S = N1, R = N2 inverse,
+    with `fold` words of the fold's tail on a mixed-radix ring): both
+    sides at least 2 and the layout inside `limit` bytes of shared
     memory per block.  Every such split also keeps the kernel's launch
-    limits (sides up to 224 of its 1024, at most 16 input tiles per warp).
-    The wrappers call it before every launch; the plain versions take
-    every split."""
-    if _fits(S, R, limit):
+    limits (sides up to 224 of its 1024, at most 16 input tiles per warp,
+    N below 2^16).  The wrappers call it before every launch; the plain
+    versions take every split."""
+    if _fits(S, R, limit, fold):
         return
     split = f"input {tuple(shape)} (N1 x N2 = {max(S, R)} x {min(S, R)})"
     if min(S, R) < 2:
         raise ValueError(f"{name}: {split}: the tensor-core kernel needs "
                          "N1, N2 >= 2")
-    raise ValueError(f"{name}: {split} needs {kernel_smem(S, R)} bytes of "
-                     f"shared memory per block; the card allows {limit}")
+    raise ValueError(f"{name}: {split} needs {kernel_smem(S, R, fold)} bytes "
+                     f"of shared memory per block; the card allows {limit}")
 
 
 def kernel_takes(meta: CtMeta, limit: int = SMEM_MAX) -> bool:
@@ -193,9 +207,30 @@ def kernel_takes(meta: CtMeta, limit: int = SMEM_MAX) -> bool:
             and _fits(meta.N1, meta.N2, limit))
 
 
+def folds_in_kernel(meta: CtMeta, limit: int = SMEM_MAX) -> bool:
+    """True when ct_inv on a mixed-radix ring folds inside the kernel:
+    the fold's tail (fold_words) fits beside the inverse's layout in
+    `limit` bytes.  Every mixed split the kernel takes but two does
+    (125 x 125 and 128 x 125, m = 31250 and 32000), and on those ct_inv
+    runs the plain insert and fold of ops/ntt_ct.py around the N-point
+    kernel.  The forward transforms' pad and drop need no shared memory:
+    every mixed split takes them in the kernel."""
+    return meta.q_odd > 1 and _fits(meta.N1, meta.N2, limit,
+                                    fold_words(meta))
+
+
 # the input and the output of a launch (x, four tables, out); the byte
 # planes of the tables are uint8
 _INT32 = (0, 5)
+
+# launches that did the phim <-> N steps in the kernel (a mixed-radix
+# ring), per transform: a mul+relin counts 1, 1 and 2; none on m = 2^k
+PHIM_FUSED = dict.fromkeys(("ct_fwd", "ct_fwd_digits", "ct_inv"), 0)
+
+
+def reset_phim_fused():
+    for k in PHIM_FUSED:
+        PHIM_FUSED[k] = 0
 
 
 @functools.cache
@@ -215,17 +250,33 @@ def _smem_limit(device: torch.device) -> int:
         return library("ct_ntt").fsi_smem_optin()
 
 
-def _mma_tables(name, x, T: dict, keys, S: int, R: int):
+def _mma_tables(name, x, T: dict, keys, S: int, R: int, fold: int = 0):
     """The tensor-core kernel's tables, after checking that it takes the
     split (check_kernel_shape, against the card's shared memory) and
     before looking for them: a split the kernel cannot take raises with
     its shape whatever tables it was handed."""
-    check_kernel_shape(name, x.shape, S, R, _smem_limit(x.device))
+    check_kernel_shape(name, x.shape, S, R, _smem_limit(x.device), fold)
     missing = [k for k in keys if k not in T]
     if missing:
         raise ValueError(f"{name}: the tables lack {missing}; build them "
                          "with ntt_ct_cuda.kernel_tables (DeviceContext does)")
     return tuple(T[k] for k in keys)
+
+
+def _launch(name, x, tabs, out, L: int, meta: CtMeta, S: int, R: int,
+            width: int):
+    """One launch of the kernel's entry fsi_<name> on rows `width` words
+    wide: phim, with the phim <-> N steps inside where phim < N (counted
+    in PHIM_FUSED), or N, the N-point transform alone."""
+    if not out.numel():
+        return out
+    launch(name, "fsi_" + name, (x, *tabs, out),
+           (out.numel() // (L * width), L, meta.N1, meta.N2, width,
+            meta.q_odd),
+           int32=_INT32, contiguous=True, schedule=_schedule(S, R))
+    if width < meta.N:
+        PHIM_FUSED[name] += 1
+    return out
 
 
 def ct_fwd(T: dict, x, meta: CtMeta):
@@ -238,14 +289,9 @@ def ct_fwd(T: dict, x, meta: CtMeta):
         tabs = _mma_tables("ct_fwd", x, T,
                            ('k_t2', 'k_t1', 'k_tw', 'k_consts'), meta.N2,
                            meta.N1)
-        x = ntt_ct.pad_to_N(x, meta).contiguous()
-        out = torch.empty_like(x)
-        if out.numel():
-            launch("ct_fwd", "fsi_ct_fwd", (x, *tabs, out),
-                   (x.numel() // (L * meta.N), L, meta.N1, meta.N2),
-                   int32=_INT32, contiguous=True,
-                   schedule=_schedule(meta.N2, meta.N1))
-        return ntt_ct.drop_excluded(out, meta)
+        x = x.contiguous()
+        return _launch("ct_fwd", x, tabs, torch.empty_like(x), L, meta,
+                       meta.N2, meta.N1, meta.phim)
 
 
 def ct_fwd_digits(T: dict, digits, meta: CtMeta, digit_bits: int):
@@ -261,15 +307,11 @@ def ct_fwd_digits(T: dict, digits, meta: CtMeta, digit_bits: int):
         tabs = _mma_tables("ct_fwd_digits", digits, T,
                            ('k_t2', 'k_t1', 'k_tw', 'k_consts'), meta.N2,
                            meta.N1)
-        digits = ntt_ct.pad_to_N(digits, meta).contiguous()
-        out = torch.empty(digits.shape[:-1] + (L, meta.N), dtype=torch.int32,
-                          device=digits.device)
-        if out.numel():
-            launch("ct_fwd_digits", "fsi_ct_fwd_digits", (digits, *tabs, out),
-                   (digits.numel() // meta.N, L, meta.N1, meta.N2),
-                   int32=_INT32, contiguous=True,
-                   schedule=_schedule(meta.N2, meta.N1))
-        return ntt_ct.drop_excluded(out, meta)
+        digits = digits.contiguous()
+        out = torch.empty(digits.shape[:-1] + (L, meta.phim),
+                          dtype=torch.int32, device=digits.device)
+        return _launch("ct_fwd_digits", digits, tabs, out, L, meta, meta.N2,
+                       meta.N1, meta.phim)
 
 
 def ct_inv(T: dict, evals, meta: CtMeta, t2i_key: str = 't2i'):
@@ -280,14 +322,16 @@ def ct_inv(T: dict, evals, meta: CtMeta, t2i_key: str = 't2i'):
             return ntt_ct.ct_inv(T, evals, meta, t2i_key)
         L = T['q'].shape[0]
         _check("ct_inv", evals, (L, meta.phim))
+        fold = folds_in_kernel(meta, _smem_limit(evals.device))
         tabs = _mma_tables("ct_inv", evals, T,
                            ('k_t1i', 'k_' + t2i_key, 'k_twi', 'k_consts'),
-                           meta.N1, meta.N2)
+                           meta.N1, meta.N2, fold_words(meta) if fold else 0)
+        if fold or meta.q_odd == 1:
+            evals = evals.contiguous()
+            return _launch("ct_inv", evals, tabs, torch.empty_like(evals), L,
+                           meta, meta.N1, meta.N2, meta.phim)
+        # the fold's tail does not fit (folds_in_kernel): the plain steps
         evals = ntt_ct.insert_excluded(evals, meta).contiguous()
-        out = torch.empty_like(evals)
-        if out.numel():
-            launch("ct_inv", "fsi_ct_inv", (evals, *tabs, out),
-                   (evals.numel() // (L * meta.N), L, meta.N1, meta.N2),
-                   int32=_INT32, contiguous=True,
-                   schedule=_schedule(meta.N1, meta.N2))
+        out = _launch("ct_inv", evals, tabs, torch.empty_like(evals), L,
+                      meta, meta.N1, meta.N2, meta.N)
         return ntt_ct.fold_mod_phim(out, T['q'], meta)

@@ -33,9 +33,11 @@ transforms (fhe.route_fwd, fhe.route_fwd_digits, fhe.route_inv) and,
 inside them, on a split N x 1 the boundary kernels' wrappers
 (fhe.route_enter, fhe.route_leave), on any other split each twiddle
 (fhe.route_twiddle) and phim <-> N step (fhe.route_reindex); on a
-mixed-radix ring each phim <-> N step of ops/ntt_ct.py under its own
-name (fhe.pad_to_N, fhe.drop_excluded, fhe.insert_excluded,
-fhe.fold_mod_phim), inside the transform's span.  They go to one sink:
+mixed-radix ring each plain phim <-> N step of ops/ntt_ct.py that runs
+under its own name (fhe.pad_to_N, fhe.drop_excluded, fhe.insert_excluded,
+fhe.fold_mod_phim), inside the transform's span: on the CPU, and on the
+card only where the kernel cannot do them itself
+(ntt_ct_cuda.folds_in_kernel).  They go to one sink:
 an open counting() table, else a
 recording torch.profiler capture (a user_annotation event on the clock
 of the card's kernels).  With neither, a span is one shared no-op

@@ -103,27 +103,58 @@ def _kernel_tables(cuda, m, qs):
                   for k, v in dict(ct, **ntt_ct_cuda.kernel_tables(ct)).items()}
 
 
-def _all_transforms_match_plain(cuda, meta, T, seed, schedule="sync"):
-    """The three kernels against their plain versions on 37 rows, and the
-    round trip, all four launches on `schedule`."""
+def _operands(cuda, rng, q, rows, phim, worst):
+    """Residues [rows, L, phim] and 24-bit digits [rows, phim]: random, or
+    every residue q - 1 and every digit 2^24 - 1."""
+    shape = (rows, len(q), phim)
+    x = np.broadcast_to(q[:, None] - 1, shape) if worst else \
+        rng.integers(0, q[:, None], size=shape)
+    d = np.full((rows, phim), (1 << 24) - 1) if worst else \
+        rng.integers(0, 1 << 24, size=(rows, phim))
+    return (torch.as_tensor(np.ascontiguousarray(x, np.int32), device=cuda),
+            torch.as_tensor(d.astype(np.int32), device=cuda))
+
+
+def _all_transforms_match_plain(cuda, meta, T, seed, schedule="sync",
+                                rows=(RAGGED,)):
+    """The three kernels against their plain versions on each row count
+    of `rows`, random and at the extremes, and the round trip, every
+    launch on `schedule`; on a mixed-radix ring with the phim <-> N steps
+    in the kernel (PHIM_FUSED; the inverse's plain insert and fold where
+    the fold does not fit, PHIM_STEPS)."""
     rng = np.random.default_rng(seed)
     q = T["q"].cpu().numpy().astype(np.int64)
-    x = torch.as_tensor(rng.integers(0, q[:, None], size=(
-        RAGGED, len(q), meta.phim)).astype(np.int32), device=cuda)
-    d = torch.as_tensor(rng.integers(0, 1 << 24, size=(
-        RAGGED, meta.phim)).astype(np.int32), device=cuda)
     cuda_build.reset_launches()
-    ev = ntt_ct_cuda.ct_fwd(T, x, meta)
-    assert torch.equal(ev, ntt_ct.ct_fwd(T, x, meta))
-    assert torch.equal(ntt_ct_cuda.ct_inv(T, ev, meta), x)
-    ev = ntt_ct_cuda.ct_fwd_digits(T, d, meta, 24)
-    assert torch.equal(ev, ntt_ct.ct_fwd_digits(T, d, meta, 24))
-    assert torch.equal(ntt_ct_cuda.ct_inv(T, ev, meta),
-                       ntt_ct.ct_inv(T, ev, meta))
+    ntt_ct_cuda.reset_phim_fused()
+    ntt_ct.reset_phim_steps()
+    n = 0
+    for count in rows:
+        for worst in (False, True):
+            x, d = _operands(cuda, rng, q, count, meta.phim, worst)
+            ev = ntt_ct_cuda.ct_fwd(T, x, meta)
+            assert torch.equal(ev, ntt_ct.ct_fwd(T, x, meta))
+            assert torch.equal(ntt_ct_cuda.ct_inv(T, ev, meta), x)
+            ev = ntt_ct_cuda.ct_fwd_digits(T, d, meta, 24)
+            assert torch.equal(ev, ntt_ct.ct_fwd_digits(T, d, meta, 24))
+            assert torch.equal(ntt_ct_cuda.ct_inv(T, ev, meta),
+                               ntt_ct.ct_inv(T, ev, meta))
+            n += 1
     torch.cuda.synchronize()
-    assert _launched(NTT) == {"ct_fwd": 1, "ct_fwd_digits": 1, "ct_inv": 2}
+    assert _launched(NTT) == {"ct_fwd": n, "ct_fwd_digits": n, "ct_inv": 2 * n}
     other = {"sync": "pingpong", "pingpong": "sync"}[schedule]
-    assert cuda_build.SCHEDULES == {schedule: 4, other: 0}
+    assert cuda_build.SCHEDULES == {schedule: 4 * n, other: 0}
+    mixed = n if meta.q_odd > 1 else 0
+    fold = ntt_ct_cuda.folds_in_kernel(meta)
+    assert ntt_ct_cuda.PHIM_FUSED == {"ct_fwd": mixed, "ct_fwd_digits": mixed,
+                                      "ct_inv": 2 * mixed if fold else 0}
+    # the plain versions count their own steps: two forward transforms
+    # and one inverse a round
+    plain = {"pad_to_N": 2, "drop_excluded": 2, "insert_excluded": 1,
+             "fold_mod_phim": 1}
+    if mixed and not fold:
+        plain = {k: v + 2 * (k in ("insert_excluded", "fold_mod_phim"))
+                 for k, v in plain.items()}
+    assert ntt_ct.PHIM_STEPS == {k: v * mixed for k, v in plain.items()}
 
 
 @pytest.mark.cuda
@@ -167,37 +198,62 @@ def test_tensor_core_kernel_refusals(cuda):
 
 
 # mixed-radix splits N1 x N2 (forward R = N1, inverse R = N2) on a narrow
-# and a wide prime with m | q - 1: odd R at 5 x 4, 3 x 3, 9 x 3, 81 x 81
+# and a wide prime with m | q - 1: odd R at 5 x 4, 3 x 3, 9 x 3, 81 x 81;
+# 125 x 125, whose fold does not fit beside its layout
 MIXED = [pytest.param((40, [1048361, 8387921]), id="m40-5x4"),
          pytest.param((96, [1048129, 8387809]), id="m96-8x6"),
          pytest.param((160, [1047841, 8385761]), id="m160-10x8"),
          pytest.param((18, [1048573, 8388451]), id="m18-3x3"),
          pytest.param((54, [1048573, 8388091]), id="m54-9x3"),
          pytest.param((13122, [997273, 8306227]), id="m13122-81x81"),
-         pytest.param((20480, [962561, 8273921]), id="m20480-128x80")]
+         pytest.param((20480, [962561, 8273921]), id="m20480-128x80"),
+         pytest.param((31250, [812501, 8312501]), id="m31250-125x125")]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mq", MIXED)
 def test_tensor_core_kernel_mixed_radix(cuda, mq):
-    """The mixed-radix rings: the kernel on the N-point transform, the
-    wrappers' pad, drop, insert and fold around it, against the plain
-    versions, phim wide in and out."""
+    """The mixed-radix rings: the kernel with the pad, drop, insert and
+    fold in its loads and stores, against the plain versions, phim wide
+    in and out, on random rows and rows at the extremes; m = 31250 keeps
+    the plain insert and fold around its inverse."""
     meta, T = _kernel_tables(cuda, *mq)
     assert meta.q_odd > 1
+    assert ntt_ct_cuda.folds_in_kernel(meta) == (mq[0] != 31250)
     _all_transforms_match_plain(cuda, meta, T, mq[0], "sync")
+
+
+@pytest.mark.cuda
+def test_mixed_radix_at_the_cells_bases(cuda):
+    """m = 20480 on the benchmark cell's bases (L = 12 and 8, both
+    narrow), on 1 row, a count no row tile divides and one past a tile
+    a block, random and at the extremes."""
+    dc = DeviceContext(FheContext(m=20480, log_q=80, p=40961, generator=3),
+                       cuda)
+    assert (dc.full["ct"]["q"].shape[0], dc.ksw["ct"]["q"].shape[0]) == (12, 8)
+    for T in (dc.full, dc.ksw):
+        _all_transforms_match_plain(cuda, dc.ct_meta, T["ct"], 20480,
+                                    rows=(1, RAGGED, 300))
 
 
 @pytest.mark.cuda
 def test_kernel_shape_rule_matches_card(cuda):
     """check_kernel_shape's shared-memory formula is the kernel's (Geo):
     equal to fsi_ct_mma_smem for every split the tests run, odd sides
-    included."""
+    included, and with the fold's tail of each mixed split's inverse."""
     lib = cuda_build.library("ct_ntt")
     for S, R in ((2, 2), (4, 5), (5, 4), (3, 3), (3, 9), (9, 3), (8, 10),
                  (81, 81), (80, 128), (128, 80), (64, 64), (64, 128),
                  (128, 64), (128, 128), (128, 256), (1, 11)):
-        assert ntt_ct_cuda.kernel_smem(S, R) == lib.fsi_ct_mma_smem(S, R)
+        assert ntt_ct_cuda.kernel_smem(S, R) == lib.fsi_ct_mma_smem(S, R, 0)
+    for m, _ in (p.values[0] for p in MIXED):
+        N1, N2 = ntt_ct._split(m // 2)
+        q_odd = ntt_ct._odd_prime(m)
+        fold = N1 * N2 // q_odd
+        assert ntt_ct_cuda.kernel_smem(N1, N2, fold) == \
+            lib.fsi_ct_mma_smem(N1, N2, fold), m
+    assert lib.fsi_ct_mma_smem(128, 80, 2048) == 167936
+    assert lib.fsi_ct_mma_smem(81, 81, 2187) == 196096
 
 
 @pytest.mark.cuda
@@ -795,6 +851,46 @@ def test_mul_relin_wrapper_spans_equal_launches(cuda, ring):
     assert {k: table.get("fhe." + k, [0])[0] for k in launched} == launched
     assert sum(launched.values()) > 0
     assert sum(n for n, _ in table.values()) == 15
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ring, fused", [
+    pytest.param((20480, 80, 40961, 3), 1, id="m20480"),
+    pytest.param((8192, 80, 40961, 3), 0, id="m8192")])
+def test_mul_relin_does_the_phim_steps_in_the_kernel(cuda, ring, fused):
+    """One mul_relin on the card on the mixed cell's ring: no plain
+    phim <-> N step runs (PHIM_STEPS all 0), the transforms' four
+    launches did them (PHIM_FUSED 1, 1 and 2), and the call is 11 device
+    operations (launches_per_step), as on m = 8192, where PHIM_FUSED
+    reads 0; the output equals the CPU's."""
+    from bench_port import trace as bench_trace
+    m, log_q, p, g = ring
+    ctx = FheContext(m=m, log_q=log_q, p=p, generator=g)
+    dev, cpu = DeviceContext(ctx, cuda), DeviceContext(ctx, "cpu")
+    gen = torch.Generator().manual_seed(m)
+    a, b = (torch.randint(0, 1 << 16, (2, 2, ctx.phim, ctx.n_limbs_ct),
+                          generator=gen, dtype=torch.int32) for _ in range(2))
+    mat = torch.randint(0, 2, (2, 3 * ctx.ndigits, ctx.num_primes, ctx.phim),
+                        generator=gen, dtype=torch.int32)
+    ac, bc, mc = a.to(cuda), b.to(cuda), mat.to(cuda)
+    dev.mul_relin(ac, bc, mc)
+    ntt_ct.reset_phim_steps()
+    ntt_ct_cuda.reset_phim_fused()
+    cuda_build.reset_launches()
+
+    def call(_):
+        with torch.profiler.record_function(bench_trace.CALL):
+            out = dev.mul_relin(ac, bc, mc)
+            torch.cuda.synchronize()
+        return out
+    tr = bench_trace.capture(call, 1)
+    assert set(ntt_ct.PHIM_STEPS.values()) == {0}
+    assert ntt_ct_cuda.PHIM_FUSED == {"ct_fwd": fused, "ct_fwd_digits": fused,
+                                      "ct_inv": 2 * fused}
+    assert sum(cuda_build.LAUNCHES.values()) == 10
+    assert tr.calls == 1 and len(tr.ops) == 11, [o.name for o in tr.ops]
+    assert torch.equal(dev.mul_relin(ac, bc, mc).cpu(),
+                       cpu.mul_relin(a, b, mat))
 
 
 @pytest.mark.cuda

@@ -9,9 +9,12 @@ the kernel's arithmetic on those tables (byte-plane products per
 diagonal, the reduction, the twiddle read as 16-byte pairs from the
 padded rows, the same index maps) equals the plain N-point transforms of
 ct_fwd, ct_fwd_digits and ct_inv on both lanes, up to m = 2^15, and on
-the mixed-radix splits, odd R among them, with the wrappers' pad, drop
-and fold around it.  The shape rule the wrappers check before a launch
-is in test_torch_context.py.  The kernel itself runs only on a card
+the mixed-radix splits, odd R among them, with the plain pad, drop and
+fold around it; a numpy model of the kernel doing those steps itself
+(emulate_phim: the fetch's pad and insert, the store's drop, the fold's
+two passes) equals the plain phim-wide transforms, and its divisions,
+fold rule and shared memory are checked.  The shape rule the wrappers
+check before a launch is in test_torch_context.py.  The kernel itself runs only on a card
 (tests/test_torch_cuda.py, chip_smoke.py)."""
 import numpy as np
 import pytest
@@ -162,15 +165,19 @@ def _planes_of(x):
     return [(x >> (8 * p)) & 255 for p in range(3)]
 
 
-def _stage(planes, B, consts, K):
+def _stage(planes, B, consts, K, kp=None):
     """One stage of the kernel: C = A @ B from byte planes per diagonal,
     reduced as the kernel does.  planes uint8 [3, Mp, Ks] of A [K, K]
-    (as the kernel reads it: K padded to 32 with zeros), B [K, n] < 2^24."""
+    (as the kernel reads it: K padded to 32 with zeros, or cut at kp, a
+    multiple of 32, past which B is zero), B [K, n] < 2^24."""
     A = [planes[p].astype(np.int64)[:K, :-16] for p in range(3)]
+    if kp is not None:
+        assert kp % 32 == 0 and not B[kp:].any()
+        A, B = [a[:, :kp] for a in A], B[:kp]
     # the kernel never writes the operand's padding rows: take the worst
     # bytes there, which the table planes' zero columns must cancel
-    Bp = [np.pad(b, ((0, A[0].shape[1] - K), (0, 0)), constant_values=255)
-          for b in _planes_of(B)]
+    Bp = [np.pad(b, ((0, A[0].shape[1] - len(B)), (0, 0)),
+                 constant_values=255) for b in _planes_of(B)]
     D = np.zeros((5, K, B.shape[1]), np.int64)
     for a in range(3):
         for b in range(3):
@@ -341,6 +348,198 @@ def test_emulated_kernel_equals_plain_mixed_radix(mq):
     _emulate_fwd_digits(kt, T, meta, digits)
     for key in ('t2i', 't2i_crt'):
         _emulate_inv(kt, T, meta, res, key)
+
+
+def _divide(a, d: int):
+    """ct_ntt.cu divide: floor(a / d) as the high word of a * ceil(2^32/d)."""
+    return ((np.asarray(a, np.uint64) * np.uint64(M32 // d + 1))
+            >> np.uint64(32)).astype(np.int64)
+
+
+def _compact(u, meta):
+    """ct_ntt.cu compact: evaluation u's index in a phim-wide row, -1
+    where u mod q = u0."""
+    q, u0 = meta.q_odd, meta.u0
+    qd = _divide(u, q)
+    r = np.asarray(u) - qd * q
+    return np.where(r == u0, -1, qd * (q - 1) + r - (r > u0))
+
+
+def _fold_passes(S: int, R: int, phim: int):
+    """sync_rows' two fold passes over stage 2's 16 x 16 tiles of the
+    output [R][S] (c = n + S m): (u_tail, u_head, tiles, the entries c of
+    tile u); the first pass runs the tiles [u_tail, tiles), the second
+    [0, u_head)."""
+    nu2 = -(-S // 16)
+    tiles = -(-R // 16) * nu2
+
+    def entries(u):
+        m0, n0 = u // nu2 * 16, u % nu2 * 16
+        return [m * S + n for m in range(m0, min(m0 + 16, R))
+                for n in range(n0, min(n0 + 16, S))]
+    u_tail = next((u for u in range(tiles) if max(entries(u)) >= phim), tiles)
+    u_head = next((u for u in range(tiles) if min(entries(u)) >= phim), tiles)
+    return u_tail, u_head, tiles, entries
+
+
+def emulate_phim(kt, a1, a2, tw, rows, meta, fwd: bool):
+    """ct_mma_kernel with the phim <-> N steps (ct_ntt.cu, "the phim <-> N
+    steps"; kPhimFwd when fwd, else kPhimInv) on phim-wide rows
+    [n_rows, L, phim] -> [n_rows, L, phim], each index as the kernel
+    computes it: the fetch's pad or insert, stage 1 cut at the rows pad
+    leaves, the store's drop, or the fold's two passes through the tail
+    staged in shared memory.  Every output word is written once."""
+    S, R = (meta.N2, meta.N1) if fwd else (meta.N1, meta.N2)
+    P, N, s = meta.phim, meta.N, meta.N // meta.q_odd
+    n_rows, L, _ = rows.shape
+    i = np.arange(N)                          # i = kk R + n of the row [S][R]
+    src = np.where(i < P, i, -1) if fwd else _compact(i, meta)
+    kp = -(-min(S, -(-P // R)) // 32) * 32 if fwd else None
+    u_tail, u_head, tiles, entries = _fold_passes(S, R, P)
+    out = np.full((n_rows, L, P), -1, np.int64)
+    for l in range(L):
+        consts = kt['k_consts'][l]
+        q = np.uint64(consts.view(np.uint32)[0])
+        w, wp = _twiddle_loads(kt, tw, l, S, R)
+        for r in range(n_rows):
+            x = np.zeros((S, w.shape[1]), np.int64)
+            x[:, :R] = np.where(src >= 0, rows[r, l][np.maximum(src, 0)],
+                                0).reshape(S, R)
+            y = _stage(kt[a1][l], x, consts, S, kp)
+            y = _csub(_shoup(y, w, wp, q), q).astype(np.int64)
+            y = _stage(kt[a2][l], y[:, :R].T, consts, R).reshape(-1)  # c or u
+            o = out[r, l]
+            if fwd:                           # drop
+                at = _compact(np.arange(N), meta)
+                assert (o[at[at >= 0]] == -1).all()
+                o[at[at >= 0]] = y[at >= 0]
+                continue
+            tail = np.full(s, -1, np.int64)   # the first pass
+            for u in range(u_tail, tiles):
+                for c in entries(u):
+                    if c >= P:
+                        tail[c - P] = y[c]
+            assert (tail >= 0).all()
+            for u in range(u_head):           # the second
+                for c in entries(u):
+                    if c < P:
+                        blk = int(_divide(c, s))
+                        t = int(tail[c - blk * s])
+                        assert o[c] == -1
+                        o[c] = (y[c] + (t if blk & 1 else int(q) - t)) % int(q)
+    assert (out >= 0).all()
+    return out
+
+
+# mixed-radix splits the kernel does the phim <-> N steps on: those of
+# MIXED, S = 6 (m = 96 forward, stage 1 cut past S) and m = 12288
+# (96 x 64: the fold's head and tail share tiles)
+FUSED = MIXED + [pytest.param((96, [1048129]), id="m96-8x6"),
+                 pytest.param((12288, [786433]), id="m12288-96x64")]
+
+
+@pytest.mark.parametrize("mq", FUSED)
+def test_emulated_phim_steps_equal_plain(mq):
+    """The kernel's pad, drop, insert and fold (emulate_phim) on
+    phim-wide rows equal the plain ct_fwd, ct_fwd_digits and ct_inv of
+    ops/ntt_ct.py, both inverse tables, on random rows and rows at the
+    extremes (residues q - 1, digits 2^24 - 1)."""
+    m, qs = mq
+    meta, ct, _, _ = _prime_tables(m, qs)
+    ct = ntt_ct.with_crt_premultiplier(ct, np.arange(2, 2 + len(qs)))
+    kt = dict(ct, **nc.kernel_tables(ct))
+    T = {k: torch.as_tensor(v) for k, v in kt.items()}
+    assert meta.phim < meta.N and nc.folds_in_kernel(meta)
+    res, digits = _operands(np.random.default_rng(m),
+                            ct['q'].astype(np.int64), 2, meta.phim)
+    L = len(qs)
+    got = emulate_phim(kt, 'k_t2', 'k_t1', 'k_tw', res, meta, True)
+    assert np.array_equal(got, ntt_ct.ct_fwd(T, _i32(res), meta).numpy())
+    got = emulate_phim(kt, 'k_t2', 'k_t1', 'k_tw',
+                       np.repeat(digits[:, None], L, axis=1), meta, True)
+    assert np.array_equal(
+        got, ntt_ct.ct_fwd_digits(T, _i32(digits), meta, 24).numpy())
+    for key in ('t2i', 't2i_crt'):
+        got = emulate_phim(kt, 'k_t1i', 'k_' + key, 'k_twi', res, meta, False)
+        assert np.array_equal(got, ntt_ct.ct_inv(T, _i32(res), meta,
+                                                 key).numpy())
+
+
+def _mixed_rings(limit=nc.SMEM_MAX):
+    """Every split of a ring m = 2^a q^b, q odd, phim > 2048 (the
+    Cooley-Tukey family's mixed rings) up to m = 2^18 that the kernel
+    takes: [CtMeta]."""
+    out = []
+    for q in (3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37, 41, 43, 47, 53):
+        for a in range(1, 18):
+            for b in range(1, 12):
+                m = 2 ** a * q ** b
+                if m > 1 << 18:
+                    break
+                N = m // 2
+                meta = ntt_ct.CtMeta(*ntt_ct._split(N), N // q * (q - 1), q)
+                if meta.phim > 2048 and nc.kernel_takes(meta, limit):
+                    out.append(meta)
+    return out
+
+
+def test_divide_exact_on_every_fused_split():
+    """divide's quotient by q and by s = N/q is exact for every index
+    below N on every mixed split the kernel takes (N < 2^16: launch_phim
+    refuses more)."""
+    metas = _mixed_rings()
+    assert len(metas) > 100
+    for meta in metas:
+        assert meta.N < 1 << 16
+        a = np.arange(meta.N)
+        for d in (meta.q_odd, meta.N // meta.q_odd):
+            assert np.array_equal(_divide(a, d), a // d)
+
+
+def test_fold_rule_and_shared_memory():
+    """folds_in_kernel, the Python side of the fold's shared memory (Geo's
+    fold: s words, rounded up to 16 bytes, after B2): m = 20480's inverse
+    128 x 80 takes 159,744 bytes of planes and 2048 x 4 of tail (its
+    90,112-byte twiddle stays in global memory), its forward 80 x 128
+    159,744; m = 13122's 81 x 81 takes 129,024 of planes, 8,752 of tail
+    (2187 words) and its 58,320-byte twiddle.  Of the mixed splits the
+    kernel takes, only 125 x 125 and 128 x 125 leave no room for the
+    tail; their ct_inv keeps the plain insert and fold.  m = 2^k folds
+    nothing."""
+    assert nc.kernel_smem(128, 80, 2048) == 159744 + 8192 == 167936
+    assert nc.kernel_smem(80, 128) == 159744
+    assert nc.kernel_smem(81, 81, 2187) == 129024 + 8752 + 58320 == 196096
+    assert nc.kernel_smem(81, 81) == 129024 + 58320
+    # the tail may push the twiddle out, never the planes past the limit
+    assert nc.kernel_smem(128, 80, 2048) - nc.kernel_smem(128, 80) == 8192
+    for m, want in ((20480, 2048), (13122, 2187), (12288, 2048), (8192, 0)):
+        meta, _, _, _ = _prime_tables(m, [next(
+            q for q in range(m + 1, 1 << 23, m) if numbth.is_prime(q))])
+        assert nc.fold_words(meta) == want
+        assert nc.folds_in_kernel(meta) == (want > 0)
+    left = [(meta.N1, meta.N2) for meta in _mixed_rings()
+            if not nc.folds_in_kernel(meta)]
+    assert left == [(125, 125), (128, 125)]
+    for S, R in left:
+        assert nc._fits(S, R, nc.SMEM_MAX)
+        assert not nc._fits(S, R, nc.SMEM_MAX, S * R // 5)
+
+
+def test_phim_fused_counts_launches_only():
+    """PHIM_FUSED has one key a transform, reset_phim_fused zeroes it, and
+    the plain versions that CPU tensors take count nothing there (they
+    count their steps in ntt_ct.PHIM_STEPS)."""
+    assert set(nc.PHIM_FUSED) == {"ct_fwd", "ct_fwd_digits", "ct_inv"}
+    nc.PHIM_FUSED["ct_inv"] += 2
+    nc.reset_phim_fused()
+    assert set(nc.PHIM_FUSED.values()) == {0}
+    meta, ct, _, T = _prime_tables(40, [1048361])
+    x = torch.zeros((2, 1, meta.phim), dtype=torch.int32)
+    ntt_ct.reset_phim_steps()
+    nc.ct_inv(T, nc.ct_fwd(T, x, meta), meta)
+    assert set(nc.PHIM_FUSED.values()) == {0}
+    assert ntt_ct.PHIM_STEPS == dict.fromkeys(ntt_ct.PHIM_STEPS, 1)
+    ntt_ct.reset_phim_steps()
 
 
 # (S, R) -> the schedule ct_mma_kernel runs the row on and its shared

@@ -62,9 +62,12 @@ prints no result line):
      inside the mul+relin step (on every step checked below: 4b, 7b, 7e,
      7f, 8, 10a, 11b, 11d; 10b-c through the ranks' launch counts).  At
      m = 256 the ciphertext parts must also equal hostmath/oracle.py;
-  4b. the same path at the JAX package's m = 2^15 config,
-     FheContext(m=32768, log_q=170, p=65537, g=3) (wide lane), on 4
-     pairs; prints its wall time;
+  4b. the same path at the benchmark cell ct32768_q220w.b64's ring,
+     FheContext(m=32768, log_q=220, p=65537, g=3) (wide lane: 23 primes,
+     10 digits), on 4 pairs; prints its wall time and
+     ntt_ct_cuda.TWIDDLE_GLOBAL of one mul+relin (1, 1 and 2: the
+     128 x 128 layout reads its twiddle from global memory; 0 on the
+     main path, 1, 1 and 2 again at m = 20480 in phase 8);
   5. timing with CUDA events: mul+relin at batch 64 (the median of three
      windows of 10 steps), its four stages, and each kernel against its
      plain version and its bound (the larger of its int32 bytes over the
@@ -202,7 +205,8 @@ SEED = 2024
 RAGGED_ROWS = 37           # no block size divides it
 BATCH = 64                 # ciphertext pairs per mul+relin step
 MAIN = dict(m=8192, log_q=80, p=40961, generator=3)
-M15 = dict(m=32768, log_q=170, p=65537, generator=3)   # wide lane, L = 19
+# the wide cell's ring: wide lane, L = 23, 10 digits
+M15 = bench_cell.load("ct32768_q220w.b64").config["context"]
 BATCH15 = 4
 # a narrow and a wide prime, both 1 mod 2^15: 3 * 2^18 + 1, 63 * 2^17 + 1
 BIG_PRIMES = [786433, 8257537]
@@ -998,6 +1002,25 @@ def step_cases(dc, batch, ntt=True):
     return (cases if ntt else []) + other
 
 
+def check_twiddle_global(dc, pairs, ksw, label, want: int):
+    """ntt_ct_cuda.TWIDDLE_GLOBAL over one mul+relin of the pairs, printed
+    and held to `want` forward transforms (forward, digits) and 2 * want
+    inverse ones: the launches whose layout reads the twiddle pairs from
+    global memory."""
+    import torch
+    from fhe_si_tpu_torch.ops import ntt_ct_cuda
+    a = torch.stack([x.parts for x, _ in pairs])
+    b = torch.stack([y.parts for _, y in pairs])
+    ntt_ct_cuda.reset_twiddle_global()
+    dc.mul_relin(a, b, ksw.matrix_evals)
+    torch.cuda.synchronize()
+    got = dict(ntt_ct_cuda.TWIDDLE_GLOBAL)
+    print(f"{label}: TWIDDLE_GLOBAL per mul+relin {got}")
+    if got != {"ct_fwd": want, "ct_fwd_digits": want, "ct_inv": 2 * want}:
+        raise AssertionError(f"{label}: TWIDDLE_GLOBAL {got}, want {want}, "
+                             f"{want}, {2 * want}")
+
+
 def time_step(card, dc, pairs, ksw, out, label):
     """mul+relin over the stacked pairs, held equal to `out` and timed in
     three windows of 10 steps; returns (a, b, the median window's ms per
@@ -1471,6 +1494,7 @@ def phase_mixed(dev, card):
         raise AssertionError(f"m=20480: {dc.ct_meta}, L={dc.L}, "
                              f"wide={dc.wide}")
     check_basis_kernels(dc, f"m={MIXED['m']} logQ={MIXED['log_q']}", rows=9)
+    check_twiddle_global(dc, pairs, ksw, "m=20480 path", 1)
     print(f"m=20480 path wall time: {time.perf_counter() - t0:.2f} s "
           "(setup, keys, encrypt, mul+relin, decrypt)")
     a, b, _, per_step = time_step(card, dc, pairs, ksw, out, "m=20480 path")
@@ -2385,6 +2409,8 @@ def main() -> int:
     dc15, ksw15, pairs15, out15, launches15 = lean_path(
         dev, M15, BATCH15, "m=32768 path")[:5]
     check_basis_kernels(dc15, f"m={M15['m']} logQ={M15['log_q']}", rows=5)
+    check_twiddle_global(dc15, pairs15, ksw15, "m=32768 path", 1)
+    check_twiddle_global(dc, pairs, ksw, "main path", 0)
     print(f"m=32768 path wall time: {time.perf_counter() - t0:.2f} s "
           f"(setup, keys, encrypt, mul+relin, decrypt)")
 

@@ -17,7 +17,11 @@ of ops/ntt_ct.py in its loads and stores (pad and drop forward, insert
 and fold inverse; ct_ntt.cu, "the phim <-> N steps"), so each wrapper
 launches once on phim-wide tensors and runs no plain op; PHIM_FUSED
 counts those launches.  The inverse's fold keeps N/q words in shared
-memory, which check_kernel_shape counts (fold_words).  The kernel reads
+memory, which check_kernel_shape counts (fold_words).  Where the byte
+planes leave no room for the twiddle pairs beside them (m = 2^15 on
+128 x 128, both orientations of m = 20480), the kernel reads the
+twiddle from global memory; twiddle_in_global states the rule and
+TWIDDLE_GLOBAL counts those launches.  The kernel reads
 the byte planes and Shoup reciprocals that kernel_tables prepares here
 on the host and DeviceContext keeps beside the tables (T['ct']); tables
 without them raise on a CUDA tensor.
@@ -148,22 +152,36 @@ def kernel_schedule(S: int, R: int) -> str:
     return "sync"
 
 
+def _planes(S: int, R: int, fold: int) -> int:
+    """kernel_smem without the twiddle pairs."""
+    if not fold and kernel_schedule(S, R) == "pingpong":
+        return _pingpong_planes(S, R)
+    ks1, ks2 = _pad(S, 32) + 16, _pad(R, 32) + 16
+    return 3 * (_pad(S, 16) * ks1 + _pad(R, 16) * ks2
+                + _pad(R, 16) * ks1 + _pad(S, 16) * ks2) + _pad(4 * fold, 16)
+
+
+@functools.cache
+def twiddle_in_global(S: int, R: int, fold: int = 0) -> bool:
+    """True where ct_mma_kernel's layout for a row [S][R] (with `fold`
+    words of the fold's tail) leaves the twiddle pairs in global memory:
+    the byte planes and S * tw_stride(R) * 4 bytes of twiddle exceed
+    SMEM_MAX (ct_ntt.cu Geo::tw_shared, PGeo::tw_shared)."""
+    return _planes(S, R, fold) + S * tw_stride(R) * 4 > SMEM_MAX
+
+
 def kernel_smem(S: int, R: int, fold: int = 0) -> int:
     """Dynamic shared memory of ct_mma_kernel for a row [S][R] on its
     schedule: PGeo's or Geo's formula in ct_ntt.cu (fsi_ct_mma_smem
     returns the same number on the card).  The byte-plane blocks, the
     fold's tail of `fold` words rounded up to 16 bytes (the inverse on a
     mixed-radix ring, fold_words(meta); only the sync schedule folds),
-    and the twiddle pairs where the whole layout fits in SMEM_MAX."""
-    if not fold and kernel_schedule(S, R) == "pingpong":
-        planes = _pingpong_planes(S, R)
-    else:
-        ks1, ks2 = _pad(S, 32) + 16, _pad(R, 32) + 16
-        planes = 3 * (_pad(S, 16) * ks1 + _pad(R, 16) * ks2
-                      + _pad(R, 16) * ks1 + _pad(S, 16) * ks2)
-        planes += _pad(4 * fold, 16)
-    tw = S * tw_stride(R) * 4
-    return planes + tw if planes + tw <= SMEM_MAX else planes
+    and the twiddle pairs where the whole layout fits in SMEM_MAX
+    (twiddle_in_global)."""
+    planes = _planes(S, R, fold)
+    if twiddle_in_global(S, R, fold):
+        return planes
+    return planes + S * tw_stride(R) * 4
 
 
 def fold_words(meta: CtMeta) -> int:
@@ -233,6 +251,17 @@ def reset_phim_fused():
         PHIM_FUSED[k] = 0
 
 
+# launches whose layout left the twiddle pairs in global memory
+# (twiddle_in_global), per transform: a mul+relin counts 1, 1 and 2 at
+# m = 2^15 and m = 20480, none at m = 8192
+TWIDDLE_GLOBAL = dict.fromkeys(("ct_fwd", "ct_fwd_digits", "ct_inv"), 0)
+
+
+def reset_twiddle_global():
+    for k in TWIDDLE_GLOBAL:
+        TWIDDLE_GLOBAL[k] = 0
+
+
 @functools.cache
 def _schedule(S: int, R: int) -> str:
     return ("sync", "pingpong")[library("ct_ntt").fsi_ct_schedule(S, R)]
@@ -264,10 +293,12 @@ def _mma_tables(name, x, T: dict, keys, S: int, R: int, fold: int = 0):
 
 
 def _launch(name, x, tabs, out, L: int, meta: CtMeta, S: int, R: int,
-            width: int):
+            width: int, fold: int = 0):
     """One launch of the kernel's entry fsi_<name> on rows `width` words
     wide: phim, with the phim <-> N steps inside where phim < N (counted
-    in PHIM_FUSED), or N, the N-point transform alone."""
+    in PHIM_FUSED), or N, the N-point transform alone; a layout of row
+    [S][R] and `fold` words that leaves the twiddle in global memory is
+    counted in TWIDDLE_GLOBAL."""
     if not out.numel():
         return out
     launch(name, "fsi_" + name, (x, *tabs, out),
@@ -276,6 +307,8 @@ def _launch(name, x, tabs, out, L: int, meta: CtMeta, S: int, R: int,
            int32=_INT32, contiguous=True, schedule=_schedule(S, R))
     if width < meta.N:
         PHIM_FUSED[name] += 1
+    if twiddle_in_global(S, R, fold):
+        TWIDDLE_GLOBAL[name] += 1
     return out
 
 
@@ -323,13 +356,14 @@ def ct_inv(T: dict, evals, meta: CtMeta, t2i_key: str = 't2i'):
         L = T['q'].shape[0]
         _check("ct_inv", evals, (L, meta.phim))
         fold = folds_in_kernel(meta, _smem_limit(evals.device))
+        words = fold_words(meta) if fold else 0
         tabs = _mma_tables("ct_inv", evals, T,
                            ('k_t1i', 'k_' + t2i_key, 'k_twi', 'k_consts'),
-                           meta.N1, meta.N2, fold_words(meta) if fold else 0)
+                           meta.N1, meta.N2, words)
         if fold or meta.q_odd == 1:
             evals = evals.contiguous()
             return _launch("ct_inv", evals, tabs, torch.empty_like(evals), L,
-                           meta, meta.N1, meta.N2, meta.phim)
+                           meta, meta.N1, meta.N2, meta.phim, words)
         # the fold's tail does not fit (folds_in_kernel): the plain steps
         evals = ntt_ct.insert_excluded(evals, meta).contiguous()
         out = _launch("ct_inv", evals, tabs, torch.empty_like(evals), L,

@@ -42,6 +42,17 @@ an open counting() table, else a
 recording torch.profiler capture (a user_annotation event on the clock
 of the card's kernels).  With neither, a span is one shared no-op
 context and costs two global reads.
+
+Beside the spans, module dicts count what the ops did, one increment
+each and no device read, each zeroed by a reset function beside it
+(LAUNCHES and SCHEDULES by one, reset_launches): ops/cuda_build.py
+LAUNCHES and SCHEDULES (every kernel launch, by wrapper and by the
+transform kernel's schedule), ops/ntt_ct_cuda.py PHIM_FUSED (transform
+launches that did the phim <-> N steps inside) and TWIDDLE_GLOBAL
+(transform launches whose layout left the twiddle pairs in global
+memory: 1, 1 and 2 a mul+relin at m = 2^15), ops/ntt_ct.py PHIM_STEPS
+(the plain phim <-> N steps) and ops/ntt_ct_matmul.py CALLS and
+PRODUCTS (the matmul route's transforms and GEMMs).
 """
 from __future__ import annotations
 

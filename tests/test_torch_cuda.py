@@ -126,6 +126,7 @@ def _all_transforms_match_plain(cuda, meta, T, seed, schedule="sync",
     q = T["q"].cpu().numpy().astype(np.int64)
     cuda_build.reset_launches()
     ntt_ct_cuda.reset_phim_fused()
+    ntt_ct_cuda.reset_twiddle_global()
     ntt_ct.reset_phim_steps()
     n = 0
     for count in rows:
@@ -147,6 +148,13 @@ def _all_transforms_match_plain(cuda, meta, T, seed, schedule="sync",
     fold = ntt_ct_cuda.folds_in_kernel(meta)
     assert ntt_ct_cuda.PHIM_FUSED == {"ct_fwd": mixed, "ct_fwd_digits": mixed,
                                       "ct_inv": 2 * mixed if fold else 0}
+    # the forward row [N2][N1], the inverse's [N1][N2] with the fold's tail
+    fwd = ntt_ct_cuda.twiddle_in_global(meta.N2, meta.N1)
+    inv = ntt_ct_cuda.twiddle_in_global(
+        meta.N1, meta.N2, ntt_ct_cuda.fold_words(meta) if fold else 0)
+    assert ntt_ct_cuda.TWIDDLE_GLOBAL == {"ct_fwd": n * fwd,
+                                          "ct_fwd_digits": n * fwd,
+                                          "ct_inv": 2 * n * inv}
     # the plain versions count their own steps: two forward transforms
     # and one inverse a round
     plain = {"pad_to_N": 2, "drop_excluded": 2, "insert_excluded": 1,
@@ -254,6 +262,31 @@ def test_kernel_shape_rule_matches_card(cuda):
             lib.fsi_ct_mma_smem(N1, N2, fold), m
     assert lib.fsi_ct_mma_smem(128, 80, 2048) == 167936
     assert lib.fsi_ct_mma_smem(81, 81, 2187) == 196096
+
+
+@pytest.mark.cuda
+def test_twiddle_layout_matches_card(cuda):
+    """twiddle_in_global, the rule TWIDDLE_GLOBAL counts by, is the
+    kernel's layout: fsi_ct_mma_smem is the byte planes (and the fold's
+    tail) alone exactly where the rule leaves the twiddle pairs in global
+    memory, and the planes with S * tw_stride(R) * 4 bytes of twiddle
+    elsewhere; 128 x 128 (m = 2^15) and both orientations of m = 20480
+    read the twiddle from global memory, 64 x 64 (m = 8192) does not."""
+    lib = cuda_build.library("ct_ntt")
+    splits = [(S, R, 0) for S, R in ((64, 64), (64, 128), (128, 64),
+                                     (128, 128), (80, 128), (128, 80),
+                                     (81, 81), (32, 64), (4, 5))]
+    for m, _ in (p.values[0] for p in MIXED):
+        N1, N2 = ntt_ct._split(m // 2)
+        splits.append((N1, N2, N1 * N2 // ntt_ct._odd_prime(m)))
+    for S, R, fold in splits:
+        tw = S * ntt_ct_cuda.tw_stride(R) * 4
+        glob = ntt_ct_cuda.twiddle_in_global(S, R, fold)
+        assert lib.fsi_ct_mma_smem(S, R, fold) == \
+            ntt_ct_cuda._planes(S, R, fold) + (0 if glob else tw), (S, R, fold)
+    assert [ntt_ct_cuda.twiddle_in_global(*s) for s in (
+        (128, 128), (80, 128), (128, 80, 2048), (64, 64))] == [
+        True, True, True, False]
 
 
 @pytest.mark.cuda
@@ -853,16 +886,26 @@ def test_mul_relin_wrapper_spans_equal_launches(cuda, ring):
     assert sum(n for n, _ in table.values()) == 15
 
 
+WIDE_CELL = bench_cell.load("ct32768_q220w.b64").config["context"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("ring, fused", [
-    pytest.param((20480, 80, 40961, 3), 1, id="m20480"),
-    pytest.param((8192, 80, 40961, 3), 0, id="m8192")])
-def test_mul_relin_does_the_phim_steps_in_the_kernel(cuda, ring, fused):
+@pytest.mark.parametrize("ring, fused, tw_global, schedule", [
+    pytest.param((20480, 80, 40961, 3), 1, 1, "sync", id="m20480"),
+    pytest.param((8192, 80, 40961, 3), 0, 0, "pingpong", id="m8192"),
+    pytest.param(tuple(WIDE_CELL[k] for k in ("m", "log_q", "p", "generator")),
+                 0, 1, "sync", id="m32768-q220")])
+def test_mul_relin_does_the_phim_steps_in_the_kernel(cuda, ring, fused,
+                                                     tw_global, schedule):
     """One mul_relin on the card on the mixed cell's ring: no plain
     phim <-> N step runs (PHIM_STEPS all 0), the transforms' four
     launches did them (PHIM_FUSED 1, 1 and 2), and the call is 11 device
     operations (launches_per_step), as on m = 8192, where PHIM_FUSED
-    reads 0; the output equals the CPU's."""
+    reads 0, and on the wide cell's ring m = 2^15 at logQ 220 (23 wide
+    primes, 10 digits).  TWIDDLE_GLOBAL counts the four transform launches
+    (1, 1 and 2) on the rings whose layouts leave the twiddle in global
+    memory (m = 20480, m = 2^15) and none at m = 8192; every transform
+    runs the ring's one schedule.  The output equals the CPU's."""
     from bench_port import trace as bench_trace
     m, log_q, p, g = ring
     ctx = FheContext(m=m, log_q=log_q, p=p, generator=g)
@@ -876,6 +919,7 @@ def test_mul_relin_does_the_phim_steps_in_the_kernel(cuda, ring, fused):
     dev.mul_relin(ac, bc, mc)
     ntt_ct.reset_phim_steps()
     ntt_ct_cuda.reset_phim_fused()
+    ntt_ct_cuda.reset_twiddle_global()
     cuda_build.reset_launches()
 
     def call(_):
@@ -887,6 +931,11 @@ def test_mul_relin_does_the_phim_steps_in_the_kernel(cuda, ring, fused):
     assert set(ntt_ct.PHIM_STEPS.values()) == {0}
     assert ntt_ct_cuda.PHIM_FUSED == {"ct_fwd": fused, "ct_fwd_digits": fused,
                                       "ct_inv": 2 * fused}
+    assert ntt_ct_cuda.TWIDDLE_GLOBAL == {
+        "ct_fwd": tw_global, "ct_fwd_digits": tw_global,
+        "ct_inv": 2 * tw_global}
+    other = {"sync": "pingpong", "pingpong": "sync"}[schedule]
+    assert cuda_build.SCHEDULES == {schedule: 4, other: 0}
     assert sum(cuda_build.LAUNCHES.values()) == 10
     assert tr.calls == 1 and len(tr.ops) == 11, [o.name for o in tr.ops]
     assert torch.equal(dev.mul_relin(ac, bc, mc).cpu(),

@@ -80,7 +80,11 @@ prints no result line):
      path's shapes also with its launches per mul+relin step; each
      kernel also with its device time alone (device_ms: the host enqueues
      its calls behind a spin kernel, so a short kernel's time is not its
-     wrapper's host time);
+     wrapper's host time); at the cell ct32768_q220w.b64's 64 pairs,
+     each transform's grid (tiles a prime, rows a block, waves of the
+     card's resident blocks, beside the ceil(slots / L) grid that
+     sync_tiles replaced) and its device time, and that time over waves x
+     rows a block (time_transform_grids);
   6. the applications: the port's Test_Regression and Test_Statistics
      CLIs at m = 8192, p = 40961, g = 3 on a d = 4, n = 256 dataset made
      from the seed (both on the wide lane); each must print MATCH and
@@ -116,7 +120,9 @@ prints no result line):
      equal oracle.plaintext_mul, all three kernels must launch and no
      plain transform run; the step and its four stages timed with CUDA
      events, each kernel at the path's shapes against its bound and its
-     plain version;
+     plain version; at the cell mixed20480_q80.b64's 64 pairs each
+     transform's grid and device time (time_transform_grids, as at
+     m = 2^15 in phase 5);
   9. the object API and the serializers on the card: DoubleCrt round
      trip, arithmetic, automorph against the oracle and
      scale_down_to_set at p = 4007, m = 4006 (dense, phim 2002); an npz
@@ -208,6 +214,7 @@ MAIN = dict(m=8192, log_q=80, p=40961, generator=3)
 # the wide cell's ring: wide lane, L = 23, 10 digits
 M15 = bench_cell.load("ct32768_q220w.b64").config["context"]
 BATCH15 = 4
+BATCH15_CELL = 64          # the benchmark cell ct32768_q220w.b64's batch
 # a narrow and a wide prime, both 1 mod 2^15: 3 * 2^18 + 1, 63 * 2^17 + 1
 BIG_PRIMES = [786433, 8257537]
 SMALL = [dict(m=256, log_q=80, p=257, generator=3),
@@ -1501,6 +1508,7 @@ def phase_mixed(dev, card):
     time_stages(card, dc, a, b, ksw, "m=20480 path")
     kms = time_kernels(card, dev, dc, step_cases(dc, BATCH_MIXED), per_step)
     time_mixed_transforms(card, dc, BATCH_MIXED_CELL)
+    time_transform_grids(card, dc, BATCH_MIXED_CELL)
     print(f"peak device memory (phase 8): "
           f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
     print(f"phase 8 wall time: {time.perf_counter() - t0:.2f} s")
@@ -1581,6 +1589,51 @@ def time_mixed_transforms(card, dc, batch):
           f"{was['ct_fwd'] + was['ct_fwd_digits'] + was['ct_inv']:.4f} "
           f"(ct_fwd {was['ct_fwd']}, ct_fwd_digits {was['ct_fwd_digits']}, "
           f"ct_inv x 2 {was['ct_inv']}) + the steps {was['steps']}")
+
+
+def time_transform_grids(card, dc, batch):
+    """The four transforms of one mul+relin step on `batch` pairs, each
+    through its wrapper on random operands, timed alone on the device
+    (device_ms) and printed beside its grid (ntt_ct_cuda.launch_grid:
+    tiles a prime, rows a block, waves of the card's resident blocks),
+    the grid of ceil(slots / L) tiles a prime that sync_tiles replaced,
+    and the device time over waves x rows a block: the time of a row of
+    one block, if the grid holds the time."""
+    import torch
+    from fhe_si_tpu_torch.ops import ntt_ct_cuda
+    meta = dc.ct_meta
+    rng = np.random.default_rng(SEED)
+    total = 0.0
+    for name, basis, rows, _ in step_cases(dc, batch)[:4]:
+        T, q = getattr(dc, basis)['ct'], getattr(dc, basis)['primes_np']
+        L = len(q)
+        if name == "ct_fwd_digits":
+            x = rng.integers(0, 1 << dc.digit_bits, size=(rows, meta.phim))
+            run = lambda x: ntt_ct_cuda.ct_fwd_digits(  # noqa: E731
+                T, x, meta, dc.digit_bits)
+        else:
+            x = rng.integers(0, q[:, None], size=(rows, L, meta.phim))
+            run = (lambda x: ntt_ct_cuda.ct_inv(T, x, meta, 't2i_crt')) \
+                if name == "ct_inv" else \
+                (lambda x: ntt_ct_cuda.ct_fwd(T, x, meta))
+        x = torch.as_tensor(x.astype(np.int32), device=dc.device)
+        tiles, per_tile, slots = ntt_ct_cuda.launch_grid(
+            name, (rows, L, meta.N1, meta.N2, meta.phim, meta.q_odd),
+            dc.device)
+        waves = -(-L * tiles // slots)
+        was, was_per = ntt_ct_cuda.tile_grid(rows, -(-slots // L))
+        ms = device_ms(lambda: run(x))
+        if ms is None:
+            raise AssertionError(f"{name}: the host was slower than the spin")
+        total += ms
+        print(f"[{card}] {name} m={dc.ctx.m} {basis} [{rows}, {L}]: grid "
+              f"{L} x {tiles} tiles of {per_tile} rows, {waves} wave(s) of "
+              f"{slots} slots (the ceil grid: {L} x {was} of {was_per}, "
+              f"{-(-L * was // slots)}); device {ms:.4f} ms, "
+              f"{1e3 * ms / (waves * per_tile):.2f} us a row of a block")
+        del x
+    print(f"[{card}] m={dc.ctx.m} B={batch} step's transforms: device "
+          f"{total:.4f} ms")
 
 
 def phase_objects(dev, big_ctx, main_dc):
@@ -2437,6 +2490,7 @@ def main() -> int:
                                "m=32768 path")
     m15_ms = time_kernels(card, dev, dc15, step_cases(dc15, BATCH15),
                           per_step15)
+    time_transform_grids(card, dc15, BATCH15_CELL)
     del dc15, ksw15, pairs15, out15
     print(f"peak device memory (phases 3-5): "
           f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")

@@ -68,11 +68,11 @@
 //   four 32-bit multiply triples and one conditional subtraction.  The
 //   twiddle multiply is one more Shoup product with a per-entry w' table.
 // * Tables in shared memory, reused across a tile of rows.  One block per
-//   (prime, tile of rows); the grid is one wave of the card, so a block
-//   loads its prime's A1 and A2 byte planes (15 KB each at 64 x 64) and the
-//   twiddle with its reciprocals (36 KB) once and runs every row of its
-//   tile.  The L primes of a tile are adjacent in launch order, so a digit
-//   row is read from device memory once and from L2 by the other primes'
+//   (prime, tile of rows); the grid is one wave of the card, or a few
+//   whole ones (sync_tiles), so a block loads its prime's A1 and A2 byte
+//   planes (15 KB each at 64 x 64) and the twiddle with its reciprocals
+//   (36 KB) once and runs every row of its tile.  The L primes of a tile
+//   are adjacent in launch order, so a digit row is read from device memory once and from L2 by the other primes'
 //   blocks.  A residue row (ct_fwd, ct_inv) is read by one block only.
 //   Either way a (row, prime) moves 16 KB in and 16 KB out, a quarter of
 //   the tables' 66 KB, so tiling by prime rather than by row moves fewer
@@ -908,15 +908,41 @@ ct_mma_kernel(const int32_t* __restrict__ x, const uint8_t* __restrict__ a1g,
                                  R, ph);
 }
 
-// One wave of blocks: each of the L primes gets ceil(slots / L) tiles of
-// rows on the sync schedule, where slots = SMs x resident blocks per SM;
-// floor(slots / L) on the ping-pong, whose one block an SM would
-// otherwise leave a second, short wave.
+// The row tiles each of the L primes gets on the sync schedule, where
+// slots = SMs x resident blocks per SM (ops/ntt_ct_cuda.py sync_tiles
+// mirrors it).  A grid of L t blocks runs in ceil(L t / slots) waves of
+// ceil(rows / t) rows a block, plus about one row's time a block for its
+// table load and first fetch, which nothing hides: the smallest t of
+// least waves x (rows a block + 1).  It never costs more than
+// ceil(slots / L) tiles a prime, which where one block fits an SM
+// (m = 2^15, m = 20480) runs a short second wave while nearly every SM
+// idles.  Without the + 1 it would take many waves of 2- or 3-row tiles.
+__host__ long long sync_tiles(long long rows, long long L, long long slots) {
+  long long best = 1, least = -1;
+  for (long long t = 1; t <= rows && t <= slots; ++t) {
+    const long long cost = ((L * t + slots - 1) / slots) * ((rows + t - 1) / t + 1);
+    if (least < 0 || cost < least) {
+      least = cost;
+      best = t;
+    }
+  }
+  return best;
+}
+
+// A launch's grid: L primes x ntiles tiles of per_tile rows, on slots
+// resident blocks
+struct MmaGrid {
+  long long slots, per_tile, ntiles;
+};
+
+// The sync schedule takes sync_tiles; the ping-pong floor(slots / L),
+// whose one block an SM would otherwise leave a second, short wave.
+// With grid_only, the grid is written there and nothing is launched.
 template <bool DIGITS, int TPW, bool PINGPONG, int PHIM>
 cudaError_t launch_mma_tpw(const int32_t* x, const uint8_t* a1, const uint8_t* a2,
                            const uint32_t* tw, const uint32_t* kc, int32_t* out,
                            long long rows, int L, int S, int R, const PhimMap& ph,
-                           cudaStream_t stream) {
+                           cudaStream_t stream, MmaGrid* grid_only) {
   auto kernel = ct_mma_kernel<DIGITS, TPW, PINGPONG, PHIM>;
   const int smem = PINGPONG ? PGeo(S, R).smem_bytes()
                             : Geo(S, R, PHIM == kPhimInv ? ph.s : 0).smem_bytes();
@@ -931,9 +957,13 @@ cudaError_t launch_mma_tpw(const int32_t* x, const uint8_t* a1, const uint8_t* a
     return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const long long slots = static_cast<long long>(sms) * per_sm;
-  const long long tiles = PINGPONG ? (slots >= L ? slots / L : 1) : (slots + L - 1) / L;
+  const long long tiles = PINGPONG ? (slots >= L ? slots / L : 1) : sync_tiles(rows, L, slots);
   const long long per_tile = (rows + tiles - 1) / tiles;
   const long long ntiles = (rows + per_tile - 1) / per_tile;
+  if (grid_only) {
+    *grid_only = MmaGrid{slots, per_tile, ntiles};
+    return cudaSuccess;
+  }
   dim3 grid(static_cast<unsigned>(L), static_cast<unsigned>(ntiles));
   kernel<<<grid, kThreads, smem, stream>>>(x, a1, a2, tw, kc, out, rows,
                                            static_cast<int>(per_tile), L, S, R, ph);
@@ -945,7 +975,8 @@ cudaError_t launch_mma_tpw(const int32_t* x, const uint8_t* a1, const uint8_t* a
 template <bool DIGITS, int PHIM = kPhimNone>
 cudaError_t launch_mma(const void* x, const void* a1, const void* a2, const void* tw,
                        const void* kc, void* out, long long rows, int L, int S, int R,
-                       void* stream, bool allow_pingpong = true, PhimMap ph = PhimMap{}) {
+                       void* stream, bool allow_pingpong = true, PhimMap ph = PhimMap{},
+                       MmaGrid* grid_only = nullptr) {
   if (rows < 0 || rows > 0x7fffffffLL || L < 1 || L > 65535 || S < 2 || R < 2 ||
       S > 1024 || R > 1024)
     return cudaErrorInvalidValue;
@@ -954,7 +985,7 @@ cudaError_t launch_mma(const void* x, const void* a1, const void* a2, const void
     return launcher(static_cast<const int32_t*>(x), static_cast<const uint8_t*>(a1),
                     static_cast<const uint8_t*>(a2), static_cast<const uint32_t*>(tw),
                     static_cast<const uint32_t*>(kc), static_cast<int32_t*>(out), rows, L, S,
-                    R, ph, static_cast<cudaStream_t>(stream));
+                    R, ph, static_cast<cudaStream_t>(stream), grid_only);
   };
   if constexpr (PHIM == kPhimNone)
     if (allow_pingpong && pingpong_takes(S, R))
@@ -978,15 +1009,34 @@ cudaError_t launch_mma(const void* x, const void* a1, const void* a2, const void
 template <bool DIGITS, int kFwd>
 cudaError_t launch_phim(const void* x, const void* a1, const void* a2, const void* tw,
                         const void* kc, void* out, long long rows, int L, int S, int R,
-                        int phim, int q, void* stream) {
+                        int phim, int q, void* stream, MmaGrid* grid_only = nullptr) {
   const int N = S * R;
-  if (phim == N) return launch_mma<DIGITS>(x, a1, a2, tw, kc, out, rows, L, S, R, stream);
+  if (phim == N)
+    return launch_mma<DIGITS>(x, a1, a2, tw, kc, out, rows, L, S, R, stream, true, PhimMap{},
+                              grid_only);
   if (q < 3 || q % 2 == 0 || N >= 65536 || N % q != 0 || N / q < 2 || phim != N - N / q)
     return cudaErrorInvalidValue;
   const int s = N / q;
   const PhimMap ph{phim, q, (q - 1) / 2, s, 0xffffffffu / q + 1, 0xffffffffu / s + 1};
   return launch_mma<DIGITS, kFwd ? kPhimFwd : kPhimInv>(x, a1, a2, tw, kc, out, rows, L, S, R,
-                                                        stream, false, ph);
+                                                        stream, false, ph, grid_only);
+}
+
+// The grid of a launch of fsi_ct_fwd (kind 0), fsi_ct_fwd_digits (1) or
+// fsi_ct_inv (2) with these arguments, launching nothing
+cudaError_t launch_grid(int kind, long long rows, int L, int N1, int N2, int phim, int q_odd,
+                        MmaGrid* g) {
+  const void* none = nullptr;
+  if (kind == 0)
+    return launch_phim<false, 1>(none, none, none, none, none, nullptr, rows, L, N2, N1, phim,
+                                 q_odd, nullptr, g);
+  if (kind == 1)
+    return launch_phim<true, 1>(none, none, none, none, none, nullptr, rows, L, N2, N1, phim,
+                                q_odd, nullptr, g);
+  if (kind == 2)
+    return launch_phim<false, 0>(none, none, none, none, none, nullptr, rows, L, N1, N2, phim,
+                                 q_odd, nullptr, g);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -1042,6 +1092,23 @@ int fsi_ct_sync(int digits, const void* x, const void* a1, const void* a2, const
                 const void* kc, void* out, long long rows, int L, int S, int R, void* stream) {
   return digits ? launch_mma<true>(x, a1, a2, tw, kc, out, rows, L, S, R, stream, false)
                 : launch_mma<false>(x, a1, a2, tw, kc, out, rows, L, S, R, stream, false);
+}
+
+// The grid that fsi_ct_fwd (kind 0), fsi_ct_fwd_digits (1) or fsi_ct_inv
+// (2) launches with these arguments on the current device: fsi_ct_tiles
+// the row tiles each prime gets (sync_tiles on the sync schedule),
+// fsi_ct_slots the resident blocks of the card (SMs x blocks per SM) that
+// the choice reads; a CUDA error as its negative.
+long long fsi_ct_tiles(int kind, long long rows, int L, int N1, int N2, int phim, int q_odd) {
+  MmaGrid g{0, 0, 0};
+  const cudaError_t err = launch_grid(kind, rows, L, N1, N2, phim, q_odd, &g);
+  return err == cudaSuccess ? g.ntiles : -static_cast<long long>(err);
+}
+
+long long fsi_ct_slots(int kind, int N1, int N2, int phim, int q_odd) {
+  MmaGrid g{0, 0, 0};
+  const cudaError_t err = launch_grid(kind, 1, 1, N1, N2, phim, q_odd, &g);
+  return err == cudaSuccess ? g.slots : -static_cast<long long>(err);
 }
 
 int fsi_smem_optin() {

@@ -42,7 +42,9 @@ ENTRIES = {
     "ct_ntt": {"fsi_ct_fwd": _CT, "fsi_ct_fwd_digits": _CT, "fsi_ct_inv": _CT,
                "fsi_ct_sync": [_I] + [_P] * 6 + [_LL] + [_I] * 3 + [_P],
                "fsi_ct_schedule": [_I, _I],
-               "fsi_ct_mma_smem": [_I] * 3, "fsi_smem_optin": []},
+               "fsi_ct_mma_smem": [_I] * 3, "fsi_smem_optin": [],
+               "fsi_ct_tiles": [_I, _LL] + [_I] * 5,
+               "fsi_ct_slots": [_I] * 5},
     "crt": {"fsi_crt_partials": [_P] * 5 + [_LL] + [_I] * 3 + [_P],
             "fsi_crt_finish": [_P] * 5 + [_LL] + [_I] * 5 + [_P],
             "fsi_crt_to_limbs": [_P] * 3 + [_LL] + [_I] * 6 + [_P],
@@ -53,7 +55,7 @@ ENTRIES = {
     "route": {"fsi_route_enter": [_P] * 4 + [_I] * 4 + [_P],
               "fsi_route_leave": [_P] * 4 + [_I] * 4 + [_P]},
 }
-RESTYPES = {"fsi_ct_mma_smem": _LL}
+RESTYPES = {"fsi_ct_mma_smem": _LL, "fsi_ct_tiles": _LL, "fsi_ct_slots": _LL}
 SOURCES = tuple(ENTRIES)
 _SOURCE_OF = {entry: name for name, entries in ENTRIES.items()
               for entry in entries}

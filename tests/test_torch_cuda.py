@@ -43,6 +43,8 @@ CONFIGS = [pytest.param((256, 257, None), id="m256"),
            pytest.param((32, 97, 23), id="m32-wide")]
 KERNEL_CONFIGS = CONFIGS + [pytest.param((8192, 40961, None), id="m8192"),
                             pytest.param((8192, 40961, 23), id="m8192-wide")]
+WIDE_CELL = bench_cell.load("ct32768_q220w.b64").config["context"]
+
 # dense-family rings (m, log_q, p, generator, prime_bits)
 DENSE = [pytest.param((22, 80, 23, 7, None), id="m22"),
          pytest.param((22, 80, 23, 7, 23), id="m22-wide"),
@@ -301,6 +303,113 @@ def test_schedule_rule_matches_card(cuda):
         want = ntt_ct_cuda.kernel_schedule(S, R)
         assert ("sync", "pingpong")[lib.fsi_ct_schedule(S, R)] == want, (S, R)
     assert ntt_ct_cuda.kernel_schedule(64, 64) == "pingpong"
+
+
+# (m, N1, N2, phim, q_odd) of the rings whose launches the grid tests
+# ask about: m = 2^15 (128 x 128), m = 20480 (forward 80 x 128, inverse
+# 128 x 80 with the fold), m = 4096 (forward 32 x 64), all on the sync
+# schedule, and m = 8192 on the ping-pong
+GRID_RINGS = {32768: (128, 128, 16384, 1), 20480: (128, 80, 8192, 5),
+              4096: (64, 32, 2048, 1), 8192: (64, 64, 4096, 1)}
+
+
+@pytest.mark.cuda
+def test_grid_rule_matches_card(cuda):
+    """fsi_ct_tiles is sync_tiles (the mirror) of the card's slots on the
+    sync schedule, SMs x resident blocks an SM: one block at 128 x 128,
+    80 x 128 and 128 x 80, so the slots are the SMs; at m = 8192 the
+    ping-pong keeps floor(slots / L).  launch_grid reads the same."""
+    lib = cuda_build.library("ct_ntt")
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for m, (N1, N2, phim, q_odd) in GRID_RINGS.items():
+        for kind in (0, 1, 2):
+            slots = lib.fsi_ct_slots(kind, N1, N2, phim, q_odd)
+            assert slots > 0 and slots % sms == 0, (m, kind, slots)
+            if m in (32768, 20480):
+                assert slots == sms, (m, kind)
+            for rows in (1, RAGGED, 128, 192, 256, 768, 1920):
+                for L in (1, 8, 12, 13, 23):
+                    args = (rows, L, N1, N2, phim, q_odd)
+                    got = lib.fsi_ct_tiles(kind, *args)
+                    want = (max(slots // L, 1) if m == 8192 else
+                            ntt_ct_cuda.sync_tiles(rows, L, slots))
+                    assert got == ntt_ct_cuda.tile_grid(rows, want)[0], \
+                        (m, kind, args)
+                    name = ("ct_fwd", "ct_fwd_digits", "ct_inv")[kind]
+                    assert ntt_ct_cuda.launch_grid(name, args, cuda) == (
+                        got, -(-rows // got), slots)
+
+
+def _rebalanced(rows, L, slots) -> bool:
+    """The mirror's word on one sync launch: sync_tiles' grid is not the
+    one of ceil(slots / L) tiles a prime."""
+    new = ntt_ct_cuda.tile_grid(rows, ntt_ct_cuda.sync_tiles(rows, L, slots))
+    return new != ntt_ct_cuda.tile_grid(rows, -(-slots // L))
+
+
+@pytest.mark.cuda
+def test_rebalanced_grids_match_plain(cuda):
+    """m = 2^15 on the wide cell's bases (23 primes and 13) at 128 and 192
+    rows, row counts whose grid sync_tiles changes on both (on 132 SMs),
+    and a count no tile divides: every transform equals its plain version,
+    and REBALANCED counts the launches the mirror says it changed."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    dc = DeviceContext(FheContext(**{k: WIDE_CELL[k] for k in (
+        "m", "log_q", "p", "generator")}), cuda)
+    assert (dc.full["ct"]["q"].shape[0], dc.ksw["ct"]["q"].shape[0]) == (23, 13)
+    rows = (128, 192, RAGGED)
+    for T in (dc.full, dc.ksw):
+        L = T["ct"]["q"].shape[0]
+        changed = [_rebalanced(n, L, sms) for n in rows]
+        if sms == 132:
+            assert changed[:2] == [True, True]
+        ntt_ct_cuda.reset_rebalanced()
+        _all_transforms_match_plain(cuda, dc.ct_meta, T["ct"], 32768,
+                                    rows=rows)
+        # two rounds (random, extremes) a row count, each a forward, a
+        # digits and two inverse launches
+        n = 2 * sum(changed)
+        assert ntt_ct_cuda.REBALANCED == {"ct_fwd": n, "ct_fwd_digits": n,
+                                          "ct_inv": 2 * n}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ring, want", [
+    pytest.param(tuple(WIDE_CELL[k] for k in ("m", "log_q", "p", "generator")),
+                 (1, 1, 2), id="m32768-q220"),
+    pytest.param((20480, 80, 40961, 3), (0, 1, 0), id="m20480"),
+    pytest.param((8192, 80, 40961, 3), (0, 0, 0), id="m8192")])
+def test_mul_relin_rebalances_at_the_cells_batch(cuda, ring, want):
+    """One mul_relin of the cells' 64 pairs: REBALANCED counts the sync
+    launches whose grid sync_tiles changed, as the mirror predicts from
+    the card's SMs (one block an SM on these layouts), which on 132 SMs is
+    1, 1, 2 at m = 2^15, 0, 1, 0 at m = 20480 (the digits) and none at
+    m = 8192 (the ping-pong); still 10 launches a call."""
+    m, log_q, p, g = ring
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    ctx = FheContext(m=m, log_q=log_q, p=p, generator=g)
+    dev = DeviceContext(ctx, cuda)
+    L, Lk = ctx.num_primes, len(ctx.ksw_rows)
+    predicted = dict.fromkeys(NTT, 0)
+    for name, rows, l in (("ct_fwd", 4 * 64, L),
+                          ("ct_fwd_digits", 3 * ctx.ndigits * 64, Lk),
+                          ("ct_inv", 3 * 64, L), ("ct_inv", 2 * 64, Lk)):
+        predicted[name] += m != 8192 and _rebalanced(rows, l, sms)
+    if sms == 132:
+        assert tuple(predicted.values()) == want
+    gen = torch.Generator().manual_seed(m)
+    a, b = (torch.randint(0, 1 << 16, (64, 2, ctx.phim, ctx.n_limbs_ct),
+                          generator=gen, dtype=torch.int32).to(cuda)
+            for _ in range(2))
+    mat = torch.randint(0, 2, (2, 3 * ctx.ndigits, ctx.num_primes, ctx.phim),
+                        generator=gen, dtype=torch.int32).to(cuda)
+    dev.mul_relin(a, b, mat)
+    ntt_ct_cuda.reset_rebalanced()
+    cuda_build.reset_launches()
+    dev.mul_relin(a, b, mat)
+    torch.cuda.synchronize()
+    assert ntt_ct_cuda.REBALANCED == predicted
+    assert sum(cuda_build.LAUNCHES.values()) == 10
 
 
 def _sync_schedule(T, x, meta, which, t2i_key="t2i"):
@@ -884,9 +993,6 @@ def test_mul_relin_wrapper_spans_equal_launches(cuda, ring):
     assert {k: table.get("fhe." + k, [0])[0] for k in launched} == launched
     assert sum(launched.values()) > 0
     assert sum(n for n, _ in table.values()) == 15
-
-
-WIDE_CELL = bench_cell.load("ct32768_q220w.b64").config["context"]
 
 
 @pytest.mark.cuda

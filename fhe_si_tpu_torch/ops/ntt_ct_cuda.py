@@ -25,9 +25,7 @@ TWIDDLE_GLOBAL counts those launches.  On the sync schedule each prime
 gets the row tiles that sync_tiles chooses from the card's resident
 blocks, so that no launch leaves a short last wave where one block fits
 an SM (m = 2^15, m = 20480); launch_grid reads a launch's grid from
-ct_ntt.cu and REBALANCED counts the launches whose grid differs from
-ceil(slots / L) tiles a prime, the one-wave grid where two blocks fit an
-SM.  The kernel reads
+ct_ntt.cu.  The kernel reads
 the byte planes and Shoup reciprocals that kernel_tables prepares here
 on the host and DeviceContext keeps beside the tables (T['ct']); tables
 without them raise on a CUDA tensor.
@@ -268,18 +266,6 @@ def reset_twiddle_global():
         TWIDDLE_GLOBAL[k] = 0
 
 
-# sync launches whose grid (tiles, rows a tile) differs from the one of
-# ceil(slots / L) tiles a prime, per transform: a mul+relin of 64 pairs
-# counts 1, 1 and 2 at m = 2^15, 0, 1 and 0 at m = 20480, none at
-# m = 8192 (the ping-pong's grid is floor(slots / L))
-REBALANCED = dict.fromkeys(("ct_fwd", "ct_fwd_digits", "ct_inv"), 0)
-
-
-def reset_rebalanced():
-    for k in REBALANCED:
-        REBALANCED[k] = 0
-
-
 def sync_tiles(rows: int, L: int, slots: int) -> int:
     """The row tiles each of L primes gets on the sync schedule, on a
     card of `slots` resident blocks (ct_ntt.cu sync_tiles, which
@@ -319,12 +305,6 @@ def launch_grid(name: str, ints: tuple, device: torch.device) -> tuple:
 
 
 @functools.cache
-def _rebalanced(name: str, ints: tuple, device: torch.device) -> bool:
-    tiles, per_tile, slots = launch_grid(name, ints, device)
-    return (tiles, per_tile) != tile_grid(ints[0], -(-slots // ints[1]))
-
-
-@functools.cache
 def _schedule(S: int, R: int) -> str:
     return ("sync", "pingpong")[library("ct_ntt").fsi_ct_schedule(S, R)]
 
@@ -360,21 +340,17 @@ def _launch(name, x, tabs, out, L: int, meta: CtMeta, S: int, R: int,
     wide: phim, with the phim <-> N steps inside where phim < N (counted
     in PHIM_FUSED), or N, the N-point transform alone; a layout of row
     [S][R] and `fold` words that leaves the twiddle in global memory is
-    counted in TWIDDLE_GLOBAL, a sync grid that sync_tiles changed in
-    REBALANCED."""
+    counted in TWIDDLE_GLOBAL."""
     if not out.numel():
         return out
     ints = (out.numel() // (L * width), L, meta.N1, meta.N2, width,
             meta.q_odd)
-    schedule = _schedule(S, R)
     launch(name, "fsi_" + name, (x, *tabs, out), ints, int32=_INT32,
-           contiguous=True, schedule=schedule)
+           contiguous=True, schedule=_schedule(S, R))
     if width < meta.N:
         PHIM_FUSED[name] += 1
     if twiddle_in_global(S, R, fold):
         TWIDDLE_GLOBAL[name] += 1
-    if schedule == "sync" and _rebalanced(name, ints, x.device):
-        REBALANCED[name] += 1
     return out
 
 

@@ -38,10 +38,15 @@ under its own name (fhe.pad_to_N, fhe.drop_excluded, fhe.insert_excluded,
 fhe.fold_mod_phim), inside the transform's span: on the CPU, and on the
 card only where the kernel cannot do them itself
 (ntt_ct_cuda.folds_in_kernel).  They go to one sink:
-an open counting() table, else a
-recording torch.profiler capture (a user_annotation event on the clock
-of the card's kernels).  With neither, a span is one shared no-op
-context and costs two global reads.
+an open counting() table, else a recording torch.profiler capture, where
+a span is a cpu_op event (RecordFunctionFast, several times cheaper on
+the host than record_function's user_annotation) on the clock of the
+card's kernels.  A runtime launch is correlated with
+the innermost cpu_op around it, and the wrappers launch their
+hand-written kernels through ctypes with no aten op between, so each
+such kernel carries its wrapper's span name as its op in the Chrome
+trace (bench_port/trace.py DeviceOp.op).  With neither sink, a span is
+one shared no-op context and costs two global reads.
 
 Beside the spans, module dicts count what the ops did, one increment
 each and no device read, each zeroed by a reset function beside it
@@ -124,6 +129,7 @@ def device_trace(log_dir: str):
 
 _OFF = contextlib.nullcontext()   # the span of a run with no sink
 _table: dict | None = None        # the open counting() table, if any
+_record = torch._C._profiler._RecordFunctionFast  # a span under a capture
 
 
 class _Counted:
@@ -145,13 +151,12 @@ class _Counted:
 
 def annotate(name: str):
     """A named span: counted and timed while a counting() table is open,
-    else a torch.profiler user_annotation while a capture records, else
-    the one shared no-op context (no record_function, no dispatcher
-    call)."""
+    else a cpu_op event while a capture records, else the one shared
+    no-op context (no record function, no dispatcher call)."""
     if _table is not None:
         return _Counted(name, _table)
     if _autograd_profiler._is_profiler_enabled:
-        return torch.profiler.record_function(name)
+        return _record(name)
     return _OFF
 
 

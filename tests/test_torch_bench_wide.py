@@ -153,7 +153,9 @@ def test_cell_metric_set():
     assert [m["name"] for m in c.end_to_end] == ["setup_s", "mults_per_s"]
     assert {m["name"] for m in c.per_layer} == {
         "device_idle_pct.tput", "launches_per_step.tput", "enqueue_ms.tput",
-        "ntt_roofline", "crt_roofline", "modular_roofline"}
+        "ntt_roofline", "crt_roofline", "modular_roofline",
+        "keyswitch_roofline", "ntt_fwd_roofline", "ntt_digits_roofline",
+        "ntt_inv_roofline", "call_start_idle_ms.tput", "plain_ms.tput"}
 
 
 # (S, R, fold words) -> whether the layout leaves the twiddle in global

@@ -1,16 +1,13 @@
 """The sync schedule's grid: the row tiles each prime gets
 (ntt_ct_cuda.sync_tiles, the mirror of ct_ntt.cu's rule), against the
 grid of ceil(slots / L) tiles a prime that it replaced, on the launches
-of the benchmark cells' mul+relin and over a sweep of shapes; and
-REBALANCED, which counts the launches whose grid the rule changed.  No
-card: the card's side (fsi_ct_tiles, the counts of a mul+relin) is in
-test_torch_cuda.py."""
+of the benchmark cells' mul+relin and over a sweep of shapes.  No card:
+the card's side (fsi_ct_tiles, the grids of a mul+relin's launches) is
+in test_torch_cuda.py."""
 import pytest
-import torch
 
 from bench_port import cell as cells
 from bench_port import program
-from fhe_si_tpu_torch.hostmath import numbth
 from fhe_si_tpu_torch.ops import ntt_ct, ntt_ct_cuda
 
 H100_SLOTS = 132        # SMs of an H100 SXM, one 221 KB / 160 KB block each
@@ -98,7 +95,7 @@ def _step_launches(ctx, pairs):
     pytest.param("ct8192_q80.b64", (0, 0, 0), id="m8192")])
 def test_rebalanced_launches_of_the_cells(cell, want):
     """The launches of a 64-pair mul+relin whose grid the rule changes at
-    132 slots, as REBALANCED counts them on the card: 1, 1, 2 at m = 2^15,
+    132 slots, as the card's launch_grid reads them: 1, 1, 2 at m = 2^15,
     0, 1, 0 at m = 20480, none at m = 8192, whose splits the ping-pong
     takes (its grid is not the rule's)."""
     c = cells.load(cell)
@@ -112,24 +109,3 @@ def test_rebalanced_launches_of_the_cells(cell, want):
         got[name] += schedules == {"sync"} and _changed(rows, L, H100_SLOTS)
     assert tuple(got.values()) == want
 
-
-def test_rebalanced_counts_launches_only():
-    """REBALANCED has one key a transform, reset_rebalanced zeroes it (and
-    no other counter), and the plain versions that CPU tensors take at
-    m = 2^15 count nothing there."""
-    assert set(ntt_ct_cuda.REBALANCED) == set(TRANSFORMS)
-    ntt_ct_cuda.REBALANCED["ct_inv"] += 2
-    ntt_ct_cuda.TWIDDLE_GLOBAL["ct_fwd"] += 1
-    ntt_ct_cuda.reset_rebalanced()
-    assert set(ntt_ct_cuda.REBALANCED.values()) == {0}
-    assert ntt_ct_cuda.TWIDDLE_GLOBAL["ct_fwd"] == 1
-    ntt_ct_cuda.reset_twiddle_global()
-    m, qs = 1 << 15, [786433]
-    meta, ct = ntt_ct.ct_tables(
-        m, qs, [numbth.find_element_of_order(q, m) for q in qs])
-    T = {k: torch.as_tensor(v) for k, v in ct.items()}
-    x = torch.zeros((192, 1, meta.phim), dtype=torch.int32)
-    ntt_ct_cuda.ct_inv(T, ntt_ct_cuda.ct_fwd(T, x, meta), meta)
-    d = torch.zeros((128, meta.phim), dtype=torch.int32)
-    ntt_ct_cuda.ct_fwd_digits(T, d, meta, 24)
-    assert ntt_ct_cuda.REBALANCED == dict.fromkeys(TRANSFORMS, 0)

@@ -23,6 +23,8 @@ is absent:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 import functools
+import re
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -347,12 +349,41 @@ def _rebalanced(rows, L, slots) -> bool:
     return new != ntt_ct_cuda.tile_grid(rows, -(-slots // L))
 
 
+def _transform_launches(monkeypatch) -> list:
+    """Record (wrapper, integer arguments, schedule) of every transform
+    launch that follows, as ntt_ct_cuda hands it to cuda_build.launch."""
+    got, launch = [], ntt_ct_cuda.launch
+
+    def recorded(name, entry, tensors, ints, **kw):
+        got.append((name, tuple(ints), kw.get("schedule")))
+        return launch(name, entry, tensors, ints, **kw)
+    monkeypatch.setattr(ntt_ct_cuda, "launch", recorded)
+    return got
+
+
+def _sync_grids_changed(cuda, launches) -> dict:
+    """Each recorded launch runs the sync schedule on the grid of
+    sync_tiles (launch_grid: tiles a prime and rows a tile, as ct_ntt.cu
+    launched them); per transform, the launches whose grid that differs
+    from ceil(slots / L) tiles a prime."""
+    changed = dict.fromkeys(NTT, 0)
+    for name, ints, schedule in launches:
+        rows, L = ints[:2]
+        tiles, per_tile, slots = ntt_ct_cuda.launch_grid(name, ints, cuda)
+        assert schedule == "sync", (name, ints)
+        assert (tiles, per_tile) == ntt_ct_cuda.tile_grid(
+            rows, ntt_ct_cuda.sync_tiles(rows, L, slots)), (name, ints)
+        changed[name] += _rebalanced(rows, L, slots)
+    return changed
+
+
 @pytest.mark.cuda
-def test_rebalanced_grids_match_plain(cuda):
+def test_rebalanced_grids_match_plain(cuda, monkeypatch):
     """m = 2^15 on the wide cell's bases (23 primes and 13) at 128 and 192
     rows, row counts whose grid sync_tiles changes on both (on 132 SMs),
     and a count no tile divides: every transform equals its plain version,
-    and REBALANCED counts the launches the mirror says it changed."""
+    and every launch ran the grid of sync_tiles, which differs from the
+    ceil grid on the launches the mirror says."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     dc = DeviceContext(FheContext(**{k: WIDE_CELL[k] for k in (
         "m", "log_q", "p", "generator")}), cuda)
@@ -363,14 +394,15 @@ def test_rebalanced_grids_match_plain(cuda):
         changed = [_rebalanced(n, L, sms) for n in rows]
         if sms == 132:
             assert changed[:2] == [True, True]
-        ntt_ct_cuda.reset_rebalanced()
-        _all_transforms_match_plain(cuda, dc.ct_meta, T["ct"], 32768,
-                                    rows=rows)
+        with monkeypatch.context() as mp:
+            launches = _transform_launches(mp)
+            _all_transforms_match_plain(cuda, dc.ct_meta, T["ct"], 32768,
+                                        rows=rows)
         # two rounds (random, extremes) a row count, each a forward, a
         # digits and two inverse launches
         n = 2 * sum(changed)
-        assert ntt_ct_cuda.REBALANCED == {"ct_fwd": n, "ct_fwd_digits": n,
-                                          "ct_inv": 2 * n}
+        assert _sync_grids_changed(cuda, launches) == {
+            "ct_fwd": n, "ct_fwd_digits": n, "ct_inv": 2 * n}
 
 
 @pytest.mark.cuda
@@ -379,12 +411,14 @@ def test_rebalanced_grids_match_plain(cuda):
                  (1, 1, 2), id="m32768-q220"),
     pytest.param((20480, 80, 40961, 3), (0, 1, 0), id="m20480"),
     pytest.param((8192, 80, 40961, 3), (0, 0, 0), id="m8192")])
-def test_mul_relin_rebalances_at_the_cells_batch(cuda, ring, want):
-    """One mul_relin of the cells' 64 pairs: REBALANCED counts the sync
-    launches whose grid sync_tiles changed, as the mirror predicts from
-    the card's SMs (one block an SM on these layouts), which on 132 SMs is
-    1, 1, 2 at m = 2^15, 0, 1, 0 at m = 20480 (the digits) and none at
-    m = 8192 (the ping-pong); still 10 launches a call."""
+def test_mul_relin_rebalances_at_the_cells_batch(cuda, monkeypatch, ring,
+                                                 want):
+    """One mul_relin of the cells' 64 pairs: each sync launch runs the
+    grid of sync_tiles, which differs from the ceil grid on the launches
+    the mirror predicts from the card's SMs (one block an SM on these
+    layouts): on 132 SMs 1, 1, 2 at m = 2^15, 0, 1, 0 at m = 20480 (the
+    digits); m = 8192 runs the ping-pong, whose grid is not the rule's;
+    still 10 launches a call."""
     m, log_q, p, g = ring
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     ctx = FheContext(m=m, log_q=log_q, p=p, generator=g)
@@ -404,11 +438,16 @@ def test_mul_relin_rebalances_at_the_cells_batch(cuda, ring, want):
     mat = torch.randint(0, 2, (2, 3 * ctx.ndigits, ctx.num_primes, ctx.phim),
                         generator=gen, dtype=torch.int32).to(cuda)
     dev.mul_relin(a, b, mat)
-    ntt_ct_cuda.reset_rebalanced()
     cuda_build.reset_launches()
+    launches = _transform_launches(monkeypatch)
     dev.mul_relin(a, b, mat)
     torch.cuda.synchronize()
-    assert ntt_ct_cuda.REBALANCED == predicted
+    assert [name for name, _, _ in launches] == [
+        "ct_fwd", "ct_inv", "ct_fwd_digits", "ct_inv"]
+    if m == 8192:
+        assert {schedule for _, _, schedule in launches} == {"pingpong"}
+    else:
+        assert _sync_grids_changed(cuda, launches) == predicted
     assert sum(cuda_build.LAUNCHES.values()) == 10
 
 
@@ -993,6 +1032,63 @@ def test_mul_relin_wrapper_spans_equal_launches(cuda, ring):
     assert {k: table.get("fhe." + k, [0])[0] for k in launched} == launched
     assert sum(launched.values()) > 0
     assert sum(n for n, _ in table.values()) == 15
+
+
+# the hand-written kernels, each with the wrapper spans that launch it
+KERNEL_SPANS = {
+    "ct_mma_kernel": ("fhe.ct_fwd", "fhe.ct_fwd_digits", "fhe.ct_inv"),
+    "crt_pass_kernel": ("fhe.crt_to_limbs",),
+    "crt_kernel": ("fhe.crt_to_limbs",),
+    "lift_kernel": ("fhe.limbs_to_residues",),
+    "tensor_product_kernel": ("fhe.tensor_product",),
+    "keyswitch_dot_kernel": ("fhe.keyswitch_dot",),
+    "byte_decomp_kernel": ("fhe.byte_decomp",),
+    "route_enter_kernel": ("fhe.route_enter",),
+    "route_leave_kernel": ("fhe.route_leave",)}
+HAND_WRITTEN = re.compile(r"\b(" + "|".join(KERNEL_SPANS) + r")\b")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ring, use_ct", [
+    pytest.param((256, 80, 257, 3), None, id="m256-ct"),
+    pytest.param((22, 80, 23, 7), None, id="m22-dense"),
+    pytest.param((22, 80, 23, 7), True, id="m22-route")])
+def test_mul_relin_kernels_carry_their_wrapper_span(cuda, ring, use_ct):
+    """One mul_relin on the card under a capture, parsed as the benchmark
+    parses it (bench_port.trace): every hand-written kernel's op is the
+    fhe.* span of the wrapper that launched it, and each wrapper's span
+    tags as many device operations as cuda_build.LAUNCHES counts for it,
+    on the Cooley-Tukey kernel (m = 256), the dense family (m = 22) and
+    the matmul route (m = 22 with use_ct forced)."""
+    from bench_port import trace as bench_trace
+    m, log_q, p, g = ring
+    ctx = FheContext(m=m, log_q=log_q, p=p, generator=g)
+    if use_ct is not None:
+        ctx.use_ct = use_ct
+    dev = DeviceContext(ctx, cuda)
+    if use_ct:
+        assert dev.ct_route == "matmul"
+    a, b = (torch.randint(0, 1 << 16, (2, 2, ctx.phim, ctx.n_limbs_ct),
+                          dtype=torch.int32, device=cuda) for _ in range(2))
+    mat = torch.randint(0, 2, (2, 3 * ctx.ndigits, ctx.num_primes, ctx.phim),
+                        dtype=torch.int32, device=cuda)
+    dev.mul_relin(a, b, mat)
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+
+    def call(_):
+        with torch.profiler.record_function(bench_trace.CALL):
+            dev.mul_relin(a, b, mat)
+            torch.cuda.synchronize()
+    tr = bench_trace.capture(call, 1)
+    launched = {"fhe." + k: n for k, n in cuda_build.LAUNCHES.items() if n}
+    hand = [o for o in tr.ops if HAND_WRITTEN.search(o.name)]
+    assert hand
+    for o in hand:
+        kernel = HAND_WRITTEN.search(o.name).group(1)
+        assert o.op in KERNEL_SPANS[kernel], (o.name, o.op)
+    assert Counter(o.op for o in hand) == launched
+    assert Counter(o.op for o in tr.ops if o.op.startswith("fhe.")) == launched
 
 
 @pytest.mark.cuda

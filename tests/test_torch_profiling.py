@@ -1,7 +1,7 @@
 """fhe_si_tpu_torch/profiling.py against fhe_si_tpu/profiling.py: the
 same report for the same phase times, and a torch.profiler trace on the
 CPU that holds the annotated region.  The spans (annotate): one shared
-no-op with no sink, nested user_annotation events under the profiler,
+no-op with no sink, nested cpu_op events under the profiler,
 counts and host time under counting(), and the fhe.* spans of
 mul+relin on both transform families."""
 import json
@@ -78,14 +78,20 @@ def _events(tmp_path):
 
 
 def _raise(*args, **kwargs):
-    raise AssertionError("record_function entered with no sink active")
+    raise AssertionError("a record function made with no sink active")
+
+
+def _no_record_function(mp):
+    """Make the span under a capture raise: the fast record function, as
+    torch has it and as profiling bound it."""
+    mp.setattr(torch._C._profiler, "_RecordFunctionFast", _raise)
+    mp.setattr(profiling, "_record", _raise)
 
 
 def test_annotate_off_is_one_shared_noop(monkeypatch):
     """With no profiler recording and no counting() table, every span is
-    the same module-level no-op: record_function is never made."""
-    monkeypatch.setattr(torch.profiler, "record_function", _raise)
-    monkeypatch.setattr(torch.autograd.profiler, "record_function", _raise)
+    the same module-level no-op: no record function is ever made."""
+    _no_record_function(monkeypatch)
     spans = {id(profiling.annotate(name)) for name in STAGES}
     assert spans == {id(profiling._OFF)}
     with profiling.annotate("fhe.outer"):
@@ -174,7 +180,7 @@ def test_mul_relin_spans_nest_in_device_trace(tmp_path):
     dev, a, b, mat = _step(256, 80, 257, 3)
     with profiling.device_trace(str(tmp_path)):
         dev.mul_relin(a, b, mat)
-    spans = [e for e in _events(tmp_path) if e.get("cat") == "user_annotation"
+    spans = [e for e in _events(tmp_path) if e.get("cat") == "cpu_op"
              and e["name"].startswith("fhe.")]
     assert len(spans) == 15
 
@@ -223,7 +229,7 @@ ROUTE_TRANSFORMS = ("fhe.route_fwd", "fhe.route_inv", "fhe.route_fwd_digits",
 
 def test_mul_relin_route_spans(monkeypatch):
     """m = 22 on the matmul route (use_ct forced, as
-    tests/test_torch_ct_matmul.py does): with no sink no record_function
+    tests/test_torch_ct_matmul.py does): with no sink no record function
     is made and the call counts its transforms and stage products; under
     counting() each route span is counted as the code calls it, none of
     the kernel wrappers' fhe.ct_*, and the result is the untraced one."""
@@ -232,8 +238,7 @@ def test_mul_relin_route_spans(monkeypatch):
     ntt_ct_matmul.reset_calls()
     ntt_ct_matmul.reset_products()
     with monkeypatch.context() as mp:
-        mp.setattr(torch.profiler, "record_function", _raise)
-        mp.setattr(torch.autograd.profiler, "record_function", _raise)
+        _no_record_function(mp)
         plain = dev.mul_relin(a, b, mat)
     assert ntt_ct_matmul.CALLS == {"ct_fwd": 1, "ct_fwd_digits": 1,
                                    "ct_inv": 2}
@@ -260,7 +265,7 @@ def test_mul_relin_route_spans_nest_in_device_trace(tmp_path):
     dev, a, b, mat = _step(*M22_ROUTE)
     with profiling.device_trace(str(tmp_path)):
         dev.mul_relin(a, b, mat)
-    spans = [e for e in _events(tmp_path) if e.get("cat") == "user_annotation"
+    spans = [e for e in _events(tmp_path) if e.get("cat") == "cpu_op"
              and e["name"].startswith("fhe.")]
     assert len(spans) == (5 + sum(ROUTE_WRAPPERS.values())
                           + sum(ROUTE_PHIM_STEPS.values()))

@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --sass LIBRARY KERNEL...   (SASS counts only)
     python3 chip_smoke.py --steps m20480 REPEATS     (one step's windows only)
+    python3 chip_smoke.py --rowsplit                 (m = 2^15 transforms only)
 
 Phases, each of which raises on failure (any failure exits nonzero and
 prints no result line):
@@ -84,7 +85,9 @@ prints no result line):
      each transform's grid (tiles a prime, rows a block, waves of the
      card's resident blocks, beside the ceil(slots / L) grid that
      sync_tiles replaced) and its device time, and that time over waves x
-     rows a block (time_transform_grids);
+     rows a block (time_transform_grids), then each on the rowsplit
+     schedule against the sync schedule (fsi_ct_sync) in turns, ns a
+     (row, prime) and share of ntt_bound (time_rowsplit);
   6. the applications: the port's Test_Regression and Test_Statistics
      CLIs at m = 8192, p = 40961, g = 3 on a d = 4, n = 256 dataset made
      from the seed (both on the wide lane); each must print MATCH and
@@ -1526,9 +1529,8 @@ def time_mixed_transforms(card, dc, batch):
     device (device_ms): the wrapper, the N-point kernel, the plain steps;
     printed beside UNFUSED_MIXED_MS."""
     import torch
-    from fhe_si_tpu_torch.ops import cuda_build, ntt_ct, ntt_ct_cuda
+    from fhe_si_tpu_torch.ops import ntt_ct, ntt_ct_cuda
     meta = dc.ct_meta
-    lib = cuda_build.library("ct_ntt")
     rng = np.random.default_rng(SEED)
     sums = {"wrapper": 0.0, "kernel": 0.0, "steps": 0.0}
     for name, basis, rows, _ in step_cases(dc, batch)[:4]:
@@ -1543,20 +1545,9 @@ def time_mixed_transforms(card, dc, batch):
             run = (lambda x: ntt_ct_cuda.ct_inv(T, x, meta, 't2i_crt')) \
                 if inv else (lambda x: ntt_ct_cuda.ct_fwd(T, x, meta))
         x = torch.as_tensor(x.astype(np.int32), device=dc.device)
-        keys, S, R = ((('k_t1i', 'k_t2i_crt', 'k_twi', 'k_consts'),
-                       meta.N1, meta.N2) if inv else
-                      (('k_t2', 'k_t1', 'k_tw', 'k_consts'), meta.N2, meta.N1))
 
         def n_point(v):
-            out = torch.empty((rows, L, meta.N), dtype=torch.int32,
-                              device=dc.device)
-            err = lib.fsi_ct_sync(
-                int(name == "ct_fwd_digits"), v.data_ptr(),
-                *(T[k].data_ptr() for k in keys), out.data_ptr(), rows, L, S,
-                R, torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"fsi_ct_sync: CUDA error {err}")
-            return out
+            return _sync_transform(dc, name, T, v)
         if inv:
             pre = lambda: ntt_ct.insert_excluded(x, meta).contiguous()  # noqa: E731
             post = lambda full: ntt_ct.fold_mod_phim(  # noqa: E731
@@ -1634,6 +1625,115 @@ def time_transform_grids(card, dc, batch):
         del x
     print(f"[{card}] m={dc.ctx.m} B={batch} step's transforms: device "
           f"{total:.4f} ms")
+
+
+def _sync_transform(dc, name, T, x):
+    """fsi_ct_sync: the transform `name` of x on the sync schedule,
+    whatever schedule its split takes (the forward transforms' row
+    [N2][N1], the inverse's [N1][N2] with t2i_crt), N wide."""
+    import torch
+    from fhe_si_tpu_torch.ops import cuda_build
+    meta, L = dc.ct_meta, T['q'].shape[0]
+    inv = name == "ct_inv"
+    keys, S, R = ((('k_t1i', 'k_t2i_crt', 'k_twi', 'k_consts'), meta.N1,
+                   meta.N2) if inv else
+                  (('k_t2', 'k_t1', 'k_tw', 'k_consts'), meta.N2, meta.N1))
+    out = torch.empty((x.shape[0], L, meta.N), dtype=torch.int32,
+                      device=x.device)
+    err = cuda_build.library("ct_ntt").fsi_ct_sync(
+        int(name == "ct_fwd_digits"), x.data_ptr(),
+        *(T[k].data_ptr() for k in keys), out.data_ptr(), x.shape[0], L, S,
+        R, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"fsi_ct_sync: CUDA error {err}")
+    return out
+
+
+def time_rowsplit(card, dc, batch):
+    """The four transforms of one mul+relin step on `batch` pairs at
+    m = 2^15 (the wide cell's shapes at 64 pairs: [256, 23] forward,
+    [192, 23] and [128, 13] inverse, [1920, 16384] digits -> 13), each
+    through its wrapper, which runs the rowsplit schedule there, held
+    equal to the sync schedule (fsi_ct_sync) and timed alone on the device
+    (device_ms) in turns, sync, rowsplit, rowsplit, sync: ns a (row, prime)
+    and the share of ntt_bound of each.  Returns {name: (rowsplit ms,
+    sync ms)}, summed over the two inverses."""
+    import torch
+    from fhe_si_tpu_torch.ops import cuda_build, ntt_ct_cuda
+    meta = dc.ct_meta
+    if {ntt_ct_cuda.kernel_schedule(meta.N2, meta.N1),
+            ntt_ct_cuda.kernel_schedule(meta.N1, meta.N2)} != {"rowsplit"}:
+        raise AssertionError(f"m={dc.ctx.m}: not a split of the rowsplit "
+                             "schedule")
+    rng = np.random.default_rng(SEED)
+    got = {}
+    for name, basis, rows, _ in step_cases(dc, batch)[:4]:
+        T, q = getattr(dc, basis)['ct'], getattr(dc, basis)['primes_np']
+        L = len(q)
+        if name == "ct_fwd_digits":
+            x = rng.integers(0, 1 << dc.digit_bits, size=(rows, meta.phim))
+            run = lambda x: ntt_ct_cuda.ct_fwd_digits(  # noqa: E731
+                T, x, meta, dc.digit_bits)
+        else:
+            x = rng.integers(0, q[:, None], size=(rows, L, meta.phim))
+            run = (lambda x: ntt_ct_cuda.ct_inv(T, x, meta, 't2i_crt')) \
+                if name == "ct_inv" else \
+                (lambda x: ntt_ct_cuda.ct_fwd(T, x, meta))
+        x = torch.as_tensor(x.astype(np.int32), device=dc.device)
+        cuda_build.reset_launches()
+        if not torch.equal(run(x), _sync_transform(dc, name, T, x)):
+            raise AssertionError(f"{name} m={dc.ctx.m} [{rows}, {L}]: "
+                                 "rowsplit != sync")
+        if cuda_build.SCHEDULES != {"pingpong": 0, "sync": 0, "rowsplit": 1}:
+            raise AssertionError(f"{name}: schedules {cuda_build.SCHEDULES}")
+        ms = {"sync": [], "rowsplit": []}
+        for which in ("sync", "rowsplit", "rowsplit", "sync"):
+            fn = (lambda: run(x)) if which == "rowsplit" else \
+                (lambda: _sync_transform(dc, name, T, x))
+            t = device_ms(fn, 10)
+            if t is None:
+                raise AssertionError(f"{name}: the host was slower than the "
+                                     "spin")
+            ms[which].append(t)
+        bound, by = ntt_bound(name, rows, L, meta.phim, meta.N, meta.N1,
+                              meta.N2)
+        line = f"[{card}] {name} m={dc.ctx.m} {basis} [{rows}, {L}]:"
+        for which in ("rowsplit", "sync"):
+            lo, hi = min(ms[which]), max(ms[which])
+            line += (f" {which} {lo:.4f}-{hi:.4f} ms, "
+                     f"{1e6 * lo / (rows * L):.1f}-{1e6 * hi / (rows * L):.1f}"
+                     f" ns a (row, prime), {100 * bound / hi:.1f}-"
+                     f"{100 * bound / lo:.1f}% of {1e3 * bound:.1f} us ({by});")
+        print(line.rstrip(";"))
+        prev = got.get(name, (0.0, 0.0))
+        got[name] = (prev[0] + sum(ms["rowsplit"]) / 2,
+                     prev[1] + sum(ms["sync"]) / 2)
+        del x
+    total = [sum(v[i] for v in got.values()) for i in (0, 1)]
+    print(f"[{card}] m={dc.ctx.m} B={batch} step's transforms, device ms: "
+          f"rowsplit {total[0]:.4f}, sync {total[1]:.4f}")
+    return got
+
+
+def rowsplit_only(dev) -> int:
+    """The rowsplit schedule alone: the build's ptxas lines of
+    ct_mma_kernel (registers, spills; C75xx warnings of serialized
+    wgmma), then time_rowsplit at the wide cell's 64 pairs."""
+    from fhe_si_tpu_torch import DeviceContext, FheContext
+    from fhe_si_tpu_torch.ops import cuda_build
+    card = card_line()
+    print(f"card: {card}")
+    log = cuda_build.build()
+    for line in ptxas_report(log):
+        if "ct_mma_kernel" in line:
+            print(f"ptxas {line}")
+    for line in log.splitlines():
+        if "C75" in line:   # ptxas serialized the wgmma of some kernel
+            print(f"nvcc: {line.strip()}")
+    dc = DeviceContext(FheContext(**M15), dev)
+    time_rowsplit(card, dc, BATCH15_CELL)
+    print(card_line())
+    return 0
 
 
 def phase_objects(dev, big_ctx, main_dc):
@@ -2421,6 +2521,8 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--steps"]:
         return steps_only(dev, sys.argv[2], int(sys.argv[3]))
+    if sys.argv[1:2] == ["--rowsplit"]:
+        return rowsplit_only(dev)
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -2491,6 +2593,7 @@ def main() -> int:
     m15_ms = time_kernels(card, dev, dc15, step_cases(dc15, BATCH15),
                           per_step15)
     time_transform_grids(card, dc15, BATCH15_CELL)
+    time_rowsplit(card, dc15, BATCH15_CELL)
     del dc15, ksw15, pairs15, out15
     print(f"peak device memory (phases 3-5): "
           f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")

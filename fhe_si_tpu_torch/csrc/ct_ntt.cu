@@ -10,8 +10,8 @@
 // in one launch.
 //
 // Replaces the three Pallas TPU kernels of fhe_si_tpu/ops/ntt_ct_pallas.py
-// with one tensor-core kernel, ct_mma_kernel<DIGITS, TPW, PINGPONG> (the
-// last argument its schedule, below):
+// with one tensor-core kernel, ct_mma_kernel<DIGITS, TPW, SCHED, PHIM>
+// (SCHED its schedule, below):
 //   fsi_ct_fwd        <- _fwd_res_kernel    (:148)  DIGITS false, S = N2
 //   fsi_ct_fwd_digits <- _fwd_digits_kernel (:137)  DIGITS true,  S = N2
 //   fsi_ct_inv        <- _inv_kernel        (:158)  DIGITS false, S = N1
@@ -48,6 +48,10 @@
 //     vs 29.3 us: bytes;
 //   fsi_ct_inv [192, 12, 4096]: 75.5 MB, 22.5 us vs 11.0 us: bytes;
 //   fsi_ct_inv [128, 8, 4096]: 33.6 MB, 10.0 us vs 4.9 us: bytes.
+// At m = 2^15 (N1 = N2 = 128) the int8 count, 2 * 9 * N * (N1 + N2) per
+// (row, prime), is what bounds them: the 36,928 (row, prime) transforms
+// of the wide mul+relin at 64 pairs take 1.41 ms of int8 operations
+// against 0.99 ms of int32 bytes.
 //
 // The design:
 // * Stages on the int8 tensor cores.  Table entries (< 2^23) and operands
@@ -99,7 +103,9 @@
 // * S not a multiple of 4 (S = 2 at m <= 16, S = 6 at m = 96 forward,
 //   S = 9 at m = 54 inverse): an output row [R][S] is not a multiple of
 //   16 bytes, so stage 2 stores element by element.
-// * m = 2^15 (N1 = N2 = 128).  The four byte-plane blocks A1, A2, B1, B2
+// * m = 2^15 (N1 = N2 = 128) on this schedule (fsi_ct_sync; the
+//   transforms there run the rowsplit schedule, below).  The four
+//   byte-plane blocks A1, A2, B1, B2
 //   take 55,296 bytes each, 221,184 of a block's 232,448; the twiddle
 //   pairs (139,264 bytes) do not fit beside them.  Geo keeps the twiddle
 //   in shared memory wherever the whole layout fits (every m <= 2^14) and
@@ -113,12 +119,13 @@
 //   row's loads overlapping the current row's stages matter more, not
 //   less, than at two blocks.
 //
-// ---- two schedules of ct_mma_kernel ----
+// ---- three schedules of ct_mma_kernel ----
 // launch_mma picks the schedule from the split (S, R), which the input's
 // shape fixes (fsi_ct_schedule; ops/ntt_ct_cuda.py kernel_schedule
 // mirrors the rule):
-// * sync: everything above, for every split the ping-pong does not take
-//   (m <= 4096, m = 2^15, mixed radix, odd R, S not a multiple of 4).
+// * sync: everything above, for every split neither wgmma schedule takes
+//   (m <= 4096, mixed radix, odd R, S not a multiple of 4), and for
+//   every launch with the phim <-> N steps.
 // * pingpong: both sides multiples of 64, at most 8192 entries a row, and
 //   the two-row layout inside kSmemMax (m = 8192: 64 x 64; m = 2^14:
 //   64 x 128 and 128 x 64).  What held the sync schedule at m = 8192 was
@@ -144,6 +151,34 @@
 //   diagonals and Shoup reductions; the stage-1 twiddle's Shoup product
 //   also reduces the folded diagonals, and every stage's output is
 //   canonical, so the outputs are bit-identical.
+// * rowsplit: sides multiples of 64, S * R a power of two above 8192
+//   (phim = N), a split the ping-pong does not take, and one row's planes
+//   in core matrices inside kSmemMax: m = 2^15, 128 x 128, whose two
+//   rows' planes (294,912 bytes) do not fit the ping-pong.  One row at a
+//   time on a block, as the sync schedule, with its A1, A2, B1 and B2
+//   byte planes laid as the ping-pong lays them (196,608 bytes; the
+//   twiddle pairs stay in global memory) and the grid of sync_tiles.
+//   Each stage is split between the two warpgroups by 64-row halves of
+//   M; a warpgroup runs its half as m64 x n64 tiles of 4 K-steps x 9
+//   plane products of asynchronous wgmma, one commit group a tile, and
+//   reduces a landed tile while the other warpgroup's products run.
+//   Block-wide barriers stand only where the data needs them: B1 written
+//   before stage 1; all of B2 written before stage 2 (whose K spans both
+//   halves); B2 free before the next row's stage 1.  The next row is
+//   fetched in two halves of 32 registers: the first under stage 1,
+//   split into B1 once stage 2's first products are issued (stage 2 does
+//   not read B1); the second under stage 2.  The arithmetic is the
+//   ping-pong's (fold_diagonals and the twiddle's Shoup product in stage
+//   1, reduce_diagonals in stage 2), so the outputs are bit-identical,
+//   and the loops around the wgmmas have compile-time counts and no
+//   branch on the thread.  Measured on the wide cell's shapes (H100
+//   SXM): a warpgroup that issues its next tile's products before it
+//   reduces the current tile (m64 x n32, two accumulator sets) spilled
+//   220-344 bytes and took 129-156 ns a (row, prime) against 109-126 ns
+//   here: the other warpgroup's products already fill the tensor cores,
+//   and n64 tiles read each A byte plane from shared memory half as often.
+//   The products alone take about 50-56 ns a (row, prime); the epilogues,
+//   twiddle loads and the row's fetch the rest.
 //
 // ---- the phim <-> N steps ----
 // A ring m = 2^a * q^b with q odd has phim = N (q - 1)/q < N; its
@@ -631,7 +666,7 @@ struct PGeo {
 // The split rule (fsi_ct_schedule): sides multiples of 64, a warpgroup's
 // prefetched row at most 16 input tiles a warp (S * R <= 8192), and the
 // planes of two rows inside kSmemMax.
-__host__ __device__ bool pingpong_takes(int S, int R) {
+__host__ __device__ constexpr bool pingpong_takes(int S, int R) {
   return S % kTile == 0 && R % kTile == 0 && S * R <= 8192 &&
          PGeo(S, R).planes_bytes() <= kSmemMax;
 }
@@ -888,15 +923,227 @@ __device__ __forceinline__ void pingpong_rows(uint8_t* mma_smem, const int32_t* 
   }
 }
 
-template <bool DIGITS, int TPW, bool PINGPONG, int PHIM>
-__global__ void __launch_bounds__(kThreads, PINGPONG || TPW > 8 ? 1 : 2)
+// ---- the rowsplit schedule (header: "three schedules") ----
+
+// Shared memory of one row [S][R] on the rowsplit schedule: the prime's
+// A1 [3][S][S] and A2 [3][R][R], the row's B1 [3][R][S] and B2 [3][S][R],
+// every plane in core matrices; the twiddle pairs stay in global memory.
+__host__ __device__ constexpr int rowsplit_bytes(int S, int R) {
+  return kPlanes * (S * S + R * R) + 2 * kPlanes * S * R;
+}
+
+// The split rule (fsi_ct_schedule): sides multiples of 64, S * R a power
+// of two above 8192 (phim = N: no phim <-> N step), a split the ping-pong
+// does not take, and one row's planes inside kSmemMax.  Only 128 x 128
+// (m = 2^15) meets it: 64 x 256 needs 307,200 bytes.
+__host__ __device__ constexpr bool rowsplit_takes(int S, int R) {
+  return S % kTile == 0 && R % kTile == 0 && S * R > 8192 && (S * R & (S * R - 1)) == 0 &&
+         !pingpong_takes(S, R) && rowsplit_bytes(S, R) <= kSmemMax;
+}
+static_assert(rowsplit_takes(128, 128) && !rowsplit_takes(64, 256) && !rowsplit_takes(256, 64) &&
+                  !rowsplit_takes(64, 128) && !rowsplit_takes(192, 64),
+              "the rowsplit schedule is built for 128 x 128 alone");
+
+// A prime's table planes [3][M][Ks] (the host's rows) into shared memory
+// as [3][M][M] in core matrices
+template <int M, int Ks>
+__device__ __forceinline__ void load_core_planes(uint8_t* dst, const uint8_t* src, int tid) {
+  constexpr int chunks = M / 16;
+  for (int i = tid; i < kPlanes * M * chunks; i += kThreads) {
+    const int c = i % chunks, r = (i / chunks) % M, p = i / (chunks * M);
+    *reinterpret_cast<uint4*>(dst + p * M * M + core_off(r, 16 * c, M)) =
+        __ldg(reinterpret_cast<const uint4*>(src + (p * M + r) * Ks + 16 * c));
+  }
+}
+
+// One stage C = A [M][K] @ B [N][K]^T on the rowsplit schedule: the
+// warpgroup's 64 rows of M from row m0, both operands K-major in core
+// matrices, as N / 64 tiles of m64 x n64, K / 32 steps x 9 plane products
+// each into the five diagonals, one commit group a tile; epi(acc, n0)
+// reduces a landed tile whose first column is n0, while the other
+// warpgroup's products run.  hook() runs once the first tile's products
+// are issued.
+template <int M, int N, int K, typename Epi, typename Hook>
+__device__ __forceinline__ void rowsplit_stage(const uint8_t* A, const uint8_t* B, int m0,
+                                               Epi&& epi, Hook&& hook) {
+  static_assert(N % kTile == 0 && K % 32 == 0, "whole n64 tiles, whole K steps");
+  // 16-byte units: plane, tile rows (8 rows = 8 K bytes), k step (256 bytes)
+  const uint64_t da = smem_desc(A, K) + ((m0 * K) >> 4), db = smem_desc(B, K);
+#pragma unroll
+  for (int n0 = 0; n0 < N; n0 += kTile) {
+    uint32_t acc[5][32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < K / 32; ++kk)
+#pragma unroll
+      for (int pa = 0; pa < kPlanes; ++pa)
+#pragma unroll
+        for (int pb = 0; pb < kPlanes; ++pb) {
+          const uint64_t a = da + ((pa * M * K + kk * 256) >> 4);
+          const uint64_t b = db + ((pb * N * K + n0 * K + kk * 256) >> 4);
+          const bool starts = kk == 0 && (pa == 0 || pb == kPlanes - 1);
+          wgmma_u8(acc[pa + pb], a, b, starts ? 0 : 1);
+        }
+    wgmma_commit();
+    if (n0 == 0) hook();   // a compile-time test: the loop is unrolled
+    wgmma_wait_all();
+    fence_acc(acc);
+    epi(acc, n0);
+  }
+}
+
+// The rowsplit schedule (header) of a row [S][R].  One block per (prime
+// blockIdx.x, tile of rows blockIdx.y), one block an SM; both warpgroups
+// work on each row of the tile, warpgroup wg on the rows 64 wg .. of each
+// stage's M.  The row loop's count is the block's; no loop around a
+// wgmma branches on the thread, and the last row fetches itself again
+// into B1, which nothing reads after it.
+template <bool DIGITS, int S, int R>
+__device__ __forceinline__ void rowsplit_rows(uint8_t* mma_smem, const int32_t* __restrict__ x,
+                                              const uint8_t* __restrict__ a1g,
+                                              const uint8_t* __restrict__ a2g,
+                                              const uint32_t* __restrict__ twg,
+                                              const uint32_t* __restrict__ kcg,
+                                              int32_t* __restrict__ out, long long rows,
+                                              int rows_per_tile, int L) {
+  static_assert(rowsplit_takes(S, R), "a split of the rowsplit rule");
+  constexpr int N = S * R, R8 = R / 8;
+  constexpr int kHalf = N / 128 / kWarps / 2;   // input tiles a warp in each half of a row
+  constexpr int Ks1 = pad_to(S, 32) + 16, Ks2 = pad_to(R, 32) + 16;   // the host planes' rows
+  constexpr int kPlane = S * R, kTws = pad_to(2 * R + 16, 4);
+  uint8_t* a1 = mma_smem;
+  uint8_t* a2 = a1 + kPlanes * S * S;
+  uint8_t* b1 = a2 + kPlanes * R * R;
+  uint8_t* b2 = b1 + kPlanes * kPlane;
+  const int l = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31;
+  // warp and warpgroup, broadcast so that the compiler sees them warp-uniform
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  const int wg = warp >> 2, wq = warp & 3;
+  const long long row_begin = static_cast<long long>(blockIdx.y) * rows_per_tile;
+  const long long row_end = min(rows, row_begin + rows_per_tile);
+
+  // the prime's tables, once per block, the planes re-laid in core matrices
+  load_core_planes<S, Ks1>(a1, a1g + static_cast<size_t>(l) * kPlanes * S * Ks1, tid);
+  load_core_planes<R, Ks2>(a2, a2g + static_cast<size_t>(l) * kPlanes * R * Ks2, tid);
+  const uint32_t* twl = twg + static_cast<size_t>(l) * S * kTws;
+  const PrimeConsts k = load_consts(kcg, l);
+
+  // input tiles as the sync schedule's, over the block's 8 warps, in two
+  // halves of kHalf tiles a warp (the rows k < S/2, then the rest)
+  const int nl = lane & 7, kl = lane >> 3;
+  uint32_t pre[kHalf][4];
+  const auto fetch = [&](long long row, int half) {
+    const int32_t* in = DIGITS ? x + row * N : x + (row * L + l) * N;
+#pragma unroll
+    for (int s = 0; s < kHalf; ++s) {
+      const int tile = warp + kWarps * (s + kHalf * half);
+      const int n = (tile % R8) * 8 + nl, kg = (tile / R8) * 4 + kl;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        pre[s][j] = static_cast<uint32_t>(__ldg(in + (4 * kg + j) * R + n));
+    }
+  };
+  const auto split = [&](int half) {   // the fetched half as byte planes B1[p][n][k]
+#pragma unroll
+    for (int s = 0; s < kHalf; ++s) {
+      const int tile = warp + kWarps * (s + kHalf * half);
+      const int n = (tile % R8) * 8 + nl, kg = (tile / R8) * 4 + kl;
+      uint8_t* dst = b1 + core_off(n, 4 * kg, S);
+#pragma unroll
+      for (int p = 0; p < kPlanes; ++p) {
+        const uint32_t sel = p | ((p + 4) << 4);
+        const uint32_t lo = __byte_perm(pre[s][0], pre[s][1], sel);
+        const uint32_t hi = __byte_perm(pre[s][2], pre[s][3], sel);
+        *reinterpret_cast<uint32_t*>(dst + p * kPlane) = __byte_perm(lo, hi, 0x5410);
+      }
+    }
+  };
+
+  const int g = lane >> 2, tq = lane & 3;
+  const int m_wg = kTile * wg;   // the warpgroup's first row of each stage's M
+  fetch(row_begin, 0);
+  split(0);
+  fetch(row_begin, 1);
+  split(1);
+  fence_async_smem();
+  __syncthreads();   // the tables and the first row's B1
+  for (long long row = row_begin; row < row_end; ++row) {
+    const long long next = min(row + 1, row_end - 1);
+    fetch(next, 0);
+
+    // stage 1: C1 = A1 @ in, the warpgroup's rows of S, reduced by the
+    // twiddle's Shoup product, byte planes into B2[p][m][n]
+    rowsplit_stage<S, R, S>(
+        a1, b1, m_wg,
+        [&](const uint32_t(&acc)[5][32], int n0) {
+#pragma unroll
+          for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int m = m_wg + 16 * wq + g + 8 * h, n = n0 + 8 * j + 2 * tq;
+              const uint32_t s0 = fold_diagonals(acc, 4 * j + 2 * h, k);
+              const uint32_t s1 = fold_diagonals(acc, 4 * j + 2 * h + 1, k);
+              const uint4 w = __ldg(reinterpret_cast<const uint4*>(twl + m * kTws + 2 * n));
+              const uint32_t y0 = csub(shoup(s0, w.x, w.y, k.q), k.q);
+              const uint32_t y1 = csub(shoup(s1, w.z, w.w, k.q), k.q);
+              uint8_t* dst = b2 + core_off(m, n, R);
+#pragma unroll
+              for (int p = 0; p < kPlanes; ++p)
+                *reinterpret_cast<uint16_t*>(dst + p * kPlane) =
+                    static_cast<uint16_t>(__byte_perm(y0, y1, p | ((p + 4) << 4)));
+            }
+        },
+        [] {});
+    fence_async_smem();
+    __syncthreads();   // all of B2 written; B1 free
+
+    // stage 2: C2 = A2 @ C1^T, the warpgroup's rows of R, reduced, out[m][n];
+    // the next row's first half goes into B1 under its first products
+    int32_t* orow = out + (row * L + l) * N;
+    rowsplit_stage<R, S, R>(
+        a2, b2, m_wg,
+        [&](const uint32_t(&acc)[5][32], int n0) {
+#pragma unroll
+          for (int j = 0; j < kTile / 8; ++j) {
+            const uint32_t v0 = reduce_diagonals(acc, 4 * j, k);
+            const uint32_t v1 = reduce_diagonals(acc, 4 * j + 1, k);
+            const uint32_t v2 = reduce_diagonals(acc, 4 * j + 2, k);
+            const uint32_t v3 = reduce_diagonals(acc, 4 * j + 3, k);
+            // lane pairs trade halves, as the sync schedule's stage 2
+            const bool odd = tq & 1;
+            const uint32_t r0 = __shfl_xor_sync(0xffffffffu, odd ? v0 : v2, 1);
+            const uint32_t r1 = __shfl_xor_sync(0xffffffffu, odd ? v1 : v3, 1);
+            const uint4 o = odd ? make_uint4(r0, r1, v2, v3) : make_uint4(v0, v1, r0, r1);
+            const int m = m_wg + 16 * wq + g + (odd ? 8 : 0);
+            const int n = n0 + 8 * j + 2 * tq - (odd ? 2 : 0);
+            *reinterpret_cast<uint4*>(orow + m * S + n) = o;
+          }
+        },
+        [&] {
+          split(0);
+          fetch(next, 1);
+        });
+    split(1);
+    fence_async_smem();
+    __syncthreads();   // B1 holds the next row; B2 free (both warpgroups' stage 2 has waited)
+  }
+}
+
+// The schedules (header): SCHED of ct_mma_kernel, and fsi_ct_schedule's codes
+enum : int { kSync = 0, kPingpong = 1, kRowsplit = 2 };
+
+template <bool DIGITS, int TPW, int SCHED, int PHIM>
+__global__ void __launch_bounds__(kThreads, SCHED != kSync || TPW > 8 ? 1 : 2)
 ct_mma_kernel(const int32_t* __restrict__ x, const uint8_t* __restrict__ a1g,
               const uint8_t* __restrict__ a2g, const uint32_t* __restrict__ twg,
               const uint32_t* __restrict__ kcg, int32_t* __restrict__ out,
               long long rows, int rows_per_tile, int L, int S, int R, PhimMap ph) {
-  static_assert(!PINGPONG || PHIM == kPhimNone, "the ping-pong takes m = 2^k only");
+  static_assert(SCHED == kSync || PHIM == kPhimNone, "the wgmma schedules take m = 2^k only");
   extern __shared__ __align__(128) uint8_t mma_smem[];
-  if constexpr (PINGPONG) {
+  if constexpr (SCHED == kRowsplit) {
+    rowsplit_rows<DIGITS, 128, 128>(mma_smem, x, a1g, a2g, twg, kcg, out, rows, rows_per_tile, L);
+  } else if constexpr (SCHED == kPingpong) {
     if constexpr (TPW == 8)
       pingpong_rows<DIGITS, 64, 64>(mma_smem, x, a1g, a2g, twg, kcg, out, rows, rows_per_tile, L);
     else if (S == 64)
@@ -935,17 +1182,19 @@ struct MmaGrid {
   long long slots, per_tile, ntiles;
 };
 
-// The sync schedule takes sync_tiles; the ping-pong floor(slots / L),
-// whose one block an SM would otherwise leave a second, short wave.
-// With grid_only, the grid is written there and nothing is launched.
-template <bool DIGITS, int TPW, bool PINGPONG, int PHIM>
+// The sync and rowsplit schedules take sync_tiles; the ping-pong
+// floor(slots / L), whose one block an SM would otherwise leave a second,
+// short wave.  With grid_only, the grid is written there and nothing is
+// launched.
+template <bool DIGITS, int TPW, int SCHED, int PHIM>
 cudaError_t launch_mma_tpw(const int32_t* x, const uint8_t* a1, const uint8_t* a2,
                            const uint32_t* tw, const uint32_t* kc, int32_t* out,
                            long long rows, int L, int S, int R, const PhimMap& ph,
                            cudaStream_t stream, MmaGrid* grid_only) {
-  auto kernel = ct_mma_kernel<DIGITS, TPW, PINGPONG, PHIM>;
-  const int smem = PINGPONG ? PGeo(S, R).smem_bytes()
-                            : Geo(S, R, PHIM == kPhimInv ? ph.s : 0).smem_bytes();
+  auto kernel = ct_mma_kernel<DIGITS, TPW, SCHED, PHIM>;
+  const int smem = SCHED == kPingpong   ? PGeo(S, R).smem_bytes()
+                   : SCHED == kRowsplit ? rowsplit_bytes(S, R)
+                                        : Geo(S, R, PHIM == kPhimInv ? ph.s : 0).smem_bytes();
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
@@ -957,7 +1206,8 @@ cudaError_t launch_mma_tpw(const int32_t* x, const uint8_t* a1, const uint8_t* a
     return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const long long slots = static_cast<long long>(sms) * per_sm;
-  const long long tiles = PINGPONG ? (slots >= L ? slots / L : 1) : sync_tiles(rows, L, slots);
+  const long long tiles =
+      SCHED == kPingpong ? (slots >= L ? slots / L : 1) : sync_tiles(rows, L, slots);
   const long long per_tile = (rows + tiles - 1) / tiles;
   const long long ntiles = (rows + per_tile - 1) / per_tile;
   if (grid_only) {
@@ -971,11 +1221,12 @@ cudaError_t launch_mma_tpw(const int32_t* x, const uint8_t* a1, const uint8_t* a
 }
 
 // PHIM: the phim <-> N steps of the launch (kPhimNone on m = 2^k, and on
-// the ping-pong, which takes only m = 8192 and 2^14)
+// the two wgmma schedules, which take only m = 8192, 2^14 and 2^15);
+// allow_wgmma false keeps the sync schedule on every split (fsi_ct_sync)
 template <bool DIGITS, int PHIM = kPhimNone>
 cudaError_t launch_mma(const void* x, const void* a1, const void* a2, const void* tw,
                        const void* kc, void* out, long long rows, int L, int S, int R,
-                       void* stream, bool allow_pingpong = true, PhimMap ph = PhimMap{},
+                       void* stream, bool allow_wgmma = true, PhimMap ph = PhimMap{},
                        MmaGrid* grid_only = nullptr) {
   if (rows < 0 || rows > 0x7fffffffLL || L < 1 || L > 65535 || S < 2 || R < 2 ||
       S > 1024 || R > 1024)
@@ -987,17 +1238,20 @@ cudaError_t launch_mma(const void* x, const void* a1, const void* a2, const void
                     static_cast<const uint32_t*>(kc), static_cast<int32_t*>(out), rows, L, S,
                     R, ph, static_cast<cudaStream_t>(stream), grid_only);
   };
-  if constexpr (PHIM == kPhimNone)
-    if (allow_pingpong && pingpong_takes(S, R))
-      return S * R <= 4096 ? args(launch_mma_tpw<DIGITS, 8, true, kPhimNone>)
-                           : args(launch_mma_tpw<DIGITS, 16, true, kPhimNone>);
+  if constexpr (PHIM == kPhimNone) {
+    if (allow_wgmma && pingpong_takes(S, R))
+      return S * R <= 4096 ? args(launch_mma_tpw<DIGITS, 8, kPingpong, kPhimNone>)
+                           : args(launch_mma_tpw<DIGITS, 16, kPingpong, kPhimNone>);
+    if (allow_wgmma && rowsplit_takes(S, R))   // 128 x 128 (static_assert above)
+      return args(launch_mma_tpw<DIGITS, 16, kRowsplit, kPhimNone>);
+  }
   const int in_tiles = ((R + 7) / 8) * ((S + 15) / 16);
   const int tpw = (in_tiles + kWarps - 1) / kWarps;
-  if (tpw <= 1) return args(launch_mma_tpw<DIGITS, 1, false, PHIM>);
-  if (tpw <= 2) return args(launch_mma_tpw<DIGITS, 2, false, PHIM>);
-  if (tpw <= 4) return args(launch_mma_tpw<DIGITS, 4, false, PHIM>);
-  if (tpw <= 8) return args(launch_mma_tpw<DIGITS, 8, false, PHIM>);
-  if (tpw <= 16) return args(launch_mma_tpw<DIGITS, 16, false, PHIM>);
+  if (tpw <= 1) return args(launch_mma_tpw<DIGITS, 1, kSync, PHIM>);
+  if (tpw <= 2) return args(launch_mma_tpw<DIGITS, 2, kSync, PHIM>);
+  if (tpw <= 4) return args(launch_mma_tpw<DIGITS, 4, kSync, PHIM>);
+  if (tpw <= 8) return args(launch_mma_tpw<DIGITS, 8, kSync, PHIM>);
+  if (tpw <= 16) return args(launch_mma_tpw<DIGITS, 16, kSync, PHIM>);
   return cudaErrorInvalidValue;
 }
 
@@ -1073,20 +1327,24 @@ int fsi_ct_inv(const void* e, const void* a1, const void* a2, const void* tw,
 
 // The schedule that launch_mma chooses for a row [S][R] (fsi_ct_fwd and
 // fsi_ct_fwd_digits: S = N2, R = N1; fsi_ct_inv: S = N1, R = N2):
-// 1 ping-pong, 0 sync.  No mixed-radix split is one the ping-pong takes
-// (sides that are multiples of 64 and N <= 8192 make N a power of two).
-int fsi_ct_schedule(int S, int R) { return pingpong_takes(S, R) ? 1 : 0; }
+// 1 ping-pong, 2 rowsplit, 0 sync.  No mixed-radix split is one a wgmma
+// schedule takes (sides that are multiples of 64 and N <= 8192 make N a
+// power of two; the rowsplit rule asks for one).
+int fsi_ct_schedule(int S, int R) {
+  return pingpong_takes(S, R) ? kPingpong : rowsplit_takes(S, R) ? kRowsplit : kSync;
+}
 
 // Dynamic shared memory of the chosen schedule's layout, with the fold's
 // tail of fold_words words (fsi_ct_inv on a mixed-radix ring: s = N/q;
 // 0 otherwise), and the current device's per-block limit.
 long long fsi_ct_mma_smem(int S, int R, int fold_words) {
-  return fold_words == 0 && pingpong_takes(S, R) ? PGeo(S, R).smem_bytes()
-                                                 : Geo(S, R, fold_words).smem_bytes();
+  if (fold_words == 0 && pingpong_takes(S, R)) return PGeo(S, R).smem_bytes();
+  if (fold_words == 0 && rowsplit_takes(S, R)) return rowsplit_bytes(S, R);
+  return Geo(S, R, fold_words).smem_bytes();
 }
 
 // The sync schedule on any split it takes, for the tests that hold the
-// two schedules equal: the forward transforms' (digits 1: fsi_ct_fwd_digits)
+// wgmma schedules equal to it: the forward transforms' (digits 1: fsi_ct_fwd_digits)
 // or the inverse's tables and row [S][R], N wide.
 int fsi_ct_sync(int digits, const void* x, const void* a1, const void* a2, const void* tw,
                 const void* kc, void* out, long long rows, int L, int S, int R, void* stream) {

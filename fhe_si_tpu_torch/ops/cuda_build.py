@@ -76,7 +76,7 @@ LAUNCHES = dict.fromkeys(("ct_fwd", "ct_fwd_digits", "ct_inv", "crt_to_limbs",
                           "limbs_to_residues", "tensor_product",
                           "keyswitch_dot", "byte_decomp", "route_enter",
                           "route_leave"), 0)
-SCHEDULES = {"pingpong": 0, "sync": 0}
+SCHEDULES = {"pingpong": 0, "sync": 0, "rowsplit": 0}
 
 
 def reset_launches():

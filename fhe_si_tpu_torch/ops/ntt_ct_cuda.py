@@ -21,11 +21,11 @@ memory, which check_kernel_shape counts (fold_words).  Where the byte
 planes leave no room for the twiddle pairs beside them (m = 2^15 on
 128 x 128, both orientations of m = 20480), the kernel reads the
 twiddle from global memory; twiddle_in_global states the rule and
-TWIDDLE_GLOBAL counts those launches.  On the sync schedule each prime
-gets the row tiles that sync_tiles chooses from the card's resident
-blocks, so that no launch leaves a short last wave where one block fits
-an SM (m = 2^15, m = 20480); launch_grid reads a launch's grid from
-ct_ntt.cu.  The kernel reads
+TWIDDLE_GLOBAL counts those launches.  On the sync and rowsplit
+schedules each prime gets the row tiles that sync_tiles chooses from the
+card's resident blocks, so that no launch leaves a short last wave where
+one block fits an SM (m = 2^15, m = 20480); launch_grid reads a launch's
+grid from ct_ntt.cu.  The kernel reads
 the byte planes and Shoup reciprocals that kernel_tables prepares here
 on the host and DeviceContext keeps beside the tables (T['ct']); tables
 without them raise on a CUDA tensor.
@@ -40,8 +40,13 @@ kernel_takes before any launch.
 cuda_build.launch launches the kernel; cuda_build.LAUNCHES counts the
 launches of each wrapper, cuda_build.SCHEDULES the same launches by the
 kernel's schedule: the ping-pong on asynchronous wgmma where both sides
-of the split are multiples of 64 and two rows fit (m = 8192 and 2^14),
-the sync schedule (mma.sync) on every other split.  ct_ntt.cu chooses it
+of the split are multiples of 64 and two rows fit (m = 8192 and 2^14,
+each warpgroup a row of its own); the rowsplit schedule, asynchronous
+wgmma on one row at a time, where both sides are multiples of 64, N is a
+power of two above 8192 and one row fits (m = 2^15, 128 x 128: each
+warpgroup takes half of each stage and reduces its tiles while the
+other's products run); the sync schedule (mma.sync) on every other split and
+on every launch with the phim <-> N steps.  ct_ntt.cu chooses it
 (fsi_ct_schedule); kernel_schedule mirrors the rule.
 
 What the kernels' exactness rests on (ct_ntt.cu header; the limits of
@@ -144,22 +149,39 @@ def _pingpong_planes(S: int, R: int) -> int:
     return 3 * (S * S + R * R) + 2 * 2 * 3 * S * R
 
 
+def _rowsplit_planes(S: int, R: int) -> int:
+    """ct_ntt.cu rowsplit_bytes: the prime's A1 and A2 planes and one
+    row's B1 and B2 planes, unpadded."""
+    return 3 * (S * S + R * R) + 2 * 3 * S * R
+
+
 def kernel_schedule(S: int, R: int) -> str:
     """The schedule ct_mma_kernel runs a row [S][R] on (ct_ntt.cu
-    pingpong_takes, which fsi_ct_schedule reports): 'pingpong' where both
-    sides are multiples of 64, S * R <= 8192 and the two-row planes fit
-    in SMEM_MAX (m = 8192: 64 x 64; m = 2^14: 64 x 128 and 128 x 64),
-    'sync' otherwise."""
-    if (S % 64 == 0 and R % 64 == 0 and S * R <= 8192
-            and _pingpong_planes(S, R) <= SMEM_MAX):
-        return "pingpong"
+    pingpong_takes and rowsplit_takes, which fsi_ct_schedule reports):
+    'pingpong' where both sides are multiples of 64, S * R <= 8192 and
+    the two-row planes fit in SMEM_MAX (m = 8192: 64 x 64; m = 2^14:
+    64 x 128 and 128 x 64); 'rowsplit' where both sides are multiples of
+    64, S * R is a power of two above 8192 and one row's planes fit
+    (m = 2^15: 128 x 128); 'sync' otherwise.  A launch with the
+    phim <-> N steps runs the sync schedule whatever the split: none of
+    these splits has them."""
+    if S % 64 == 0 and R % 64 == 0:
+        N = S * R
+        if N <= 8192 and _pingpong_planes(S, R) <= SMEM_MAX:
+            return "pingpong"
+        if (N > 8192 and N & (N - 1) == 0
+                and _rowsplit_planes(S, R) <= SMEM_MAX):
+            return "rowsplit"
     return "sync"
 
 
 def _planes(S: int, R: int, fold: int) -> int:
     """kernel_smem without the twiddle pairs."""
-    if not fold and kernel_schedule(S, R) == "pingpong":
+    schedule = "sync" if fold else kernel_schedule(S, R)
+    if schedule == "pingpong":
         return _pingpong_planes(S, R)
+    if schedule == "rowsplit":
+        return _rowsplit_planes(S, R)
     ks1, ks2 = _pad(S, 32) + 16, _pad(R, 32) + 16
     return 3 * (_pad(S, 16) * ks1 + _pad(R, 16) * ks2
                 + _pad(R, 16) * ks1 + _pad(S, 16) * ks2) + _pad(4 * fold, 16)
@@ -176,7 +198,8 @@ def twiddle_in_global(S: int, R: int, fold: int = 0) -> bool:
 
 def kernel_smem(S: int, R: int, fold: int = 0) -> int:
     """Dynamic shared memory of ct_mma_kernel for a row [S][R] on its
-    schedule: PGeo's or Geo's formula in ct_ntt.cu (fsi_ct_mma_smem
+    schedule: PGeo's, rowsplit_bytes' or Geo's formula in ct_ntt.cu
+    (fsi_ct_mma_smem
     returns the same number on the card).  The byte-plane blocks, the
     fold's tail of `fold` words rounded up to 16 bytes (the inverse on a
     mixed-radix ring, fold_words(meta); only the sync schedule folds),
@@ -267,7 +290,8 @@ def reset_twiddle_global():
 
 
 def sync_tiles(rows: int, L: int, slots: int) -> int:
-    """The row tiles each of L primes gets on the sync schedule, on a
+    """The row tiles each of L primes gets on the sync and rowsplit
+    schedules, on a
     card of `slots` resident blocks (ct_ntt.cu sync_tiles, which
     launch_mma_tpw applies): the smallest t in 1 .. min(rows, slots) of
     least ceil(L t / slots) waves x (ceil(rows / t) + 1), the rows a block
@@ -304,9 +328,14 @@ def launch_grid(name: str, ints: tuple, device: torch.device) -> tuple:
     return tiles, -(-rows // tiles), slots
 
 
+# ct_mma_kernel's schedules by fsi_ct_schedule's code (ct_ntt.cu kSync,
+# kPingpong, kRowsplit)
+_SCHEDULE_CODES = ("sync", "pingpong", "rowsplit")
+
+
 @functools.cache
 def _schedule(S: int, R: int) -> str:
-    return ("sync", "pingpong")[library("ct_ntt").fsi_ct_schedule(S, R)]
+    return _SCHEDULE_CODES[library("ct_ntt").fsi_ct_schedule(S, R)]
 
 
 def _check(name, x, tail: tuple):

@@ -159,11 +159,12 @@ def test_cell_metric_set():
 
 
 # (S, R, fold words) -> whether the layout leaves the twiddle in global
-# memory, and kernel_smem: m = 2^15's 128 x 128 and both orientations of
-# m = 20480 (its inverse with the fold's 2048-word tail) do; m = 8192's
-# 64 x 64 and m = 2^14's forward 64 x 128 keep it in shared memory
+# memory, and kernel_smem: m = 2^15's 128 x 128 (the rowsplit schedule's
+# one-row planes) and both orientations of m = 20480 (its inverse with
+# the fold's 2048-word tail) do; m = 8192's 64 x 64 and m = 2^14's
+# forward 64 x 128 keep it in shared memory
 TWIDDLE_RULE = [
-    pytest.param((128, 128, 0, True, 221184), id="m32768-128x128"),
+    pytest.param((128, 128, 0, True, 196608), id="m32768-128x128"),
     pytest.param((80, 128, 0, True, 159744), id="m20480-fwd-80x128"),
     pytest.param((128, 80, 2048, True, 167936), id="m20480-inv-128x80"),
     pytest.param((64, 64, 0, False, 110592), id="m8192-64x64"),

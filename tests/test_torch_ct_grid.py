@@ -1,4 +1,4 @@
-"""The sync schedule's grid: the row tiles each prime gets
+"""The sync and rowsplit schedules' grid: the row tiles each prime gets
 (ntt_ct_cuda.sync_tiles, the mirror of ct_ntt.cu's rule), against the
 grid of ceil(slots / L) tiles a prime that it replaced, on the launches
 of the benchmark cells' mul+relin and over a sweep of shapes.  No card:
@@ -95,17 +95,20 @@ def _step_launches(ctx, pairs):
     pytest.param("ct8192_q80.b64", (0, 0, 0), id="m8192")])
 def test_rebalanced_launches_of_the_cells(cell, want):
     """The launches of a 64-pair mul+relin whose grid the rule changes at
-    132 slots, as the card's launch_grid reads them: 1, 1, 2 at m = 2^15,
-    0, 1, 0 at m = 20480, none at m = 8192, whose splits the ping-pong
-    takes (its grid is not the rule's)."""
+    132 slots, as the card's launch_grid reads them: 1, 1, 2 at m = 2^15
+    (the rowsplit schedule, on sync_tiles' grid as the sync schedule),
+    0, 1, 0 at m = 20480 (the sync schedule), none at m = 8192, whose
+    splits the ping-pong takes (its grid is not the rule's)."""
     c = cells.load(cell)
     ctx = program.context(c.config)
     N1, N2 = ntt_ct._split(ctx.m // 2)
     schedules = {ntt_ct_cuda.kernel_schedule(N2, N1),
                  ntt_ct_cuda.kernel_schedule(N1, N2)}
-    assert schedules == {"pingpong" if ctx.m == 8192 else "sync"}
+    assert schedules == {{8192: "pingpong", 32768: "rowsplit"}.get(ctx.m,
+                                                                  "sync")}
     got = dict.fromkeys(TRANSFORMS, 0)
     for name, rows, L in _step_launches(ctx, c.traffic["pairs_per_call"]):
-        got[name] += schedules == {"sync"} and _changed(rows, L, H100_SLOTS)
+        got[name] += (schedules != {"pingpong"}
+                      and _changed(rows, L, H100_SLOTS))
     assert tuple(got.values()) == want
 

@@ -146,8 +146,8 @@ def _all_transforms_match_plain(cuda, meta, T, seed, schedule="sync",
             n += 1
     torch.cuda.synchronize()
     assert _launched(NTT) == {"ct_fwd": n, "ct_fwd_digits": n, "ct_inv": 2 * n}
-    other = {"sync": "pingpong", "pingpong": "sync"}[schedule]
-    assert cuda_build.SCHEDULES == {schedule: 4 * n, other: 0}
+    assert cuda_build.SCHEDULES == {k: 4 * n * (k == schedule)
+                                    for k in cuda_build.SCHEDULES}
     mixed = n if meta.q_odd > 1 else 0
     fold = ntt_ct_cuda.folds_in_kernel(meta)
     assert ntt_ct_cuda.PHIM_FUSED == {"ct_fwd": mixed, "ct_fwd_digits": mixed,
@@ -180,11 +180,11 @@ def test_tensor_core_kernel_m16384(cuda):
 
 @pytest.mark.cuda
 def test_tensor_core_kernel_m32768(cuda):
-    """The largest ring the kernel takes (N1 x N2 = 128 x 128: the twiddle
-    in global memory, 16 prefetched tiles per warp), on one narrow and one
-    wide prime."""
+    """The largest ring the kernel takes (N1 x N2 = 128 x 128: the rowsplit
+    schedule, the twiddle in global memory), on one narrow and one wide
+    prime."""
     meta, T = _kernel_tables(cuda, 1 << 15, [786433, 8257537])
-    _all_transforms_match_plain(cuda, meta, T, 15, "sync")
+    _all_transforms_match_plain(cuda, meta, T, 15, "rowsplit")
 
 
 @pytest.mark.cuda
@@ -266,6 +266,8 @@ def test_kernel_shape_rule_matches_card(cuda):
             lib.fsi_ct_mma_smem(N1, N2, fold), m
     assert lib.fsi_ct_mma_smem(128, 80, 2048) == 167936
     assert lib.fsi_ct_mma_smem(81, 81, 2187) == 196096
+    assert lib.fsi_ct_mma_smem(128, 128, 0) == \
+        ntt_ct_cuda.kernel_smem(128, 128) == 196608
 
 
 @pytest.mark.cuda
@@ -303,8 +305,11 @@ def test_schedule_rule_matches_card(cuda):
               for R in (2, 5, 32, 64, 80, 81, 128, 192)]
     for S, R in splits:
         want = ntt_ct_cuda.kernel_schedule(S, R)
-        assert ("sync", "pingpong")[lib.fsi_ct_schedule(S, R)] == want, (S, R)
+        assert ntt_ct_cuda._SCHEDULE_CODES[lib.fsi_ct_schedule(S, R)] == \
+            want, (S, R)
     assert ntt_ct_cuda.kernel_schedule(64, 64) == "pingpong"
+    assert lib.fsi_ct_schedule(128, 128) == 2
+    assert ntt_ct_cuda.kernel_schedule(128, 128) == "rowsplit"
 
 
 # (m, N1, N2, phim, q_odd) of the rings whose launches the grid tests
@@ -362,15 +367,15 @@ def _transform_launches(monkeypatch) -> list:
 
 
 def _sync_grids_changed(cuda, launches) -> dict:
-    """Each recorded launch runs the sync schedule on the grid of
-    sync_tiles (launch_grid: tiles a prime and rows a tile, as ct_ntt.cu
-    launched them); per transform, the launches whose grid that differs
-    from ceil(slots / L) tiles a prime."""
+    """Each recorded launch runs the sync or the rowsplit schedule on the
+    grid of sync_tiles (launch_grid: tiles a prime and rows a tile, as
+    ct_ntt.cu launched them); per transform, the launches whose grid that
+    differs from ceil(slots / L) tiles a prime."""
     changed = dict.fromkeys(NTT, 0)
     for name, ints, schedule in launches:
         rows, L = ints[:2]
         tiles, per_tile, slots = ntt_ct_cuda.launch_grid(name, ints, cuda)
-        assert schedule == "sync", (name, ints)
+        assert schedule in ("sync", "rowsplit"), (name, ints)
         assert (tiles, per_tile) == ntt_ct_cuda.tile_grid(
             rows, ntt_ct_cuda.sync_tiles(rows, L, slots)), (name, ints)
         changed[name] += _rebalanced(rows, L, slots)
@@ -397,7 +402,7 @@ def test_rebalanced_grids_match_plain(cuda, monkeypatch):
         with monkeypatch.context() as mp:
             launches = _transform_launches(mp)
             _all_transforms_match_plain(cuda, dc.ct_meta, T["ct"], 32768,
-                                        rows=rows)
+                                        "rowsplit", rows=rows)
         # two rounds (random, extremes) a row count, each a forward, a
         # digits and two inverse launches
         n = 2 * sum(changed)
@@ -512,7 +517,64 @@ def test_pingpong_matches_plain_and_sync(cuda, prime_bits):
                 assert torch.equal(ed, _sync_schedule(ct, d, meta, "digits"))
                 launches += 4
     torch.cuda.synchronize()
-    assert cuda_build.SCHEDULES == {"pingpong": launches, "sync": 0}
+    assert cuda_build.SCHEDULES == {"pingpong": launches, "sync": 0,
+                                    "rowsplit": 0}
+
+# m = 2^15 on the rowsplit schedule: the wide cell's bases (23 and 13
+# primes below 2^23) and four narrow primes 1 mod 2^15
+ROWSPLIT_BASES = [pytest.param("wide", id="wide-cell"),
+                  pytest.param([65537, 163841, 557057, 786433], id="narrow")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("basis", ROWSPLIT_BASES)
+def test_rowsplit_matches_sync(cuda, basis):
+    """m = 2^15 (128 x 128) on the rowsplit schedule: every transform
+    (ct_fwd, ct_fwd_digits with digits up to 2^24 - 1, ct_inv with t2i
+    and, on the cell's bases, t2i_crt) equal limb for limb to the sync
+    schedule (fsi_ct_sync)
+    on 1, 3, 133 and the cell's 1920 rows, random and, at 133 rows, at the
+    extremes (every residue q - 1, every digit 2^24 - 1), and to the plain
+    twin on 1 and 3 rows; every wrapper launch ran the rowsplit schedule."""
+    if basis == "wide":
+        dc = DeviceContext(FheContext(**{k: WIDE_CELL[k] for k in (
+            "m", "log_q", "p", "generator")}), cuda)
+        meta, tables = dc.ct_meta, [dc.full["ct"], dc.ksw["ct"]]
+        assert [t["q"].shape[0] for t in tables] == [23, 13]
+    else:
+        meta, T = _kernel_tables(cuda, 1 << 15, basis)
+        tables = [T]
+    assert (meta.N1, meta.N2) == (128, 128)
+    assert ntt_ct_cuda.kernel_schedule(128, 128) == "rowsplit"
+    rng = np.random.default_rng(26)
+    cuda_build.reset_launches()
+    launches = 0
+    for ct in tables:
+        q = ct["q"].cpu().numpy().astype(np.int64)
+        # the cell's bases carry t2i_crt, bare tables only t2i
+        keys = [k for k in ("t2i", "t2i_crt") if "k_" + k in ct]
+        assert len(keys) == (2 if basis == "wide" else 1)
+        for rows, worst in ((1, False), (3, False), (133, False),
+                            (133, True), (1920, False)):
+            x, d = _operands(cuda, rng, q, rows, meta.phim, worst)
+            ev = ntt_ct_cuda.ct_fwd(ct, x, meta)
+            assert torch.equal(ev, _sync_schedule(ct, x, meta, "fwd"))
+            ed = ntt_ct_cuda.ct_fwd_digits(ct, d, meta, 24)
+            assert torch.equal(ed, _sync_schedule(ct, d, meta, "digits"))
+            for key in keys:
+                z = ntt_ct_cuda.ct_inv(ct, ev, meta, key)
+                assert torch.equal(z, _sync_schedule(ct, ev, meta, "inv", key))
+                if rows <= 3:
+                    assert torch.equal(z, ntt_ct.ct_inv(ct, ev, meta, key))
+            if rows <= 3:
+                assert torch.equal(ev, ntt_ct.ct_fwd(ct, x, meta))
+                assert torch.equal(ed, ntt_ct.ct_fwd_digits(ct, d, meta, 24))
+            launches += 2 + len(keys)
+            del x, d, ev, ed, z
+    torch.cuda.synchronize()
+    assert cuda_build.SCHEDULES == {"pingpong": 0, "sync": 0,
+                                    "rowsplit": launches}
+
 
 @pytest.mark.cuda
 def test_split_with_a_side_of_one_raises(cuda):
@@ -1096,7 +1158,7 @@ def test_mul_relin_kernels_carry_their_wrapper_span(cuda, ring, use_ct):
     pytest.param((20480, 80, 40961, 3), 1, 1, "sync", id="m20480"),
     pytest.param((8192, 80, 40961, 3), 0, 0, "pingpong", id="m8192"),
     pytest.param(tuple(WIDE_CELL[k] for k in ("m", "log_q", "p", "generator")),
-                 0, 1, "sync", id="m32768-q220")])
+                 0, 1, "rowsplit", id="m32768-q220")])
 def test_mul_relin_does_the_phim_steps_in_the_kernel(cuda, ring, fused,
                                                      tw_global, schedule):
     """One mul_relin on the card on the mixed cell's ring: no plain
@@ -1136,8 +1198,8 @@ def test_mul_relin_does_the_phim_steps_in_the_kernel(cuda, ring, fused,
     assert ntt_ct_cuda.TWIDDLE_GLOBAL == {
         "ct_fwd": tw_global, "ct_fwd_digits": tw_global,
         "ct_inv": 2 * tw_global}
-    other = {"sync": "pingpong", "pingpong": "sync"}[schedule]
-    assert cuda_build.SCHEDULES == {schedule: 4, other: 0}
+    assert cuda_build.SCHEDULES == {k: 4 * (k == schedule)
+                                    for k in cuda_build.SCHEDULES}
     assert sum(cuda_build.LAUNCHES.values()) == 10
     assert tr.calls == 1 and len(tr.ops) == 11, [o.name for o in tr.ops]
     assert torch.equal(dev.mul_relin(ac, bc, mc).cpu(),

@@ -544,12 +544,13 @@ def test_phim_fused_counts_launches_only():
 
 # (S, R) -> the schedule ct_mma_kernel runs the row on and its shared
 # memory: ct_ntt.cu pingpong_takes with PGeo (the prime's A1 and A2, two
-# warpgroups' B1 and B2, unpadded), Geo on every other split
+# warpgroups' B1 and B2, unpadded), rowsplit_takes with rowsplit_bytes
+# (A1, A2 and one row's B1 and B2, unpadded), Geo on every other split
 SCHEDULE_RULE = [
     pytest.param((64, 64, "pingpong", 110592), id="m8192-64x64"),
     pytest.param((64, 128, "pingpong", 229376), id="m16384-fwd-64x128"),
     pytest.param((128, 64, "pingpong", 159744), id="m16384-inv-128x64"),
-    pytest.param((128, 128, "sync", 221184), id="m32768-128x128"),
+    pytest.param((128, 128, "rowsplit", 196608), id="m32768-128x128"),
     pytest.param((80, 128, "sync", 159744), id="m20480-fwd-80x128"),
     pytest.param((128, 80, "sync", 159744), id="m20480-inv-128x80"),
     pytest.param((81, 81, "sync", 187344), id="m13122-81x81"),
@@ -567,7 +568,8 @@ def test_schedule_rule(rule):
     ping-pong takes sides that are multiples of 64 with at most 8192
     entries a row whose two-row planes fit; the ping-pong's 64 x 64 layout
     is 73,728 bytes of planes and the 36,864-byte twiddle, 128 x 64 leaves
-    its twiddle in global memory as m = 2^15 does."""
+    its twiddle in global memory as m = 2^15 does; the rowsplit schedule
+    takes 128 x 128, one row's planes alone."""
     S, R, schedule, smem = rule
     assert nc.kernel_schedule(S, R) == schedule
     assert nc.kernel_smem(S, R) == smem
@@ -575,16 +577,56 @@ def test_schedule_rule(rule):
     if schedule == "pingpong":
         planes = 3 * (S * S + R * R) + 12 * S * R
         assert smem in (planes, planes + S * nc.tw_stride(R) * 4)
+    if schedule == "rowsplit":
+        assert smem == 3 * (S * S + R * R) + 6 * S * R
+
+
+# (S, R) -> the schedule of the rowsplit rule's neighbourhood: 128 x 128
+# alone takes it (sides multiples of 64, N a power of two above 8192, one
+# row's planes inside SMEM_MAX); the ping-pong keeps its splits, the sync
+# schedule the rest, and no split past 128 x 128 fits one row's planes
+ROWSPLIT_RULE = [
+    pytest.param((128, 128, "rowsplit"), id="128x128"),
+    pytest.param((64, 64, "pingpong"), id="64x64"),
+    pytest.param((64, 128, "pingpong"), id="64x128"),
+    pytest.param((128, 64, "pingpong"), id="128x64"),
+    pytest.param((192, 64, "sync"), id="192x64-not-a-power-of-two"),
+    pytest.param((128, 80, "sync"), id="128x80"),
+    pytest.param((80, 128, "sync"), id="80x128"),
+    pytest.param((81, 81, "sync"), id="81x81"),
+    pytest.param((64, 256, "sync"), id="64x256-past-smem"),
+    pytest.param((256, 64, "sync"), id="256x64-past-smem"),
+    pytest.param((256, 128, "sync"), id="256x128-past-smem"),
+    pytest.param((192, 128, "sync"), id="192x128-not-a-power-of-two")]
+
+
+@pytest.mark.parametrize("rule", ROWSPLIT_RULE)
+def test_rowsplit_rule(rule):
+    """The rowsplit rule at its edges: kernel_schedule, and the one-row
+    planes 3 (S^2 + R^2) + 6 S R against SMEM_MAX; at 128 x 128 the
+    layout is 196,608 bytes with the twiddle pairs in global memory (they
+    would need 139,264 more), so TWIDDLE_GLOBAL still counts there."""
+    S, R, schedule = rule
+    assert nc.kernel_schedule(S, R) == schedule
+    planes = 3 * (S * S + R * R) + 6 * S * R
+    rowsplit = (S % 64 == 0 and R % 64 == 0 and S * R > 8192
+                and S * R & (S * R - 1) == 0 and planes <= nc.SMEM_MAX)
+    assert (schedule == "rowsplit") == rowsplit
+    if schedule == "rowsplit":
+        assert nc.kernel_smem(S, R) == planes == 196608
+        assert nc.twiddle_in_global(S, R)
+        assert S * nc.tw_stride(R) * 4 == 139264
 
 
 @pytest.mark.parametrize("m,schedule", [
-    (8192, "pingpong"), (1 << 14, "pingpong"), (1 << 15, "sync"),
+    (8192, "pingpong"), (1 << 14, "pingpong"), (1 << 15, "rowsplit"),
     (4096, "sync"), (20480, "sync"), (13122, "sync"), (32, "sync")])
 def test_schedule_of_every_transform(m, schedule):
     """Both orientations of a ring's split take one schedule: the forward
     transforms' row [N2][N1] and the inverse's [N1][N2].  m = 8192, the
-    benchmark's ring, and m = 2^14 run the ping-pong; m = 2^15, the
-    mixed-radix splits and m <= 4096 the sync schedule."""
+    benchmark's ring, and m = 2^14 run the ping-pong; m = 2^15 the
+    rowsplit schedule; the mixed-radix splits and m <= 4096 the sync
+    schedule."""
     N1, N2 = ntt_ct._split(m // 2)
     assert nc.kernel_schedule(N2, N1) == nc.kernel_schedule(N1, N2) == schedule
 
@@ -593,13 +635,14 @@ def test_schedules_count_launches_only():
     """SCHEDULES has one key a schedule, reset_launches zeroes it with
     LAUNCHES, and the plain versions that CPU tensors take count in
     neither."""
-    assert set(cuda_build.SCHEDULES) == {"pingpong", "sync"}
+    assert set(cuda_build.SCHEDULES) == {"pingpong", "sync", "rowsplit"}
     cuda_build.SCHEDULES["sync"] += 3
+    cuda_build.SCHEDULES["rowsplit"] += 4
     cuda_build.reset_launches()
-    assert cuda_build.SCHEDULES == {"pingpong": 0, "sync": 0}
+    assert cuda_build.SCHEDULES == {"pingpong": 0, "sync": 0, "rowsplit": 0}
     meta, ct, _, _ = _prime_tables(32, [97])
     T = {k: torch.as_tensor(v) for k, v in ct.items()}
     x = torch.zeros((2, 1, meta.phim), dtype=torch.int32)
     nc.ct_inv(T, nc.ct_fwd(T, x, meta), meta)
-    assert cuda_build.SCHEDULES == {"pingpong": 0, "sync": 0}
+    assert cuda_build.SCHEDULES == {"pingpong": 0, "sync": 0, "rowsplit": 0}
     assert not any(cuda_build.LAUNCHES.values())
